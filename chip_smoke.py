@@ -3,23 +3,27 @@
     python3 chip_smoke.py          # from the root of a checkout; needs one card
 
 It builds the hand-written kernels from ``yolotpu_torch/csrc/`` with nvcc
-for ``sm_90a`` and drives the port's main path, YOLOv2 at 416x416 in the
-int16-exact tier with synthetic weights from seed 0, in four phases:
+for ``sm_90a`` (one nvcc per source, all started together) and drives the
+port's main paths, YOLOv2 at 416x416 with synthetic weights from seed 0 in
+each integer tier (int16-exact; int8 w8a8 with the head16 epilogue; w8a16),
+in four phases:
 
 1. card: name and power limit, torch and CUDA versions, kernel build time;
-2. kernels: each kernel against its plain PyTorch version on the card at
-   all 23 yolov2 conv shapes (batch 2) and at edge cases (shift extremes,
-   sums built to wrap, weights and inputs at the int16 limits, C=3, N=425,
-   ragged M), compared with ``torch.equal``, with both times from CUDA
-   events; every case keeps most outputs unsaturated, so they depend on the
-   sums;
-3. slice: ``Engine.detect`` on three frames and ``predict_batch_rgb`` at
-   batch 8, the kernel launches of that run counted, the head held bit-equal
-   to the plain versions on the card and on the CPU, and the ms per batch
-   and batch-1 latency;
-4. profile: each conv alone at batch 8 and 1 (CUDA events), the forward's
-   device time by kernel against its time per forward (torch.profiler),
-   and the SM clock and power draw sampled beside them.
+2. kernels: each of the six kernels against its plain PyTorch version on
+   the card at all 23 yolov2 conv shapes of its kind (batch 2) and at edge
+   cases (shift extremes, per-channel shift vectors that mix them, sums
+   built to wrap, operands at the limits of their types, C=3, N=425, ragged
+   M, the int16-output head16 form of mm_s8), compared with ``torch.equal``,
+   with both times from CUDA events; every case keeps most outputs
+   unsaturated, so they depend on the sums;
+3. slices, one per tier: ``Engine.detect`` on three frames and
+   ``predict_batch_rgb`` at batch 8, the kernel launches of that run
+   counted, the head held bit-equal to the plain versions on the card and on
+   the CPU, and the ms per batch and batch-1 latency;
+4. profile, per tier: each conv alone at batch 8 and 1 (CUDA events), the
+   forward's device time by kernel against its time per forward
+   (torch.profiler, each kernel known by its full name), and the SM clock
+   and power draw sampled beside them.
 
 Any failed check raises, so the exit code is not 0. The line before the
 last is a JSON record of the kernels; the last is
@@ -42,11 +46,13 @@ import torch  # noqa: E402
 
 from yolotpu.models import zoo  # noqa: E402
 from yolotpu.names import names_for  # noqa: E402
-from yolotpu.quant import calibrate_activations, quantize_weights  # noqa: E402
+from yolotpu.quant import (calibrate_activations,  # noqa: E402
+                           calibrate_activations_int8, quantize_weights,
+                           quantize_weights_int8, quantize_weights_w8a16)
 from yolotpu.weights import WeightStore  # noqa: E402
 from yolotpu_torch.models import engine_plan  # noqa: E402
-from yolotpu_torch.models.yolov2 import YoloV2Int16  # noqa: E402
-from yolotpu_torch.ops import _build, q16  # noqa: E402
+from yolotpu_torch.models.yolov2 import YoloV2Q  # noqa: E402
+from yolotpu_torch.ops import _build, convops, q8, q16  # noqa: E402
 from yolotpu_torch.runtime.engine import Engine  # noqa: E402
 
 BATCH_SHAPES = 2
@@ -62,15 +68,43 @@ KERNEL_SOURCES = {
     "mm_q16": ("yolotpu_torch/csrc/mm_q16.cu", "yolotpu/ops/pallas_q16.py:1691"),
     "conv3x3_q16": ("yolotpu_torch/csrc/conv3x3_q16.cu",
                     "yolotpu/ops/pallas_q16.py:675"),
+    "mm_s8": ("yolotpu_torch/csrc/mm_s8.cu", "yolotpu/ops/pallas_matmul.py:186"),
+    "mm_w8a16": ("yolotpu_torch/csrc/mm_w8a16.cu",
+                 "yolotpu/ops/pallas_matmul.py:127"),
+    "conv3x3_s8": ("yolotpu_torch/csrc/conv3x3_s8.cu",
+                   "yolotpu/ops/pallas_q16.py:953"),
+    "conv3x3_w8a16": ("yolotpu_torch/csrc/conv3x3_w8a16.cu",
+                      "yolotpu/ops/pallas_q16.py:1048"),
 }
+KERNEL_MODULE = {name: (q16 if name in q16.LAUNCHES else q8)
+                 for name in KERNEL_SOURCES}
+TIERS = tuple(YoloV2Q.kernels)
+# tier -> the names of its (mm, conv3) kernels
+TIER_KERNELS = {tier: tuple(f.__name__ for f in fns)
+                for tier, fns in YoloV2Q.kernels.items()}
+# the 8-bit-weight kernels' cases: the spread the requantized sums aim at,
+# by output type, and the bound of x where a case keeps it narrow
+TARGET = {torch.int8: 2 ** 5, torch.int16: 2 ** 13}
+X_NARROW = {torch.int8: 31, torch.int16: 2047}
+WRAP_BLOCK8 = 1024   # 1024 products (-32768)*(-128) = 2^32
 
 
-class PlainYoloV2Int16(YoloV2Int16):
+class PlainYoloV2Q(YoloV2Q):
     """The same network with every conv through its kernel's plain PyTorch
     version, whatever the device: the reference the kernel path is held
     against on the card."""
-    mm = staticmethod(q16.mm_q16_plain)
-    conv3 = staticmethod(q16.conv3x3_q16_plain)
+    kernels = {"int16": (q16.mm_q16_plain, q16.conv3x3_q16_plain),
+               "int8": (q8.mm_s8_plain, q8.conv3x3_s8_plain),
+               "w8a16": (q8.mm_w8a16_plain, q8.conv3x3_w8a16_plain)}
+
+
+def launch_counts() -> dict:
+    return {**q16.LAUNCHES, **q8.LAUNCHES}
+
+
+def reset_launches() -> None:
+    q16.reset_launches()
+    q8.reset_launches()
 
 
 def say(msg: str) -> None:
@@ -105,23 +139,24 @@ class KernelCheck:
         self.plain_ms = {k: 0.0 for k in KERNEL_SOURCES}
 
     def compare(self, name: str, label: str, args: tuple, wraps: bool = False,
-                timed: bool = False) -> None:
-        kernel = getattr(q16, name)
-        plain = getattr(q16, name + "_plain")
-        got = kernel(*args)
-        want = plain(*args)
+                timed: bool = False, **kw) -> None:
+        kernel = getattr(KERNEL_MODULE[name], name)
+        plain = getattr(KERNEL_MODULE[name], name + "_plain")
+        got = kernel(*args, **kw)
+        want = plain(*args, **kw)
         torch.cuda.synchronize()
         err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
         self.max_abs_err[name] = max(self.max_abs_err[name], err)
         if not torch.equal(got, want):
             raise AssertionError(f"{name} {label}: kernel != plain "
                                  f"(max abs err {err})")
-        x, w, _, _, leaky = args
-        sat = (want == 32767) | (want == -32768)
+        x, w, leaky = args[0], args[1], args[4]
+        info = torch.iinfo(want.dtype)
+        sat = (want == info.max) | (want == info.min)
         if leaky:
-            sat |= want == -3276            # -32768 through the leaky
+            sat |= want == -((-info.min) // 10)   # the minimum through the leaky
         unsat = float((~sat).float().mean())
-        exact = (q16.mm_sum64 if name == "mm_q16" else q16.conv3x3_sum64)(x, w)
+        exact = (q16.mm_sum64 if name.startswith("mm") else q16.conv3x3_sum64)(x, w)
         wrapped = float(((exact.abs() >= 2.0 ** 31) & ~sat).float().mean())
         if unsat < UNSAT_FLOOR or (wraps and wrapped < WRAP_FLOOR):
             raise AssertionError(
@@ -129,11 +164,11 @@ class KernelCheck:
                 f"unsaturated, {wrapped:.3f} unsaturated with a wrapped sum")
         if not timed:
             return
-        k_ms = cuda_ms(lambda: kernel(*args), reps=10)
-        p_ms = cuda_ms(lambda: plain(*args), reps=3)
+        k_ms = cuda_ms(lambda: kernel(*args, **kw), reps=10)
+        p_ms = cuda_ms(lambda: plain(*args, **kw), reps=3)
         self.ms[name] += k_ms
         self.plain_ms[name] += p_ms
-        say(f"  {name:12s} {label:36s} equal, unsat {unsat:.3f} wrapped "
+        say(f"  {name:13s} {label:40s} equal, unsat {unsat:.3f} wrapped "
             f"{wrapped:.3f}  kernel {k_ms:8.3f} ms  plain {p_ms:8.3f} ms")
 
 
@@ -188,6 +223,105 @@ def wrap_operands(rng, rows: int, taps: int, n: int, shift: int, nblk: int,
     perm = rng.permutation(c)
     return (x[:, perm].astype(np.int16), w[:, perm].astype(np.int16),
             small_bias(rng, n))
+
+
+def bias8(rng, n: int, out: torch.dtype) -> np.ndarray:
+    """A bias small against the spread TARGET[out] of the sums."""
+    t = TARGET[out]
+    return rng.integers(-t // 2, t // 2, n).astype(np.int32)
+
+
+def full_operands8(rng, xshape, wshape, xdtype, out: torch.dtype):
+    """Full-range x (int8 or int16) and int8 w, their extremes included, a
+    shift per column within 1 of the one that spreads the requantized sums
+    about TARGET[out], and a small bias."""
+    xmax = int(np.iinfo(xdtype).max)
+    k, n = int(np.prod(wshape[:-1])), wshape[-1]
+    x = rng.integers(-xmax - 1, xmax + 1, xshape)
+    x.flat[:2] = [-xmax - 1, xmax]
+    w = rng.integers(-128, 128, wshape)
+    w.flat[:2] = [-128, 127]
+    base = round(np.log2(k ** 0.5 * xmax * 127 / 3 / TARGET[out]))
+    shift = base + rng.integers(-1, 2, n)
+    return (x.astype(xdtype), w.astype(np.int8), bias8(rng, n, out),
+            shift.astype(np.int32))
+
+
+def narrow_operands8(rng, xshape, wshape, xdtype, out: torch.dtype,
+                     shift: int):
+    """x and int8 w sized to one shift (broadcast to every column): K
+    products of two uniform [-rx, rx] x [-rw, rw] draws, a sum with standard
+    deviation sqrt(K) rx rw / 3, spread about TARGET[out] after the shift;
+    one row of x and one column of w at the extremes of their types."""
+    xmax = int(np.iinfo(xdtype).max)
+    k, n = int(np.prod(wshape[:-1])), wshape[-1]
+    d = 3 * TARGET[out] * 2.0 ** min(shift, 30) / k ** 0.5   # rx * rw
+    if xdtype == np.int8:
+        rx = rw = int(np.clip(d ** 0.5, 1, 127))
+    else:
+        rw, rx = 127, int(np.clip(d / 127, 1, xmax))
+    x = rng.integers(-rx, rx + 1, xshape)
+    w = rng.integers(-rw, rw + 1, wshape)
+    x.reshape(-1, xshape[-1])[0] = rng.choice([-xmax - 1, -xmax, xmax],
+                                               xshape[-1])
+    w[..., 0] = rng.choice([-128, -127, 127], wshape[:-1])
+    return (x.astype(xdtype), w.astype(np.int8), bias8(rng, n, out),
+            np.full(n, shift, np.int32))
+
+
+def mixed_operands8(rng, xshape, wshape, xdtype, out: torch.dtype):
+    """A shift vector that cycles through SHIFTS over the columns, x in
+    +-X_NARROW with its first row at the extremes of its type, and each
+    column j of w sized to its own shift: bound rw_j, and, where even
+    rw_j = 1 would sum too much, only k_j nonzero rows, so that each
+    column's requantized sums spread about TARGET[out]; w's first column at
+    -128/127."""
+    xmax = int(np.iinfo(xdtype).max)
+    k, n = int(np.prod(wshape[:-1])), wshape[-1]
+    rx = X_NARROW[torch.int8 if xdtype == np.int8 else torch.int16]
+    x = rng.integers(-rx, rx + 1, xshape)
+    x.reshape(-1, xshape[-1])[0] = rng.choice([-xmax - 1, -xmax, xmax],
+                                               xshape[-1])
+    shift = np.resize(np.array(SHIFTS, np.int32), n)
+    w = np.zeros((k, n), np.int64)
+    for j in range(n):
+        d = 3 * TARGET[out] * 2.0 ** min(int(shift[j]), 30)  # sqrt(k_j) rx rw
+        rw = int(np.clip(round(d / (k ** 0.5 * rx)), 1, 127))
+        kj = int(np.clip((d / (rx * rw)) ** 2, 1, k))
+        rows = rng.choice(k, kj, replace=False)
+        w[rows, j] = rng.integers(-rw, rw + 1, kj)
+    w[:, 0] = rng.choice([-128, 127], k)
+    return (x.astype(xdtype), w.reshape(wshape).astype(np.int8),
+            bias8(rng, n, out), shift)
+
+
+def wrap_operands8(rng, rows: int, taps: int, n: int, shift: int, nblk: int,
+                   npair: int = 8, ns: int = 37):
+    """The w8a16 form of wrap_operands: x (rows, C) int16, w (taps, C, N)
+    int8 whose exact sums leave int32 but wrap to small values, with
+    C = nblk*WRAP_BLOCK8 + 2*npair + ns in shuffled order: blocks of
+    WRAP_BLOCK8 channels at -32768 or 0 in x and -128 or 0 in w, each adding
+    a multiple of 2^32; pairs (v, -v) x (u, u) at +-32767 and +-127 that
+    cancel; ns channels with w uniform in +-127 and x sized to the shift."""
+    c = nblk * WRAP_BLOCK8 + 2 * npair + ns
+    x = np.zeros((rows, c), np.int64)
+    w = np.zeros((taps, c, n), np.int64)
+    for i in range(nblk):
+        blk = slice(i * WRAP_BLOCK8, (i + 1) * WRAP_BLOCK8)
+        x[:, blk] = np.where(rng.random((rows, 1)) < 0.5, -32768, 0)
+        w[:, blk] = np.where(rng.random((taps, 1, n)) < 0.5, -128, 0)
+    p = nblk * WRAP_BLOCK8
+    v = rng.choice([-32767, 32767], (rows, npair))
+    u = rng.choice([-127, 127], (taps, npair, n))
+    x[:, p:p + npair], x[:, p + npair:p + 2 * npair] = v, -v
+    w[:, p:p + npair], w[:, p + npair:p + 2 * npair] = u, u
+    d = 3 * TARGET[torch.int16] * 2.0 ** min(shift, 30) / (taps * ns) ** 0.5
+    r = int(np.clip(d / 127, 1, 32767))
+    x[:, p + 2 * npair:] = rng.integers(-r, r + 1, (rows, ns))
+    w[:, p + 2 * npair:] = rng.integers(-127, 128, (taps, ns, n))
+    perm = rng.permutation(c)
+    return (x[:, perm].astype(np.int16), w[:, perm].astype(np.int8),
+            bias8(rng, n, torch.int16), np.full(n, shift, np.int32))
 
 
 def phase_card() -> str:
@@ -266,17 +400,121 @@ def phase_kernels(check: KernelCheck, dev: torch.device) -> None:
         "unsaturated with a wrapped sum where built to wrap")
 
 
-def phase_slice(dev: torch.device) -> dict:
+def phase_kernels8(check: KernelCheck, dev: torch.device) -> None:
+    """The four kernels of the int8 and w8a16 tiers against their plain
+    versions."""
+    def on(*arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in arrays)
+
+    rng = np.random.default_rng(8)
     spec = zoo.build("yolov2")
+    head = spec.layers[spec.region.idx - 1]
+    say(f"[kernels] int8 and w8a16: yolov2 416x416 conv shapes at batch "
+        f"{BATCH_SHAPES}, full-range operands, a shift per column fitted to "
+        "them; the head conv of the int8 tier through mm_s8's int16 output "
+        "(head16: shift - 8, bias << 8)")
+    for l in spec.conv_layers():
+        mm = engine_plan.select_engine(l) == "mm"
+        xshape = ((BATCH_SHAPES * l.h * l.w, l.c) if mm
+                  else (BATCH_SHAPES, l.h, l.w, l.c))
+        wshape = (l.c, l.n) if mm else (3, 3, l.c, l.n)
+        leaky = l.activation == "leaky"
+        label = f"conv{l.idx} {l.h}x{l.w}x{l.c}->{l.n} {l.activation}"
+        x, w, b, s = on(*full_operands8(rng, xshape, wshape, np.int8,
+                                        torch.int8))
+        if l.idx == head.idx:
+            b, s = convops.head16(b, s)
+            check.compare("mm_s8", label + " head16", (x, w, b, s, leaky),
+                          timed=True, out_dtype=torch.int16)
+        else:
+            check.compare("mm_s8" if mm else "conv3x3_s8", label,
+                          (x, w, b, s, leaky), timed=True)
+        x, w, b, s = on(*full_operands8(rng, xshape, wshape, np.int16,
+                                        torch.int16))
+        check.compare("mm_w8a16" if mm else "conv3x3_w8a16", label,
+                      (x, w, b, s, leaky), timed=True)
+
+    say(f"[kernels] int8 and w8a16 edge cases, leaky on/off: shift vectors "
+        f"mixing {SHIFTS} over the columns; each shift broadcast; "
+        "operands at -128/127 and -32768/32767; C=3, N=425, ragged M, K, C; "
+        "mm_s8's int16 output at shift - 8 with bias << 8; w8a16 sums built "
+        f"to wrap from blocks of {WRAP_BLOCK8} products (-32768)*(-128). No "
+        "int8 x int8 case is built to wrap: |x*w| <= 2^14 and K <= 9*1280 "
+        "keep every such sum below 2^28")
+    cases = 0
+    for leaky in (False, True):
+        for xdtype, out, mm, c3 in ((np.int8, torch.int8, "mm_s8", "conv3x3_s8"),
+                                    (np.int16, torch.int16, "mm_w8a16",
+                                     "conv3x3_w8a16")):
+            # M=1000 (not a multiple of any tile), K=300, N=425
+            args = on(*mixed_operands8(rng, (1000, 300), (300, 425), xdtype, out))
+            check.compare(mm, f"mixed shifts 1000x300->425 leaky={leaky}",
+                          args[:4] + (leaky,))
+            for (bb, h, wd, c, n) in ((1, 13, 11, 3, 425), (2, 9, 7, 40, 70)):
+                args = on(*mixed_operands8(rng, (bb, h, wd, c), (3, 3, c, n),
+                                           xdtype, out))
+                check.compare(c3, f"mixed shifts {bb}x{h}x{wd}x{c}->{n} "
+                              f"leaky={leaky}", args[:4] + (leaky,))
+            cases += 3
+            for shift in SHIFTS:
+                args = on(*narrow_operands8(rng, (333, 72), (72, 64), xdtype,
+                                            out, shift))
+                check.compare(mm, f"shift={shift} 333x72->64 leaky={leaky}",
+                              args[:4] + (leaky,))
+                args = on(*narrow_operands8(rng, (1, 5, 3, 16), (3, 3, 16, 16),
+                                            xdtype, out, shift))
+                check.compare(c3, f"shift={shift} 1x5x3x16->16 leaky={leaky}",
+                              args[:4] + (leaky,))
+                cases += 2
+        # the int8 head16 form at the head's shape, M ragged
+        x, w, b, s = on(*full_operands8(rng, (2 * 169 + 7, 1024), (1024, 425),
+                                        np.int8, torch.int8))
+        b, s = convops.head16(b, s)
+        check.compare("mm_s8", f"head16 345x1024->425 leaky={leaky}",
+                      (x, w, b, s, leaky), out_dtype=torch.int16)
+        cases += 1
+        for shift in SHIFTS:
+            x, w, b, s = on(*wrap_operands8(rng, 1000, 1, 425, shift, nblk=4))
+            check.compare("mm_w8a16", f"wrap shift={shift} leaky={leaky}",
+                          (x, w[0], b, s, leaky), wraps=True)
+            x, w, b, s = on(*wrap_operands8(rng, 2 * 9 * 7, 9, 70, shift,
+                                            nblk=2))
+            c = x.shape[-1]
+            check.compare("conv3x3_w8a16",
+                          f"wrap 2x9x7x{c}->70 shift={shift} leaky={leaky}",
+                          (x.reshape(2, 9, 7, c), w.reshape(3, 3, c, 70), b, s,
+                           leaky), wraps=True)
+            cases += 2
+    say(f"[kernels] {cases} int8/w8a16 edge cases equal, each with at least "
+        f"{UNSAT_FLOOR} of its outputs unsaturated, and {WRAP_FLOOR} "
+        "unsaturated with a wrapped sum where built to wrap")
+
+
+def quantized_store(spec) -> WeightStore:
+    """Synthetic weights from seed 0, calibrated on one seeded image and
+    quantized for the three integer tiers, as load_or_synthesize does it."""
     store = WeightStore.synthetic(spec, seed=0)
     rng = np.random.default_rng(0)
     calib = [rng.random((3, spec.net.height, spec.net.width), dtype=np.float32)]
-    quantize_weights(store, calibrate_activations(spec, store, calib))
-    eng = Engine(spec, store, precision="int16", device=dev)
+    act_q = calibrate_activations(spec, store, calib)
+    quantize_weights(store, act_q)
+    quantize_weights_w8a16(store, act_q)
+    quantize_weights_int8(store, calibrate_activations_int8(spec, store, calib))
+    return store
+
+
+def phase_slice(spec, store: WeightStore, tier: str,
+                dev: torch.device) -> tuple[dict, YoloV2Q]:
+    """One tier's main path, its launch counts, its heads against the plain
+    versions on the card and the CPU, and its ms per batch and latency."""
+    eng = Engine(spec, store, precision=tier, device=dev)
+    mm, c3 = TIER_KERNELS[tier]
     n_mm = sum(k == "mm" for k in eng.model.kinds.values())
     n_c3 = sum(k == "conv3" for k in eng.model.kinds.values())
-    say(f"[slice] yolov2 {spec.net.width}x{spec.net.height} int16, "
-        f"{n_mm} mm_q16 + {n_c3} conv3x3_q16 convs per forward")
+    tag = f"[slice {tier}]"
+    say(f"{tag} yolov2 {spec.net.width}x{spec.net.height} {tier}, {n_mm} {mm} "
+        f"+ {n_c3} {c3} convs per forward")
 
     rng = np.random.default_rng(0)
     frames = [rng.random((3, 480, 640), dtype=np.float32) for _ in range(3)]
@@ -284,23 +522,33 @@ def phase_slice(dev: torch.device) -> dict:
                          dtype=np.uint8)
     names = names_for(spec.region.classes)
 
+    def expect(forwards: int) -> dict:
+        want = dict.fromkeys(launch_counts(), 0)
+        want[mm], want[c3] = forwards * n_mm, forwards * n_c3
+        return want
+
     # the main path, with the launch counts read around it
-    q16.reset_launches()
+    reset_launches()
     results = []
     for im in frames:
-        before = dict(q16.LAUNCHES)
+        before = launch_counts()
         results.append(eng.detect(im))
-        per = {k: q16.LAUNCHES[k] - before[k] for k in before}
-        if per != {"mm_q16": n_mm, "conv3x3_q16": n_c3}:
-            raise AssertionError(f"detect ran {per} kernel launches")
+        per = {k: v - before[k] for k, v in launch_counts().items()}
+        if per != expect(1):
+            raise AssertionError(f"{tag} detect ran {per} kernel launches")
     heads = eng.predict_batch_rgb(batch)
     torch.cuda.synchronize()
-    launches = dict(q16.LAUNCHES)
-    want = {"mm_q16": 4 * n_mm, "conv3x3_q16": 4 * n_c3}
-    if launches != want:
-        raise AssertionError(f"main path launched {launches}, want {want}")
-    say(f"[slice] main path (3 detect + 1 batch of {BATCH_SLICE}) launched "
-        f"{launches}")
+    launches = launch_counts()
+    if launches != expect(4):
+        raise AssertionError(f"{tag} main path launched {launches}, want "
+                             f"{expect(4)}")
+    head16 = q8.INT16_OUT_LAUNCHES["mm_s8"]
+    if head16 != (4 if tier == "int8" else 0):
+        raise AssertionError(f"{tag} {head16} mm_s8 launches wrote int16")
+    split = (f" ({launches[mm] - head16} with int8 output, {head16} with "
+             "int16: the head16 conv)" if tier == "int8" else "")
+    say(f"{tag} main path (3 detect + 1 batch of {BATCH_SLICE}) launched "
+        f"{mm} {launches[mm]}{split}, {c3} {launches[c3]}; no other kernel")
 
     for i, (dets, res) in enumerate(results):
         labels = sum(int((d.prob > 0.25).sum()) for d in dets)
@@ -309,33 +557,39 @@ def phase_slice(dev: torch.device) -> dict:
             f"obj {d.objectness:.3f} {names[int(d.prob.argmax())]} "
             f"p={d.prob.max():.4f} box ({d.bbox[0]:.3f},{d.bbox[1]:.3f},"
             f"{d.bbox[2]:.3f},{d.bbox[3]:.3f})" for d in top)
-        say(f"[slice] request {i}: {res.seconds * 1e3:.1f} ms, {len(dets)} boxes "
+        say(f"{tag} request {i}: {res.seconds * 1e3:.1f} ms, {len(dets)} boxes "
             f"over the objectness threshold, {labels} labels over 0.25"
             f"{'; top: ' + desc if desc else ''}")
         if not np.isfinite(res.head_chw).all():
-            raise AssertionError(f"request {i}: non-finite head")
+            raise AssertionError(f"{tag} request {i}: non-finite head")
 
     oc = spec.layers[-1].out_c
     lh, lw = spec.layers[-1].out_h, spec.layers[-1].out_w
     if heads.shape != (BATCH_SLICE, oc, lh, lw) or not np.isfinite(heads).all():
-        raise AssertionError(f"batch head {heads.shape}, finite "
+        raise AssertionError(f"{tag} batch head {heads.shape}, finite "
                              f"{np.isfinite(heads).all()}")
+    if len(np.unique(heads)) < 1000:
+        raise AssertionError(f"{tag} batch head takes only "
+                             f"{len(np.unique(heads))} values")
 
     # the same model through the plain versions, on the card and on the CPU
-    plain = PlainYoloV2Int16(spec, store.qtables, eng.params, dev)
+    plain = PlainYoloV2Q(spec, eng.qtables, eng.params, dev, tier)
     xb = torch.from_numpy(batch).to(dev)
     want_heads = plain(xb)["head"].permute(0, 3, 1, 2).cpu().numpy()
     if not np.array_equal(heads, want_heads):
-        raise AssertionError("batch head: kernels != plain versions on the card")
+        raise AssertionError(f"{tag} batch head: kernels != plain versions "
+                             "on the card")
     cpu_params = {k: {n: t.cpu() for n, t in v.items()} for k, v in eng.params.items()}
-    cpu_model = YoloV2Int16(spec, store.qtables, cpu_params, "cpu")
+    cpu_model = YoloV2Q(spec, eng.qtables, cpu_params, "cpu", tier)
     t0 = time.perf_counter()
     cpu_head = cpu_model(torch.from_numpy(batch[:1]))["head"].permute(0, 3, 1, 2).numpy()
     cpu_s = time.perf_counter() - t0
     if not np.array_equal(heads[:1], cpu_head):
-        raise AssertionError("frame 0 head: kernels on the card != plain on the CPU")
-    say(f"[slice] head {heads.shape} bit-equal: kernels == plain on the card "
-        f"(batch {BATCH_SLICE}) == plain on the CPU (frame 0, {cpu_s:.1f} s)")
+        raise AssertionError(f"{tag} frame 0 head: kernels on the card != "
+                             "plain on the CPU")
+    say(f"{tag} head {heads.shape} bit-equal: kernels == plain on the card "
+        f"(batch {BATCH_SLICE}) == plain on the CPU (frame 0, {cpu_s:.1f} s); "
+        f"{len(np.unique(heads))} distinct values")
 
     # throughput and latency on device-resident frames
     model = eng.model
@@ -349,23 +603,72 @@ def phase_slice(dev: torch.device) -> dict:
         model(x1)["head"].cpu()
         lat.append((time.perf_counter() - t0) * 1e3)
     p50, p90 = np.percentile(lat[5:], [50, 90])
-    say(f"[slice] batch {BATCH_SLICE}: {ms_b8:.3f} ms per batch "
+    say(f"{tag} batch {BATCH_SLICE}: {ms_b8:.3f} ms per batch "
         f"({BATCH_SLICE * 1e3 / ms_b8:.1f} frames/s) kernels, "
         f"{plain_ms_b8:.3f} ms plain versions")
-    say(f"[slice] batch 1 latency (host clock, head to host): p50 {p50:.3f} ms "
+    say(f"{tag} batch 1 latency (host clock, head to host): p50 {p50:.3f} ms "
         f"p90 {p90:.3f} ms")
-    return launches, model
+    return {mm: launches[mm], c3: launches[c3]}, model
 
 
-def phase_profile(model: YoloV2Int16, dev: torch.device) -> None:
-    """Where the device time goes, at batch BATCH_SLICE and 1: each conv
-    alone (CUDA events, random full-range operands at its shape), the
-    forward's device time by kernel (torch.profiler) against its time per
-    forward (CUDA events), and the SM clock and power sampled beside it."""
+def kernel_names(dev: torch.device) -> dict[str, str]:
+    """The profiler's full name of each kernel -> the kernel, learned from
+    one launch of each wrapper alone (mm_s8 with either output): a trace's
+    kernels are then told apart by their whole names, not by a part that
+    the instantiations of the shared body have in common."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    spec = model.spec
+    def t(shape, dtype):
+        return torch.ones(shape, dtype=dtype, device=dev)
+
+    i8, i16, i32 = torch.int8, torch.int16, torch.int32
+    b, s = t(16, i32), t(16, i32)
+    x8, x16 = t((40, 16), i8), t((40, 16), i16)
+    w8, w16 = t((16, 16), i8), t((16, 16), i16)
+    c8, c16 = t((1, 4, 4, 16), i8), t((1, 4, 4, 16), i16)
+    k8, k16 = t((3, 3, 16, 16), i8), t((3, 3, 16, 16), i16)
+    # the operands exist before the profiler starts: only the kernel runs
+    calls = [
+        ("mm_q16", lambda: q16.mm_q16(x16, w16, b, 3, True)),
+        ("conv3x3_q16", lambda: q16.conv3x3_q16(c16, k16, b, 3, True)),
+        ("mm_s8", lambda: q8.mm_s8(x8, w8, b, s, True)),
+        ("mm_s8", lambda: q8.mm_s8(x8, w8, b, s, True, i16)),
+        ("mm_w8a16", lambda: q8.mm_w8a16(x16, w8, b, s, True)),
+        ("conv3x3_s8", lambda: q8.conv3x3_s8(c8, k8, b, s, True)),
+        ("conv3x3_w8a16", lambda: q8.conv3x3_w8a16(c16, k8, b, s, True)),
+    ]
+    names: dict[str, str] = {}
+    for name, call in calls:
+        call()   # the first launch loads the library
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        keys = {e.key for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA}
+        if len(keys) != 1:
+            say(f"[profile] {name}: the profiler saw kernels {sorted(keys)}")
+            continue
+        names[keys.pop()] = name
+    return names
+
+
+def phase_profile(model: YoloV2Q, dev: torch.device,
+                  names: dict[str, str]) -> None:
+    """Where the device time goes in one tier, at batch BATCH_SLICE and 1:
+    each conv alone (CUDA events, random full-range operands at its shape),
+    the forward's device time by kernel (torch.profiler, kernels known by
+    their full names) against its time per forward (CUDA events), and the
+    SM clock and power sampled beside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    spec, tier = model.spec, model.precision
+    tag = f"[profile {tier}]"
+    mm, c3 = TIER_KERNELS[tier]
+    act = torch.int8 if tier == "int8" else torch.int16
+    lim = torch.iinfo(act)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(1)
     sampler = subprocess.Popen(
@@ -378,34 +681,28 @@ def phase_profile(model: YoloV2Int16, dev: torch.device) -> None:
             groups: dict[str, list] = {}
             for l in spec.conv_layers():
                 x = torch.from_numpy(rng.integers(
-                    -32768, 32768, (bsz, l.h, l.w, l.c)).astype(np.int16)).to(dev)
-                w = getattr(model, f"w{l.idx}")
-                b = getattr(model, f"b{l.idx}")
-                if model.kinds[l.idx] == "mm":
-                    fn = lambda: q16.mm_q16(x.reshape(-1, l.c), w, b, 16, True)  # noqa: E731
-                else:
-                    fn = lambda: q16.conv3x3_q16(x, w, b, 16, True)  # noqa: E731
-                ms = cuda_ms(fn, reps=10)
+                    lim.min, lim.max + 1, (bsz, l.h, l.w, l.c))).to(act).to(dev)
+                ms = cuda_ms(lambda: model._conv(l, x), reps=10)   # noqa: B023
                 macs = bsz * l.h * l.w * l.c * l.n * l.size * l.size
                 group = ("entry 3x3 C=3" if l.c == 3 else f"{l.size}x{l.size}"
                          + (" 13x13" if l.size == 3 and l.h == 13 else ""))
                 groups.setdefault(group, []).append((ms, macs))
-                say(f"[profile] b={bsz} conv{l.idx} {l.h}x{l.w}x{l.c}->{l.n} "
+                say(f"{tag} b={bsz} conv{l.idx} {l.h}x{l.w}x{l.c}->{l.n} "
                     f"{l.size}x{l.size}: {ms:.4f} ms {macs / ms / 1e9:.3f} "
-                    "T int16 MAC/s")
+                    f"T {tier} MAC/s")
             rows.append((bsz, groups))
 
             xb = torch.from_numpy(rng.integers(
                 0, 256, (bsz, spec.net.height, spec.net.width, 3),
                 dtype=np.uint8)).to(dev)
-            fwd_ms = cuda_ms(lambda: model(xb), reps=20)
+            fwd_ms = cuda_ms(lambda: model(xb), reps=20)   # noqa: B023
             reps = 10
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 for _ in range(reps):
                     model(xb)
                 torch.cuda.synchronize()
-            by = {"mm_q16": 0.0, "conv3x3_q16": 0.0, "glue": 0.0}
+            by = dict.fromkeys(KERNEL_SOURCES, 0.0) | {"glue": 0.0}
             glue_top = ("", 0.0)
             for e in prof.key_averages():
                 if e.device_type != DeviceType.CUDA:
@@ -414,19 +711,22 @@ def phase_profile(model: YoloV2Int16, dev: torch.device) -> None:
                 if us is None:
                     us = e.self_cuda_time_total
                 ms = us / 1e3 / reps
-                kind = ("mm_q16" if "MmLoader" in e.key else "conv3x3_q16"
-                        if "ConvLoader" in e.key else "glue")
+                kind = names.get(e.key, "glue")
                 by[kind] += ms
                 if kind == "glue" and ms > glue_top[1]:
                     glue_top = (e.key[:60], ms)
             dev_ms = sum(by.values())
             if dev_ms == 0:
-                say(f"[profile] b={bsz}: the profiler saw no device time; "
+                say(f"{tag} b={bsz}: the profiler saw no device time; "
                     "device time by kernel and idle share not measured")
                 continue
-            say(f"[profile] b={bsz} forward: {fwd_ms:.3f} ms (CUDA events), "
-                f"device busy {dev_ms:.3f} ms (profiler): conv3x3_q16 "
-                f"{by['conv3x3_q16']:.3f}, mm_q16 {by['mm_q16']:.3f}, glue "
+            others = {k: v for k, v in by.items()
+                      if v and k not in (mm, c3, "glue")}
+            if others:
+                raise AssertionError(f"{tag} the {tier} forward ran {others}")
+            say(f"{tag} b={bsz} forward: {fwd_ms:.3f} ms (CUDA events), "
+                f"device busy {dev_ms:.3f} ms (profiler): {c3} "
+                f"{by[c3]:.3f}, {mm} {by[mm]:.3f}, glue "
                 f"{by['glue']:.3f} (largest {glue_top[0]!r} {glue_top[1]:.3f}); "
                 f"convs {100 * (dev_ms - by['glue']) / dev_ms:.1f}% of device "
                 f"time, device idle {100 * max(0.0, 1 - dev_ms / fwd_ms):.1f}%")
@@ -438,7 +738,7 @@ def phase_profile(model: YoloV2Int16, dev: torch.device) -> None:
                     if ln.count(",") == 2 and "N/A" not in ln] or [[0, 0, 0]])
     busy = clk[clk[:, 2] >= np.median(clk[:, 2])]   # the busier half
     mhz = float(np.median(busy[:, 0]))
-    say(f"[profile] nvidia-smi over the phase ({len(clk)} samples, the "
+    say(f"{tag} nvidia-smi over the phase ({len(clk)} samples, the "
         f"busier half): SM clock median {mhz:.0f} MHz (max "
         f"{clk[:, 1].max():.0f}), power draw median {np.median(busy[:, 2]):.1f} W")
     for bsz, groups in rows:
@@ -447,8 +747,8 @@ def phase_profile(model: YoloV2Int16, dev: torch.device) -> None:
             macs = sum(v[1] for v in vals)
             per_clk = (f", {macs / (ms * 1e-3) / (sms * mhz * 1e6):.1f} "
                        "MAC/clk/SM" if mhz else "")
-            say(f"[profile] b={bsz} {len(vals):2d} convs {group:14s} "
-                f"{ms:8.3f} ms {macs / ms / 1e9:7.3f} T int16 MAC/s{per_clk}")
+            say(f"{tag} b={bsz} {len(vals):2d} convs {group:14s} "
+                f"{ms:8.3f} ms {macs / ms / 1e9:7.3f} T {tier} MAC/s{per_clk}")
 
 
 def main() -> int:
@@ -458,11 +758,25 @@ def main() -> int:
         return 2
     os.environ.setdefault("YOLO2_NO_DUMP", "1")   # no region text dumps
     dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
     smi = phase_card()
     check = KernelCheck()
     phase_kernels(check, dev)
-    launches, model = phase_slice(dev)
-    phase_profile(model, dev)
+    phase_kernels8(check, dev)
+    say(f"[card] phases 1-2 took {time.perf_counter() - t0:.1f} s")
+    spec = zoo.build("yolov2")
+    store = quantized_store(spec)
+    launches, models = {}, {}
+    for tier in TIERS:
+        counts, models[tier] = phase_slice(spec, store, tier, dev)
+        launches.update(counts)
+    say(f"[card] phases 1-3 took {time.perf_counter() - t0:.1f} s")
+    names = kernel_names(dev)
+    say(f"[profile] kernels by full name: {len(names)} of 7 instantiations "
+        "seen by the profiler")
+    for tier in TIERS:
+        phase_profile(models[tier], dev, names)
+    say(f"[card] phases 1-4 took {time.perf_counter() - t0:.1f} s")
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": check.max_abs_err[name],
                 "ms": check.ms[name], "plain_ms": check.plain_ms[name]}

@@ -96,8 +96,8 @@ def test_forward_head_bitexact_vs_yolotpu(model, size, dtype):
     spec, store = _setup(model, size)
     x = _inputs(size, dtype)
     want = _jax_forward(model, size)(jnp.asarray(x))
-    net = ty.YoloV2Int16(spec, store.qtables, ty.params_int16(spec, store),
-                         "cpu")
+    net = ty.YoloV2Q(spec, store.qtables, ty.params_int16(spec, store),
+                     "cpu")
     got = net(torch.from_numpy(x))
     _assert_outputs_match(got, want)
 
@@ -126,8 +126,8 @@ def test_forward_head_bitexact_vs_yolotpu_pallas():
     spec, store = _setup("yolov2", 64)
     x = _inputs(64, "uint8")
     want = _jax_forward("yolov2", 64, "pallas")(jnp.asarray(x))
-    net = ty.YoloV2Int16(spec, store.qtables, ty.params_int16(spec, store),
-                         "cpu")
+    net = ty.YoloV2Q(spec, store.qtables, ty.params_int16(spec, store),
+                     "cpu")
     _assert_outputs_match(net(torch.from_numpy(x)), want)
 
 

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 import yolotpu_torch
-from yolotpu_torch.ops import _build, q16
+from yolotpu_torch.ops import _build, q8, q16
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = Path(yolotpu_torch.__file__).resolve().parent
@@ -73,7 +73,8 @@ def test_port_sources_never_import_jax():
     assert not offenders, offenders
     names = {m.name for m in pkgutil.walk_packages(yolotpu_torch.__path__,
                                                    "yolotpu_torch.")}
-    assert {"yolotpu_torch.ops.q16", "yolotpu_torch.models.yolov2",
+    assert {"yolotpu_torch.ops.q16", "yolotpu_torch.ops.q8",
+            "yolotpu_torch.models.yolov2",
             "yolotpu_torch.runtime.engine", "yolotpu_torch.cli.detect"} <= names
 
 
@@ -87,8 +88,8 @@ def test_engine_on_cuda_raises_without_a_card():
     store = load_or_synthesize(spec, None, "int16", synthetic=True, seed=0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(spec, store, device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(spec, store, precision="int8", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*M6"):
+        Engine(spec, store, precision="fp32", device="cpu")
 
 
 def test_kernel_launch_raises_without_nvcc(monkeypatch, tmp_path):
@@ -109,15 +110,24 @@ def test_kernel_launch_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_nvcc_command_targets_sm90a_and_csrc_only():
-    cmd = _build.nvcc_command("nvcc", Path("/tmp/lib.so"))
-    assert cmd[0] == "nvcc"
-    i = cmd.index("-gencode")
-    assert cmd[i + 1] == "arch=compute_90a,code=sm_90a"
-    assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
-    srcs = [Path(a) for a in cmd if a.endswith((".cu", ".cpp", ".c"))]
+    """One compile per source (started together), then one link."""
+    compiles, link = _build.nvcc_commands("nvcc", Path("/tmp/b/lib.so"))
+    srcs = []
+    for cmd in compiles + [link]:
+        assert cmd[0] == "nvcc"
+        i = cmd.index("-gencode")
+        assert cmd[i + 1] == "arch=compute_90a,code=sm_90a"
+    for cmd in compiles:
+        assert {"-c", "-O3", "-std=c++17"} <= set(cmd)
+        assert cmd[cmd.index("-I") + 1] == str(PKG / "csrc")
+        srcs += [Path(a) for a in cmd if a.endswith((".cu", ".cpp", ".c"))]
     assert srcs == sorted((PKG / "csrc").glob("*.cu"))
-    assert {p.name for p in srcs} == {"mm_q16.cu", "conv3x3_q16.cu"}
-    assert cmd[cmd.index("-I") + 1] == str(PKG / "csrc")
+    assert {p.name for p in srcs} == {
+        "mm_q16.cu", "conv3x3_q16.cu", "mm_s8.cu", "mm_w8a16.cu",
+        "conv3x3_s8.cu", "conv3x3_w8a16.cu"}
+    objs = [cmd[cmd.index("-o") + 1] for cmd in compiles]
+    assert "-shared" in link and link[link.index("-o") + 1] == "/tmp/b/lib.so"
+    assert link[-len(objs):] == objs
     # the build key follows the sources
     assert re.fullmatch(r"[0-9a-f]{16}", _build.source_digest())
 
@@ -127,7 +137,14 @@ def test_plain_versions_have_no_kernel_launch():
     x = torch.from_numpy(rng.integers(-99, 99, (2, 5, 5, 8)).astype(np.int16))
     w = torch.from_numpy(rng.integers(-99, 99, (3, 3, 8, 4)).astype(np.int16))
     b = torch.zeros(4, dtype=torch.int32)
-    before = dict(q16.LAUNCHES)
+    before = dict(q16.LAUNCHES), dict(q8.LAUNCHES), dict(q8.INT16_OUT_LAUNCHES)
     q16.conv3x3_q16(x, w, b, 3, True)
     q16.mm_q16(x.reshape(-1, 8), w[0, 0].contiguous(), b, 3, True)
-    assert q16.LAUNCHES == before
+    x8, w8 = x.to(torch.int8), w.to(torch.int8)
+    s = torch.full((4,), 3, dtype=torch.int32)
+    q8.conv3x3_s8(x8, w8, b, s, True)
+    q8.conv3x3_w8a16(x, w8, b, s, True)
+    for out in (torch.int8, torch.int16):
+        q8.mm_s8(x8.reshape(-1, 8), w8[0, 0].contiguous(), b, s, True, out)
+    q8.mm_w8a16(x.reshape(-1, 8), w8[0, 0].contiguous(), b, s, True)
+    assert (q16.LAUNCHES, q8.LAUNCHES, q8.INT16_OUT_LAUNCHES) == before

@@ -1,8 +1,9 @@
-"""``yolov2_detect``-compatible detection CLI on PyTorch (int16-exact tier).
+"""``yolov2_detect``-compatible detection CLI on PyTorch (integer tiers).
 
 The counterpart of ``yolotpu/cli/detect.py``, keeping its flag contract for
-the int16 tier (--model --cfg --input/positional --output --thresh --nms
---weights-dir --synthetic-weights --seed --net-size) and adding --device.
+the integer tiers (--model --cfg --input/positional --output --thresh --nms
+--weights-dir --synthetic-weights --seed --net-size --precision) and adding
+--device.
 The default output prefix is ``results/<stem>_prediction``; region dumps
 follow YOLO2_DUMP_REGION[_RAW] / YOLO2_NO_DUMP as in the JAX CLI.
 
@@ -34,6 +35,10 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--net-size", type=int, default=None, metavar="N",
                     help="override the network input size (zoo models only)")
+    ap.add_argument("--precision", default="int16",
+                    choices=["int16", "int8", "w8a16"],
+                    help="int16 exact, int8 (w8a8, head16) or w8a16; "
+                         "synthetic weights are calibrated for the tier")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda runs the hand-written kernels; cpu their "
                          "plain PyTorch versions")
@@ -65,11 +70,12 @@ def main(argv: list[str] | None = None) -> int:
     spec.describe()
 
     im = load_image(input_path)
-    store = load_or_synthesize(spec, args.weights_dir, "int16",
+    store = load_or_synthesize(spec, args.weights_dir, args.precision,
                                synthetic=args.synthetic_weights, seed=args.seed)
     t0 = time.time()
-    eng = Engine(spec, store, precision="int16", device=args.device)
-    ylog.info(f"engine ready in {time.time() - t0:.1f}s (torch/{args.device}/int16)")
+    eng = Engine(spec, store, precision=args.precision, device=args.device)
+    ylog.info(f"engine ready in {time.time() - t0:.1f}s "
+              f"(torch/{args.device}/{args.precision})")
 
     dets, res = eng.detect(im, thresh=args.thresh, nms=args.nms)
     print(f"{os.path.basename(input_path)}: predicted in {res.seconds:.6f} seconds.")

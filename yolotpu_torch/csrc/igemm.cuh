@@ -1,20 +1,28 @@
-// Tiled exact int16 GEMM with the fused requant epilogue: the body shared by
-// mm_q16.cu (A is the activation matrix itself) and conv3x3_q16.cu (A is the
-// implicit im2col of a SAME 3x3 window, gathered while loading).
+// Tiled exact integer GEMM with a fused requant epilogue: the body of every
+// kernel in csrc/. Each kernel is an instantiation with its own A loader
+// (loaders.cuh: activation matrix rows, or the implicit im2col of a SAME 3x3
+// window, gathered while loading) and its own epilogue (the weight type, the
+// output type, one shift for the layer or one per output channel):
 //
-//   out[m, n] = requant_q16(sum_k A[m, k] * w[k, n]  (mod 2^32), bias[n])
+//   out[m, n] = requant(sum_k A[m, k] * w[k, n]  (mod 2^32), bias[n], shift)
 //
 // A block computes a BM x BN output tile and walks K in BK steps. Operands go
 // from global memory to registers to shared memory as int32 (two buffers, so
 // one __syncthreads per K step); while the block multiplies one K step the
 // next one is already in flight to registers. Each thread owns a TM x TN
 // micro-tile of uint32 accumulators, so each product is one 32-bit
-// multiply-add whose wraparound is defined.
+// multiply-add whose wraparound is defined. Operands of 8 or 16 bits give
+// products of at most 2^30 in magnitude, so the int32 product never
+// overflows; only the sum wraps, and it wraps in uint32.
 //
 // The A operand comes from a Loader:
 //   Loader(const Params&, long long m, long long M)  set up for output row m
 //   void load8(int k0, int32_t v[8]) const           A[m, k0 .. k0+7], 0 past
 //                                                    the row's end or M
+// The epilogue from an Epi:
+//   W, Out                                  weight and output element types
+//   Col column(int n, int N) const          what column n needs, read once
+//   void store(long long i, uint32_t acc, Col) const   out[i] = requant(acc)
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,7 +30,7 @@
 
 #include "requant.cuh"
 
-namespace yq16 {
+namespace yq {
 
 constexpr int BM = 128, BN = 64, BK = 16, THREADS = 256;
 constexpr int TM = 8, TN = 4;  // BM * BN / THREADS = 32 outputs per thread
@@ -30,20 +38,10 @@ static_assert(BM * BN == THREADS * TM * TN, "micro-tiles must cover the tile");
 static_assert(BM * BK == THREADS * 8, "each thread loads 8 A values per step");
 static_assert(BK * BN == THREADS * 4, "each thread loads 4 B values per step");
 
-// Eight int16 lanes of a 16-byte load, sign-extended to int32.
-__device__ __forceinline__ void unpack8(const int4 q, int32_t v[8]) {
-    const int32_t w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        v[2 * j] = (int32_t)(int16_t)(w[j] & 0xFFFF);
-        v[2 * j + 1] = w[j] >> 16;
-    }
-}
-
 // One K step of both operands, global memory -> registers: A[row][k0+ak ..
 // k0+ak+8) through the loader, w[k0+bk][nb .. nb+4) with zeros past K and N.
-template <class Loader>
-__device__ __forceinline__ void load_step(const Loader& ld, const int16_t* __restrict__ w,
+template <class Loader, class W>
+__device__ __forceinline__ void load_step(const Loader& ld, const W* __restrict__ w,
                                           int k0, int ak, int bk, int nb, int N, int K,
                                           int32_t ra[8], int32_t rb[4]) {
     ld.load8(k0 + ak, ra);
@@ -55,13 +53,12 @@ __device__ __forceinline__ void load_step(const Loader& ld, const int16_t* __res
     }
 }
 
-template <class Loader>
+template <class Loader, class Epi>
 __global__ void __launch_bounds__(THREADS)
-igemm_q16_kernel(const typename Loader::Params p,
-                 const int16_t* __restrict__ w,     // (K, N) row-major
-                 const int32_t* __restrict__ bias,  // (N,)
-                 int16_t* __restrict__ out,         // (M, N) row-major
-                 long long M, int N, int K, int shift, int leaky) {
+igemm_kernel(const typename Loader::Params p,
+             const typename Epi::W* __restrict__ w,  // (K, N) row-major
+             const Epi e,                            // bias, shift, out (M, N)
+             long long M, int N, int K) {
     __shared__ __align__(16) int32_t As[2][BK][BM];
     __shared__ __align__(16) int32_t Bs[2][BK][BN];
 
@@ -115,6 +112,11 @@ igemm_q16_kernel(const typename Loader::Params p,
         }
     }
 
+    // what a column needs (EpiVec: its bias and shift) is read once per
+    // thread, not once per output
+    typename Epi::Col col[TN];
+#pragma unroll
+    for (int j = 0; j < TN; ++j) col[j] = e.column(n0 + tn + j, N);
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
         const long long m = m0 + tm + i;
@@ -122,22 +124,62 @@ igemm_q16_kernel(const typename Loader::Params p,
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
             const int n = n0 + tn + j;
-            if (n < N) out[m * N + n] = requant_q16(acc[i][j], bias[n], shift, leaky);
+            if (n < N) e.store(m * N + n, acc[i][j], col[j]);
         }
     }
 }
 
-template <class Loader>
-inline cudaError_t launch_igemm_q16(const typename Loader::Params& p, const void* w,
-                                    const void* bias, void* out, long long M, int N,
-                                    int K, int shift, int leaky, void* stream) {
+template <class Loader, class Epi>
+inline cudaError_t launch_igemm(const typename Loader::Params& p, const void* w,
+                                const Epi& e, long long M, int N, int K, void* stream) {
     if (M > 0 && N > 0) {
         const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN));
-        igemm_q16_kernel<Loader><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-            p, (const int16_t*)w, (const int32_t*)bias, (int16_t*)out, M, N, K, shift,
-            leaky);
+        igemm_kernel<Loader, Epi><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+            p, (const typename Epi::W*)w, e, M, N, K);
     }
     return cudaGetLastError();
 }
 
-}  // namespace yq16
+// The int16-exact tier's epilogue: int16 weights and output, one shift for
+// the layer. The column carries only its index; bias[n] is read at the
+// store.
+struct EpiQ16 {
+    using W = int16_t;
+    using Out = int16_t;
+    struct Col {
+        int n;
+    };
+    const int32_t* bias;  // (N,)
+    int16_t* out;         // (M, N)
+    int shift, leaky;
+
+    __device__ __forceinline__ Col column(int n, int) const { return {n}; }
+    __device__ __forceinline__ void store(long long i, uint32_t acc, Col c) const {
+        out[i] = requant_q16(acc, bias[c.n], shift, leaky);
+    }
+};
+
+// The 8-bit-weight tiers' epilogue: int8 weights, an int8 or int16 output,
+// and one shift per output channel (a per-layer shift arrives broadcast).
+template <class Out_>
+struct EpiVec {
+    using W = int8_t;
+    using Out = Out_;
+    struct Col {
+        int32_t bias;
+        int shift;
+    };
+    const int32_t* bias;   // (N,)
+    const int32_t* shift;  // (N,)
+    Out* out;              // (M, N)
+    int leaky;
+
+    __device__ __forceinline__ Col column(int n, int N) const {
+        return n < N ? Col{bias[n], shift[n]} : Col{0, 0};
+    }
+    __device__ __forceinline__ void store(long long i, uint32_t acc, Col c) const {
+        out[i] = (Out)requant<Range<Out>::lo, Range<Out>::hi>(acc, c.bias, c.shift, leaky);
+    }
+};
+
+}  // namespace yq

@@ -17,52 +17,15 @@
 // global reads of a 1x1 layer (x once per 64 output columns, w once per 128
 // rows) are far below the 3.35 TB/s of device memory. Moving the products
 // onto the tensor cores (s8 wgmma with the hi/lo split) is later work.
-#include "igemm_q16.cuh"
-
-namespace yq16 {
-
-struct MmParams {
-    const int16_t* x;  // (M, K) row-major
-    int K;
-    int vec;  // K % 8 == 0 and x 16-byte aligned: 16-byte loads
-};
-
-struct MmLoader {
-    using Params = MmParams;
-    const int16_t* row;
-    int K, vec;
-    bool ok;
-
-    __device__ MmLoader(const Params& p, long long m, long long M)
-        : row(p.x + (m < M ? m : 0) * p.K), K(p.K), vec(p.vec), ok(m < M) {}
-
-    __device__ __forceinline__ void load8(int k0, int32_t v[8]) const {
-        if (vec) {
-            if (ok && k0 < K) {
-                unpack8(__ldg(reinterpret_cast<const int4*>(row + k0)), v);
-            } else {
-#pragma unroll
-                for (int j = 0; j < 8; ++j) v[j] = 0;
-            }
-            return;
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            const int k = k0 + j;
-            v[j] = (ok && k < K) ? (int32_t)row[k] : 0;
-        }
-    }
-};
-
-}  // namespace yq16
+#include "igemm.cuh"
+#include "loaders.cuh"
 
 // x (M, K) int16, w (K, N) int16, bias (N,) int32 -> out (M, N) int16, all
 // contiguous on the current device. Returns cudaGetLastError() after the
 // launch.
 extern "C" int yq16_mm(const void* x, const void* w, const void* bias, void* out,
                        int M, int K, int N, int shift, int leaky, void* stream) {
-    const yq16::MmParams p{(const int16_t*)x, K,
-                           (K % 8 == 0 && ((uintptr_t)x % 16) == 0) ? 1 : 0};
-    return (int)yq16::launch_igemm_q16<yq16::MmLoader>(p, w, bias, out, M, N, K, shift,
-                                                       leaky, stream);
+    const yq::MmParams<int16_t> p{(const int16_t*)x, K, yq::vec_ok<int16_t>(x, K)};
+    const yq::EpiQ16 e{(const int32_t*)bias, (int16_t*)out, shift, leaky};
+    return (int)yq::launch_igemm<yq::MmLoader<int16_t>>(p, w, e, M, N, K, stream);
 }

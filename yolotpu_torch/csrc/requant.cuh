@@ -1,10 +1,11 @@
-// Requant epilogue shared by the int16-exact kernels (mm_q16.cu,
-// conv3x3_q16.cu).
+// Requant epilogue shared by every kernel of csrc/ (through igemm.cuh).
 //
-// The contract is the one of yolotpu/ops/pallas_q16.py:_requant32
-// (round-half-up shift with its magnitude capped at 30, +bias, saturation to
-// int16, integer leaky v/10 truncated toward zero), applied to an
-// accumulator that holds the exact int16 x int16 sum modulo 2^32.
+// The contract is the one of yolotpu/ops/pallas_q16.py:_requant32 and of the
+// per-channel epilogues of pallas_matmul.py and pallas_q16.py's w8 kernels
+// (round-half-up shift with its magnitude capped at 30, left shift for a
+// negative shift, +bias, saturation to the output type, integer leaky v/10
+// truncated toward zero), applied to an accumulator that holds the exact
+// sum modulo 2^32.
 //
 // Signed overflow is undefined behaviour in C++, so every add or shift that
 // can wrap runs on uint32_t, where wraparound is defined; only the final
@@ -13,10 +14,22 @@
 
 #include <stdint.h>
 
-namespace yq16 {
+namespace yq {
 
-__device__ __forceinline__ int16_t requant_q16(uint32_t acc, int32_t bias,
-                                               int shift, int leaky) {
+template <class T>
+struct Range;
+template <>
+struct Range<int8_t> {
+    static constexpr int lo = -128, hi = 127;
+};
+template <>
+struct Range<int16_t> {
+    static constexpr int lo = -32768, hi = 32767;
+};
+
+template <int LO, int HI>
+__device__ __forceinline__ int32_t requant(uint32_t acc, int32_t bias, int shift,
+                                           int leaky) {
     int32_t a;
     if (shift > 0) {
         const int m = shift < 30 ? shift : 30;
@@ -28,9 +41,14 @@ __device__ __forceinline__ int16_t requant_q16(uint32_t acc, int32_t bias,
         a = (int32_t)acc;
     }
     int32_t v = (int32_t)((uint32_t)a + (uint32_t)bias);
-    v = v < -32768 ? -32768 : (v > 32767 ? 32767 : v);
+    v = v < LO ? LO : (v > HI ? HI : v);
     if (leaky && v < 0) v = v / 10;  // C++ division truncates toward zero
-    return (int16_t)v;
+    return v;
 }
 
-}  // namespace yq16
+__device__ __forceinline__ int16_t requant_q16(uint32_t acc, int32_t bias, int shift,
+                                               int leaky) {
+    return (int16_t)requant<-32768, 32767>(acc, bias, shift, leaky);
+}
+
+}  // namespace yq

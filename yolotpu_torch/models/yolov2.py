@@ -1,11 +1,13 @@
-"""YOLOv2-family int16-exact forward in PyTorch.
+"""YOLOv2-family integer forward in PyTorch: the int16-exact, int8 (w8a8,
+with the head16 epilogue) and w8a16 tiers.
 
-The counterpart of the int16 tier of ``yolotpu/models/yolov2.py``. The graph
-walk, the Q routing (``Int16Plan``) and the parameter tree are the JAX
-package's; what differs is how the convs run. Activations stay int16 NHWC at
-their exact channel width throughout, and every conv goes through one of the
-two kernels of ``ops.q16`` as ``engine_plan`` assigns it. On CPU tensors the
-kernels' plain versions run, so the same module is the CPU reference.
+The counterpart of the integer tiers of ``yolotpu/models/yolov2.py``. The
+graph walk, the Q routing (``Int16Plan``) and the parameter trees are the
+JAX package's; what differs is how the convs run. Activations stay NHWC at
+their exact channel width throughout (int16, or int8 in the int8 tier), and
+every conv goes through one of the tier's two kernels as ``engine_plan``
+assigns it. One walk serves the three tiers. On CPU tensors the kernels'
+plain versions run, so the same module is the CPU reference.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from yolotpu.graph import (ConvSpec, MaxPoolSpec, NetworkSpec, RegionSpec,
                            ReorgSpec, RouteSpec)
 from yolotpu.weights import QTables, WeightStore
 
-from ..ops import convops, pool, q16, region, reorg
+from ..ops import convops, pool, q16, q8, region, reorg
 from . import engine_plan
 
 # ---------------------------------------------------------------------------
@@ -32,7 +34,8 @@ from . import engine_plan
 class Int16Plan:
     """Per-layer quantization routing, resolved at build time: conv
     input/output Qs, the reorg branch realignment shift, and the pending
-    route Q for the conv after a concat."""
+    route Q for the conv after a concat. With per-channel weight Qs, a
+    conv's ``conv_shift_out`` is an (N,) array."""
 
     conv_qa_in: dict[int, int] = field(default_factory=dict)
     conv_qa_out: dict[int, int] = field(default_factory=dict)
@@ -92,28 +95,31 @@ def _sibling_route_q(spec: NetworkSpec, reorg_idx: int,
 # Parameters
 # ---------------------------------------------------------------------------
 
-def _round_shift_np(v: np.ndarray, shift: int) -> np.ndarray:
-    """Bias shift into the layer's output Q (round-half-up, capped at 30)."""
-    shift = int(shift)
-    if shift > 0:
-        mag = min(shift, 30)
-        return (v + (1 << (mag - 1))) >> mag
-    if shift < 0:
-        return v << min(-shift, 30)
-    return v
+def _round_shift_np(v: np.ndarray, shift) -> np.ndarray:
+    """Bias shift into the layer's output Q (round-half-up, capped at 30);
+    ``shift`` is an int or, for per-channel bias Qs, one per channel."""
+    if np.ndim(shift) == 0:
+        shift = int(shift)
+        if shift > 0:
+            mag = min(shift, 30)
+            return (v + (1 << (mag - 1))) >> mag
+        if shift < 0:
+            return v << min(-shift, 30)
+        return v
+    s = np.clip(np.asarray(shift, np.int64), -30, 30)
+    half = np.where(s > 0, np.int64(1) << np.maximum(s - 1, 0), np.int64(0))
+    return np.where(s > 0, (v + half) >> np.maximum(s, 0),
+                    v << np.maximum(-s, 0))
 
 
-def params_int16(spec: NetworkSpec, store: WeightStore,
-                 device: torch.device | str = "cpu") -> dict:
-    """{"conv{idx}": {"w": HWIO int16, "b": int32 bias pre-shifted into the
+def _params_quantized(spec: NetworkSpec, wdict: dict, qt: QTables,
+                      device: torch.device | str) -> dict:
+    """{"conv{idx}": {"w": HWIO weights, "b": int32 bias pre-shifted into the
     layer's Qa_out domain}} as device tensors, straight from the store."""
-    if store.qtables is None:
-        raise ValueError("int16 params require Q tables")
-    qt = store.qtables
     plan = Int16Plan.build(spec, qt)
     p = {}
     for ci, l in enumerate(spec.conv_layers()):
-        w, b = store.int16[l.idx]
+        w, b = wdict[l.idx]
         shift_bias = qt.bias_q[ci] - plan.conv_qa_out[l.idx]
         bias_shifted = _round_shift_np(b.astype(np.int64), shift_bias)
         p[f"conv{l.idx}"] = {
@@ -123,10 +129,39 @@ def params_int16(spec: NetworkSpec, store: WeightStore,
     return params_from_jax(p, device)
 
 
+def params_int16(spec: NetworkSpec, store: WeightStore,
+                 device: torch.device | str = "cpu") -> dict:
+    """The int16 tier's parameters: int16 weights."""
+    if store.qtables is None:
+        raise ValueError("int16 params require Q tables")
+    return _params_quantized(spec, store.int16, store.qtables, device)
+
+
+def params_int8(spec: NetworkSpec, store: WeightStore,
+                device: torch.device | str = "cpu") -> dict:
+    """The int8 (w8a8) tier's parameters: int8 weights, per-layer or
+    per-channel Qs."""
+    if store.qtables8 is None:
+        raise ValueError("int8 params require Q tables (quantize_weights_int8)")
+    return _params_quantized(spec, store.int8, store.qtables8, device)
+
+
+def params_w8a16(spec: NetworkSpec, store: WeightStore,
+                 device: torch.device | str = "cpu") -> dict:
+    """The w8a16 tier's parameters: per-channel int8 weights and int16-Q
+    biases."""
+    if store.qtables_w8 is None:
+        raise ValueError("w8a16 params require Q tables "
+                         "(quant.quantize_weights_w8a16)")
+    return _params_quantized(spec, store.w8a16, store.qtables_w8, device)
+
+
 def params_from_jax(jax_params: dict, device: torch.device | str = "cpu") -> dict:
-    """``yolotpu``'s ``params_int16`` tree, as numpy arrays, -> the port's
-    parameters (the same tree of device tensors)."""
-    return {name: {"w": torch.from_numpy(np.array(pw["w"], np.int16)).to(device),
+    """Any of ``yolotpu``'s ``params_int16``, ``params_int8`` and
+    ``params_w8a16`` trees, as numpy arrays, -> the port's parameters: the
+    same {"w", "b"} tree of device tensors, each weight in its own dtype.
+    The TPU-only entries (``cw``, ``wp8``) are dropped."""
+    return {name: {"w": torch.from_numpy(np.array(pw["w"])).to(device),
                    "b": torch.from_numpy(np.array(pw["b"], np.int32)).to(device)}
             for name, pw in jax_params.items()}
 
@@ -135,47 +170,79 @@ def params_from_jax(jax_params: dict, device: torch.device | str = "cpu") -> dic
 # Forward
 # ---------------------------------------------------------------------------
 
-class YoloV2Int16(nn.Module):
-    """The int16-exact network. ``forward(x)`` takes (B, H, W, 3) uint8
-    frames (normalised by /255 in fp32 on the device) or float NHWC already
-    letterboxed to the network size, and returns ``{"head", "boxes", "obj",
-    "probs"}``: the dequantized raw region input (B, h, w, oc) fp32 and the
-    decoded region tensors."""
+class YoloV2Q(nn.Module):
+    """The integer network of one precision tier ("int16", "int8" or
+    "w8a16"). ``forward(x)`` takes (B, H, W, 3) uint8 frames (normalised by
+    /255 in fp32 on the device) or float NHWC already letterboxed to the
+    network size, and returns ``{"head", "boxes", "obj", "probs"}``: the
+    dequantized raw region input (B, h, w, oc) fp32 and the decoded region
+    tensors.
 
-    # the conv functions, by engine kind
-    mm = staticmethod(q16.mm_q16)
-    conv3 = staticmethod(q16.conv3x3_q16)
+    In the int8 tier the conv feeding the region runs the head16 epilogue:
+    int16 output at an 8-bits-finer scale, dequantized at ``output_q + 8``.
+    The int8 and w8a16 kernels take one shift per output channel; a
+    per-layer shift is broadcast to that vector here, once."""
+
+    # precision -> the conv functions (mm, conv3), by engine kind
+    kernels = {"int16": (q16.mm_q16, q16.conv3x3_q16),
+               "int8": (q8.mm_s8, q8.conv3x3_s8),
+               "w8a16": (q8.mm_w8a16, q8.conv3x3_w8a16)}
 
     def __init__(self, spec: NetworkSpec, qtables: QTables, params: dict,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", precision: str = "int16"):
         super().__init__()
+        if precision not in self.kernels:
+            raise ValueError(f"precision {precision!r} (one of "
+                             f"{', '.join(self.kernels)})")
         self.spec = spec
+        self.precision = precision
         self.plan = Int16Plan.build(spec, qtables)
         self.kinds = engine_plan.plan(spec)
         self._needed = {s for l in spec.layers if isinstance(l, RouteSpec)
                         for s in l.layers}
+        region_idx = spec.region.idx if spec.region is not None else None
+        self.head16 = None   # the conv with the head16 epilogue (int8 tier)
         for l in spec.conv_layers():
             pw = params[f"conv{l.idx}"]
+            b = pw["b"].to(device=device, dtype=torch.int32)
+            if precision != "int16":
+                s = torch.from_numpy(np.broadcast_to(
+                    np.asarray(self.plan.conv_shift_out[l.idx], np.int64),
+                    (l.n,)).astype(np.int32)).to(device)
+                if precision == "int8" and l.idx + 1 == region_idx:
+                    if self.kinds[l.idx] != "mm":
+                        raise NotImplementedError(
+                            f"conv{l.idx}: the head16 epilogue runs on the 1x1 "
+                            "kernel only; this head conv is "
+                            f"{l.size}x{l.size}")
+                    self.head16 = l.idx
+                    b, s = convops.head16(b, s)
+                self.register_buffer(f"s{l.idx}", s)
             self.register_buffer(f"w{l.idx}", q16.prep_weights(pw["w"].to(device)))
-            self.register_buffer(f"b{l.idx}",
-                                 pw["b"].to(device=device, dtype=torch.int32))
+            self.register_buffer(f"b{l.idx}", b)
+        self._head_q = self.plan.output_q + (8 if precision == "int8" else 0)
 
     def _conv(self, l: ConvSpec, x: torch.Tensor) -> torch.Tensor:
         w, b = getattr(self, f"w{l.idx}"), getattr(self, f"b{l.idx}")
-        shift = self.plan.conv_shift_out[l.idx]
+        shift = (self.plan.conv_shift_out[l.idx] if self.precision == "int16"
+                 else getattr(self, f"s{l.idx}"))
         leaky = l.activation == "leaky"
+        mm, conv3 = self.kernels[self.precision]
         if self.kinds[l.idx] == "mm":
+            out = {"out_dtype": torch.int16} if l.idx == self.head16 else {}
             bsz, h, wd, c = x.shape
-            y = self.mm(x.reshape(-1, c), w, b, shift, leaky)
+            y = mm(x.reshape(-1, c), w, b, shift, leaky, **out)
             return y.reshape(bsz, h, wd, l.n)
-        return self.conv3(x, w, b, shift, leaky)
+        return conv3(x, w, b, shift, leaky)
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor) -> dict:
         plan = self.plan
         if x.dtype == torch.uint8:
             x = x.to(torch.float32) / 255.0
-        cur = convops.quantize_input_int16(x, plan.input_q)
+        quantize = (convops.quantize_input_int8 if self.precision == "int8"
+                    else convops.quantize_input_int16)
+        cur = quantize(x, plan.input_q)
         acts: dict[int, torch.Tensor] = {}
         head = None
         for l in self.spec.layers:
@@ -192,7 +259,7 @@ class YoloV2Int16(nn.Module):
                 cur = (acts[l.layers[0]] if len(l.layers) == 1 else
                        torch.cat([acts[s] for s in l.layers], dim=-1))
             elif isinstance(l, RegionSpec):
-                head = convops.dequantize_int16(cur, plan.output_q)
+                head = convops.dequantize_int16(cur, self._head_q)
                 cur = head
             if l.idx in self._needed:
                 acts[l.idx] = cur

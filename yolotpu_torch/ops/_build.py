@@ -1,7 +1,8 @@
 """Build the hand-written CUDA kernels and load them with ctypes.
 
 Every ``yolotpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, at first use.
+(``sm_90a``), one process per source, all started together, and the objects
+are linked into one shared library with a plain C interface, at first use.
 The library lands in ``build/yolotpu_torch/<hash>/`` at the root of the
 checkout, keyed by a hash of the sources and the command, so a changed source
 builds anew and an unchanged one loads at once. Nothing here runs at import:
@@ -31,6 +32,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "yq16_mm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "yq16_conv3x3": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "yq8_mm_s8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "yq8_mm_w8a16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "yq8_conv3x3_s8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "yq8_conv3x3_w8a16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -59,13 +64,30 @@ def find_nvcc() -> str:
         "the CUDA kernels of yolotpu_torch cannot be built on this machine")
 
 
-FLAGS = ("-gencode", GENCODE, "-std=c++17", "-O3", "-shared",
-         "-Xcompiler", "-fPIC", "-Xptxas=-v")
+FLAGS = ("-gencode", GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+         "-Xptxas=-v")
 
 
-def nvcc_command(nvcc: str, out: Path) -> list[str]:
-    return [nvcc, *FLAGS, "-I", str(CSRC), "-o", str(out),
-            *(str(s) for s in sources())]
+def nvcc_commands(nvcc: str, out: Path) -> tuple[list[list[str]], list[str]]:
+    """One compile command per source, objects beside ``out``, then the
+    command that links them into the shared library ``out``."""
+    objs = [out.parent / f"{s.stem}.o" for s in sources()]
+    compiles = [[nvcc, *FLAGS, "-I", str(CSRC), "-c", "-o", str(o), str(s)]
+                for s, o in zip(sources(), objs)]
+    link = [nvcc, "-gencode", GENCODE, "-shared", "-o", str(out),
+            *(str(o) for o in objs)]
+    return compiles, link
+
+
+def _run_all(cmds: list[list[str]]) -> tuple[int, str]:
+    """Run the commands together; the first non-zero exit code (0 if none)
+    and their output, in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    rc = next((p.returncode for p in procs if p.returncode), 0)
+    return rc, "".join(outs)
 
 
 def source_digest() -> str:
@@ -87,18 +109,20 @@ def load_library() -> KernelLibrary:
     if not out.exists():
         nvcc = find_nvcc()
         out_dir.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
+        tmp = Path(tempfile.mkdtemp(dir=out_dir))
+        compiles, link = nvcc_commands(nvcc, tmp / LIB_NAME)
         t0 = time.perf_counter()
-        proc = subprocess.run(nvcc_command(nvcc, Path(tmp)), capture_output=True,
-                              text=True)
+        rc, log = _run_all(compiles)
+        if rc == 0:
+            rc, link_log = _run_all([link])
+            log += link_log
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+        if rc != 0:
+            shutil.rmtree(tmp)
+            raise RuntimeError(f"nvcc failed (exit {rc}):\n{log}")
         log_path.write_text(log)
-        os.replace(tmp, out)
+        os.replace(tmp / LIB_NAME, out)
+        shutil.rmtree(tmp)
     cdll = ctypes.CDLL(str(out))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(cdll, name)

@@ -1,9 +1,10 @@
-"""Integer ops of the int16-exact tier, in PyTorch (NHWC).
+"""Integer ops of the int16, int8 (w8a8) and w8a16 tiers, in PyTorch (NHWC).
 
-The counterpart of the int16 subset of ``yolotpu/ops/convops.py``. The
+The counterpart of the integer subset of ``yolotpu/ops/convops.py``. The
 contract is the JAX package's: integer arithmetic in int32 with wraparound,
-round-half-up requant shifts with their magnitude capped at 30, int16
-saturation, and the integer leaky ``v/10`` truncated toward zero. PyTorch
+round-half-up requant shifts with their magnitude capped at 30 (one per
+layer, or one per output channel), saturation to the output type, and the
+integer leaky ``v/10`` truncated toward zero. PyTorch
 leaves int32 overflow to the C++ compiler, so every step that can wrap is
 taken in int64 and brought back with ``wrap32``, which makes the wraparound
 explicit and the same on the CPU and on the card.
@@ -31,6 +32,18 @@ def round_shift(v: torch.Tensor, shift: int) -> torch.Tensor:
     return v
 
 
+def round_shift_vec(v: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """``round_shift`` with one shift per lane of the last axis (an (N,)
+    int32 vector), the per-channel requant (``convops.round_shift_vec``)."""
+    s = shift.to(torch.int64)
+    spos = s.clamp(0, 30)
+    half = torch.where(s > 0, torch.ones_like(s) << (spos - 1).clamp(min=0), 0)
+    v64 = v.to(torch.int64)
+    right = wrap32(v64 + half).to(torch.int64) >> spos
+    left = wrap32(v64 << (-s).clamp(0, 30))
+    return torch.where(s > 0, right.to(torch.int32), left)
+
+
 def sat16(v: torch.Tensor) -> torch.Tensor:
     return v.clamp(-32768, 32767)
 
@@ -40,15 +53,29 @@ def leaky_int16(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v < 0, torch.div(v, 10, rounding_mode="trunc"), v)
 
 
-def requant32(acc: torch.Tensor, bias: torch.Tensor, shift: int,
-              leaky: bool) -> torch.Tensor:
-    """The kernels' epilogue (``pallas_q16._requant32``): int32 accumulator
-    -> shift, +bias (wrapping), sat16, optional integer leaky; int32 out."""
-    v = sat16(wrap32(round_shift(acc, shift).to(torch.int64)
-                     + bias.to(torch.int64)))
+def requant32(acc: torch.Tensor, bias: torch.Tensor,
+              shift: int | torch.Tensor, leaky: bool, lo: int = -32768,
+              hi: int = 32767) -> torch.Tensor:
+    """The kernels' epilogue (``pallas_q16._requant32``, and the per-channel
+    ``_mm_requant_kernel_vshift``): int32 accumulator -> shift (an int, or an
+    (N,) vector over the last axis), +bias (wrapping), saturation to
+    [lo, hi], optional integer leaky; int32 out."""
+    rs = (round_shift_vec(acc, shift) if isinstance(shift, torch.Tensor)
+          else round_shift(acc, shift))
+    v = wrap32(rs.to(torch.int64) + bias.to(torch.int64)).clamp(lo, hi)
     if leaky:
-        v = sat16(leaky_int16(v))
+        v = leaky_int16(v).clamp(lo, hi)
     return v
+
+
+def head16(bias: torch.Tensor,
+           shift: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 tier's head16 epilogue (``conv_int8(head16=True)``): the
+    conv feeding the region requantizes to int16 at an 8-bits-finer scale,
+    so its shift drops by 8 and its bias moves up by 8 bits (taken in int64
+    and wrapped to int32, as the JAX int32 shift wraps)."""
+    return (wrap32(bias.to(torch.int64) << 8),
+            (shift.to(torch.int64) - 8).to(torch.int32))
 
 
 def quantize_input_int16(x: torch.Tensor, q: int) -> torch.Tensor:
@@ -59,7 +86,16 @@ def quantize_input_int16(x: torch.Tensor, q: int) -> torch.Tensor:
     return r.to(torch.int16)
 
 
+def quantize_input_int8(x: torch.Tensor, q: int) -> torch.Tensor:
+    """fp32 -> int8 at scale 2**q: fp32 clamp, then round half away from
+    zero (``convops.quantize_input_int8``)."""
+    v = (x.to(torch.float32) * (2.0 ** q)).clamp(-128.0, 127.0)
+    r = torch.where(v >= 0, torch.floor(v + 0.5), torch.ceil(v - 0.5))
+    return r.to(torch.int8)
+
+
 def dequantize_int16(x: torch.Tensor, q: int) -> torch.Tensor:
+    """int16 or int8 at scale 2**q -> fp32."""
     return x.to(torch.float32) * (2.0 ** (-q))
 
 

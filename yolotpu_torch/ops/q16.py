@@ -41,15 +41,16 @@ def reset_launches() -> None:
 
 
 def prep_weights(w_hwio: torch.Tensor) -> torch.Tensor:
-    """HWIO int16 (k, k, C, N) -> the kernels' weight operand: (C, N) for a
-    1x1 layer, (3, 3, C, N) for a 3x3 one, contiguous int16."""
-    w = w_hwio.to(torch.int16)
+    """HWIO (k, k, C, N) -> the kernels' weight operand: (C, N) for a 1x1
+    layer, (3, 3, C, N) for a 3x3 one, contiguous, in its own dtype (int16,
+    or int8 for the kernels of ``ops.q8``)."""
+    w = w_hwio
     if w.shape[:2] == (1, 1):
         w = w.reshape(w.shape[2], w.shape[3])
     return w.contiguous()
 
 
-def _acc32(accf: torch.Tensor) -> torch.Tensor:
+def acc32(accf: torch.Tensor) -> torch.Tensor:
     """Exact float64 sums -> int32 modulo 2^32."""
     return wrap32(torch.round(accf).to(torch.int64))
 
@@ -73,22 +74,22 @@ def conv3x3_sum64(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def mm_q16_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                  shift: int, leaky: bool) -> torch.Tensor:
-    acc = _acc32(mm_sum64(x, w))
+    acc = acc32(mm_sum64(x, w))
     return requant32(acc, bias, shift, leaky).to(torch.int16)
 
 
 def conv3x3_q16_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                       shift: int, leaky: bool) -> torch.Tensor:
-    acc = _acc32(conv3x3_sum64(x, w))
+    acc = acc32(conv3x3_sum64(x, w))
     return requant32(acc, bias, shift, leaky).to(torch.int16)
 
 
 def _check(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-           x_ndim: int, w_shape_ok: bool) -> None:
-    if x.dtype != torch.int16 or w.dtype != torch.int16 \
-            or bias.dtype != torch.int32:
-        raise TypeError(f"{name}: want int16 x, int16 w, int32 bias; got "
-                        f"{x.dtype}, {w.dtype}, {bias.dtype}")
+           x_ndim: int, w_shape_ok: bool, x_dtype: torch.dtype = torch.int16,
+           w_dtype: torch.dtype = torch.int16) -> None:
+    if x.dtype != x_dtype or w.dtype != w_dtype or bias.dtype != torch.int32:
+        raise TypeError(f"{name}: want {x_dtype} x, {w_dtype} w, int32 bias; "
+                        f"got {x.dtype}, {w.dtype}, {bias.dtype}")
     if x.ndim != x_ndim or not w_shape_ok or bias.shape != (w.shape[-1],):
         raise ValueError(f"{name}: shapes x{tuple(x.shape)} w{tuple(w.shape)} "
                          f"bias{tuple(bias.shape)} do not fit")
@@ -103,14 +104,22 @@ def _check(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"{name}: the kernel needs contiguous operands")
 
 
-def _launch(name: str, fn: str, out: torch.Tensor, *args) -> torch.Tensor:
+def _launch(name: str, fn: str, out: torch.Tensor, *args,
+            counts: dict = LAUNCHES) -> torch.Tensor:
+    """Call C entry point ``fn`` on the current stream, raise on a CUDA
+    error, and count one launch of ``name`` in ``counts``."""
     lib = _build.load_library()
     stream = torch.cuda.current_stream(out.device).cuda_stream
     rc = getattr(lib.cdll, fn)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
-    LAUNCHES[name] += 1
+    counts[name] += 1
     return out
+
+
+def _rows_fit(name: str, m: int) -> None:
+    if m >= 1 << 31:
+        raise ValueError(f"{name}: M={m} does not fit the kernel's int")
 
 
 def mm_q16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, shift: int,
@@ -120,8 +129,7 @@ def mm_q16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, shift: int,
     if x.device.type == "cpu":
         return mm_q16_plain(x, w, bias, shift, leaky)
     (m, k), n = x.shape, w.shape[1]
-    if m >= 1 << 31:
-        raise ValueError(f"mm_q16: M={m} does not fit the kernel's int")
+    _rows_fit("mm_q16", m)
     out = torch.empty((m, n), dtype=torch.int16, device=x.device)
     return _launch("mm_q16", "yq16_mm", out, x.data_ptr(), w.data_ptr(),
                    bias.data_ptr(), out.data_ptr(), m, k, n, int(shift),

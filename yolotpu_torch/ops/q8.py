@@ -1,0 +1,165 @@
+"""The four conv kernels of the 8-bit-weight tiers: wrappers, plain
+versions, launch counts.
+
+The counterpart of ``yolotpu/ops/pallas_matmul.py`` and of the w8 section of
+``yolotpu/ops/pallas_q16.py``. Every kernel computes the exact sum modulo
+2^32 followed by the per-channel requant chain (``convops.requant32`` with
+an (N,) shift vector and the output type's range):
+
+  mm_s8          x int8 (M, K) @ w int8 (K, N) -> int8, or int16 for the
+                 head16 conv (replaces ``matmul_int8_requant`` and
+                 ``matmul_int16_out_requant``)
+  mm_w8a16       x int16 (M, K) @ w int8 (K, N) -> int16
+                 (replaces ``matmul_w8a16_requant``)
+  conv3x3_s8     SAME 3x3/s1 conv, int8 NHWC x int8 HWIO -> int8
+                 (replaces ``conv3x3_s8_wi``)
+  conv3x3_w8a16  SAME 3x3/s1 conv, int16 NHWC x int8 HWIO -> int16
+                 (replaces ``conv3x3_w8a16_wi``)
+
+The shift is always an (N,) int32 tensor: a per-layer shift is broadcast
+once, when the model is built. The w8a16 kernels multiply int16 by int8
+directly; the TPU's hi/lo activation planes and their ``cw``/``nconst``
+correction compute the same sum and do not carry over.
+
+A wrapper given CPU tensors runs its plain version; given CUDA tensors it
+launches the hand-written kernel (``csrc/``, built by ``_build``) or raises.
+``LAUNCHES`` counts kernel launches, and only those; ``INT16_OUT_LAUNCHES``
+counts the ``mm_s8`` launches among them that wrote int16.
+
+The plain versions reuse ``q16.mm_sum64`` and ``q16.conv3x3_sum64``: float64
+sums of integer products, exact here because |x*w| <= 2^22 and
+K <= 9*1280 keep every partial sum below 2^36.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import q16
+from .convops import requant32
+
+LAUNCHES = {"mm_s8": 0, "mm_w8a16": 0, "conv3x3_s8": 0, "conv3x3_w8a16": 0}
+INT16_OUT_LAUNCHES = {"mm_s8": 0}
+
+_RANGE = {torch.int8: (-128, 127), torch.int16: (-32768, 32767)}
+
+
+def reset_launches() -> None:
+    for counts in (LAUNCHES, INT16_OUT_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _requant(accf: torch.Tensor, bias: torch.Tensor, shift: torch.Tensor,
+             leaky: bool, out_dtype: torch.dtype) -> torch.Tensor:
+    lo, hi = _RANGE[out_dtype]
+    return requant32(q16.acc32(accf), bias, shift, leaky, lo, hi).to(out_dtype)
+
+
+def mm_s8_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                shift: torch.Tensor, leaky: bool,
+                out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    return _requant(q16.mm_sum64(x, w), bias, shift, leaky, out_dtype)
+
+
+def mm_w8a16_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                   shift: torch.Tensor, leaky: bool) -> torch.Tensor:
+    return _requant(q16.mm_sum64(x, w), bias, shift, leaky, torch.int16)
+
+
+def conv3x3_s8_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                     shift: torch.Tensor, leaky: bool) -> torch.Tensor:
+    return _requant(q16.conv3x3_sum64(x, w), bias, shift, leaky, torch.int8)
+
+
+def conv3x3_w8a16_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                        shift: torch.Tensor, leaky: bool) -> torch.Tensor:
+    return _requant(q16.conv3x3_sum64(x, w), bias, shift, leaky, torch.int16)
+
+
+def _check(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+           shift: torch.Tensor, x_dtype: torch.dtype, x_ndim: int) -> None:
+    """x_ndim 2: a matmul, w (K, N); 4: a 3x3 conv, w (3, 3, C, N)."""
+    w_ok = (w.ndim == 2 and w.shape[0] == x.shape[-1] if x_ndim == 2 else
+            w.ndim == 4 and w.shape[:3] == (3, 3, x.shape[-1]))
+    q16._check(name, x, w, bias, x_ndim, w_ok, x_dtype=x_dtype,
+               w_dtype=torch.int8)
+    if shift.dtype != torch.int32 or shift.shape != bias.shape \
+            or shift.device != x.device:
+        raise ValueError(f"{name}: want an int32 shift of shape "
+                         f"{tuple(bias.shape)} on {x.device}; got {shift.dtype} "
+                         f"{tuple(shift.shape)} on {shift.device}")
+    if x.device.type == "cuda" and not shift.is_contiguous():
+        raise ValueError(f"{name}: the kernel needs a contiguous shift")
+
+
+def _mm(name: str, fn: str, x: torch.Tensor, w: torch.Tensor,
+        bias: torch.Tensor, shift: torch.Tensor, leaky: bool,
+        out_dtype: torch.dtype, *flags: int) -> torch.Tensor:
+    (m, k), n = x.shape, w.shape[1]
+    q16._rows_fit(name, m)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    return q16._launch(name, fn, out, x.data_ptr(), w.data_ptr(),
+                       bias.data_ptr(), shift.data_ptr(), out.data_ptr(),
+                       m, k, n, int(leaky), *flags, counts=LAUNCHES)
+
+
+def _conv3(name: str, fn: str, x: torch.Tensor, w: torch.Tensor,
+           bias: torch.Tensor, shift: torch.Tensor, leaky: bool,
+           out_dtype: torch.dtype) -> torch.Tensor:
+    b, h, wd, c = x.shape
+    n = w.shape[-1]
+    out = torch.empty((b, h, wd, n), dtype=out_dtype, device=x.device)
+    return q16._launch(name, fn, out, x.data_ptr(), w.data_ptr(),
+                       bias.data_ptr(), shift.data_ptr(), out.data_ptr(),
+                       b, h, wd, c, n, int(leaky), counts=LAUNCHES)
+
+
+def mm_s8(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+          shift: torch.Tensor, leaky: bool,
+          out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    """x (M, K) int8 @ w (K, N) int8, fused per-channel requant -> (M, N)
+    int8, or int16 with ``out_dtype=torch.int16`` (the head16 conv)."""
+    if out_dtype not in _RANGE:
+        raise ValueError(f"mm_s8: out_dtype {out_dtype} (int8 or int16)")
+    _check("mm_s8", x, w, bias, shift, torch.int8, 2)
+    if x.device.type == "cpu":
+        return mm_s8_plain(x, w, bias, shift, leaky, out_dtype)
+    out16 = out_dtype == torch.int16
+    out = _mm("mm_s8", "yq8_mm_s8", x, w, bias, shift, leaky, out_dtype,
+              int(out16))
+    INT16_OUT_LAUNCHES["mm_s8"] += out16
+    return out
+
+
+def mm_w8a16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+             shift: torch.Tensor, leaky: bool) -> torch.Tensor:
+    """x (M, K) int16 @ w (K, N) int8, fused per-channel requant -> (M, N)
+    int16."""
+    _check("mm_w8a16", x, w, bias, shift, torch.int16, 2)
+    if x.device.type == "cpu":
+        return mm_w8a16_plain(x, w, bias, shift, leaky)
+    return _mm("mm_w8a16", "yq8_mm_w8a16", x, w, bias, shift, leaky,
+               torch.int16)
+
+
+def conv3x3_s8(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+               shift: torch.Tensor, leaky: bool) -> torch.Tensor:
+    """x (B, H, W, C) int8, w (3, 3, C, N) int8 -> SAME 3x3/s1 conv with the
+    fused per-channel requant, (B, H, W, N) int8."""
+    _check("conv3x3_s8", x, w, bias, shift, torch.int8, 4)
+    if x.device.type == "cpu":
+        return conv3x3_s8_plain(x, w, bias, shift, leaky)
+    return _conv3("conv3x3_s8", "yq8_conv3x3_s8", x, w, bias, shift, leaky,
+                  torch.int8)
+
+
+def conv3x3_w8a16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                  shift: torch.Tensor, leaky: bool) -> torch.Tensor:
+    """x (B, H, W, C) int16, w (3, 3, C, N) int8 -> SAME 3x3/s1 conv with the
+    fused per-channel requant, (B, H, W, N) int16."""
+    _check("conv3x3_w8a16", x, w, bias, shift, torch.int16, 4)
+    if x.device.type == "cpu":
+        return conv3x3_w8a16_plain(x, w, bias, shift, leaky)
+    return _conv3("conv3x3_w8a16", "yq8_conv3x3_w8a16", x, w, bias, shift,
+                  leaky, torch.int16)

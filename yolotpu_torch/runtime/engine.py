@@ -1,9 +1,10 @@
 """Inference engine on PyTorch: weights + graph + device -> detections.
 
-The counterpart of ``yolotpu/runtime/engine.py`` for the int16-exact tier.
-The host steps around the network (letterbox, region activation, box
-decode, NMS, region dumps) are the JAX package's numpy code, reused
-unchanged; the network runs as ``models.yolov2.YoloV2Int16`` on ``device``.
+The counterpart of ``yolotpu/runtime/engine.py`` for the integer tiers
+(int16-exact, int8 w8a8 with the head16 epilogue, w8a16). The host steps
+around the network (letterbox, region activation, box decode, NMS, region
+dumps) are the JAX package's numpy code, reused unchanged; the network runs
+as ``models.yolov2.YoloV2Q`` on ``device``.
 """
 
 from __future__ import annotations
@@ -20,23 +21,34 @@ from yolotpu.postprocess import (Detection, do_nms_sort, forward_region,
 from yolotpu.runtime.engine import PredictResult, maybe_dump_region
 from yolotpu.weights import WeightStore
 
-from ..models.yolov2 import YoloV2Int16, params_int16
+from ..models.yolov2 import YoloV2Q, params_int8, params_int16, params_w8a16
 
-# precision tier -> the ROADMAP item that ports it
-_UNPORTED = {"fp32": "M6", "int8": "M7", "w8a16": "M8"}
+# precision -> (store weights, store Q tables, params function, what is missing
+# when the store has no such weights)
+_TIERS = {
+    "int16": ("int16", "qtables", params_int16,
+              "int16 engine needs quantized weights "
+              "(load int16 artifacts or calibrate+quantize)"),
+    "int8": ("int8", "qtables8", params_int8,
+             "int8 engine needs quantize_weights_int8"),
+    "w8a16": ("w8a16", "qtables_w8", params_w8a16,
+              "w8a16 engine needs quantize_weights_w8a16"),
+}
 
 
 class Engine:
     def __init__(self, spec: NetworkSpec, store: WeightStore,
                  precision: str = "int16", device: torch.device | str = "cuda"):
-        if precision != "int16":
-            item = _UNPORTED.get(precision)
-            raise NotImplementedError(
-                f"precision {precision!r} is not ported to PyTorch yet"
-                + (f" (ROADMAP.md, Queue 1, item {item})" if item else ""))
-        if not store.int16:
-            raise ValueError("int16 engine needs quantized weights "
-                             "(load int16 artifacts or calibrate+quantize)")
+        if precision == "fp32":
+            raise NotImplementedError("precision 'fp32' is not ported to "
+                                      "PyTorch yet (ROADMAP.md, Queue 1, "
+                                      "item M6)")
+        if precision not in _TIERS:
+            raise ValueError(f"precision {precision!r} (one of "
+                             f"{', '.join(_TIERS)})")
+        weights, qtables, make_params, missing = _TIERS[precision]
+        if not getattr(store, weights):
+            raise ValueError(missing)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Engine(device='cuda'): no CUDA device is "
@@ -44,8 +56,10 @@ class Engine:
         self.spec = spec
         self.store = store
         self.precision = precision
-        self.params = params_int16(spec, store, self.device)
-        self.model = YoloV2Int16(spec, store.qtables, self.params, self.device)
+        self.qtables = getattr(store, qtables)
+        self.params = make_params(spec, store, self.device)
+        self.model = YoloV2Q(spec, self.qtables, self.params, self.device,
+                             precision)
 
     def _head_nchw(self, x: torch.Tensor) -> np.ndarray:
         head = self.model(x.to(self.device))["head"]
