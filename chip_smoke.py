@@ -5,25 +5,32 @@
 It builds the hand-written kernels from ``yolotpu_torch/csrc/`` with nvcc
 for ``sm_90a`` (one nvcc per source, all started together) and drives the
 port's main paths, YOLOv2 at 416x416 with synthetic weights from seed 0 in
-each integer tier (int16-exact; int8 w8a8 with the head16 epilogue; w8a16),
-in four phases:
+each integer tier (int16-exact; int8 w8a8 with the head16 epilogue; w8a16)
+and in two plan slices of the int16 tier, in four phases:
 
 1. card: name and power limit, torch and CUDA versions, kernel build time;
-2. kernels: each of the six kernels against its plain PyTorch version on
-   the card at all 23 yolov2 conv shapes of its kind (batch 2) and at edge
-   cases (shift extremes, per-channel shift vectors that mix them, sums
+2. kernels: each of the six conv kernels against its plain PyTorch version
+   on the card at all 23 yolov2 conv shapes of its kind (batch 2) and at
+   edge cases (shift extremes, per-channel shift vectors that mix them, sums
    built to wrap, operands at the limits of their types, C=3, N=425, ragged
-   M, the int16-output head16 form of mm_s8), compared with ``torch.equal``,
-   with both times from CUDA events; every case keeps most outputs
-   unsaturated, so they depend on the sums;
+   M, the int16-output head16 form of mm_s8); the fused conv+pool kernel in
+   each pool order at the five yolov2 shapes a 2x2/s2 pool follows and at
+   edge cases (C=3 and 4, shifts, sums that wrap at shift 31, where the
+   three orders must differ); the scalar-shift int8 conv at the int8 tier's
+   15 3x3 shapes; all compared with ``torch.equal``, with both times from
+   CUDA events; every case keeps most outputs unsaturated, so they depend on
+   the sums;
 3. slices, one per tier: ``Engine.detect`` on three frames and
    ``predict_batch_rgb`` at batch 8, the kernel launches of that run
    counted, the head held bit-equal to the plain versions on the card and on
-   the CPU, and the ms per batch and batch-1 latency;
+   the CPU, and the ms per batch and batch-1 latency; then the same for the
+   int16 tier under the plan slices P1 and P2 (``YOLO2_Q16_PLAN``), whose
+   heads must also equal the default plan's, timed beside it;
 4. profile, per tier: each conv alone at batch 8 and 1 (CUDA events), the
    forward's device time by kernel against its time per forward
    (torch.profiler, each kernel known by its full name), and the SM clock
-   and power draw sampled beside them.
+   and power draw sampled beside them; each fused conv+pool alone against
+   conv3x3_q16 then the pool.
 
 Any failed check raises, so the exit code is not 0. The line before the
 last is a JSON record of the kernels; the last is
@@ -44,6 +51,7 @@ sys.modules["jax"] = None   # any import of JAX now fails
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from yolotpu.graph import MaxPoolSpec  # noqa: E402
 from yolotpu.models import zoo  # noqa: E402
 from yolotpu.names import names_for  # noqa: E402
 from yolotpu.quant import (calibrate_activations,  # noqa: E402
@@ -52,7 +60,7 @@ from yolotpu.quant import (calibrate_activations,  # noqa: E402
 from yolotpu.weights import WeightStore  # noqa: E402
 from yolotpu_torch.models import engine_plan  # noqa: E402
 from yolotpu_torch.models.yolov2 import YoloV2Q  # noqa: E402
-from yolotpu_torch.ops import _build, convops, q8, q16  # noqa: E402
+from yolotpu_torch.ops import _build, convops, pool, q8, q16  # noqa: E402
 from yolotpu_torch.runtime.engine import Engine  # noqa: E402
 
 BATCH_SHAPES = 2
@@ -75,6 +83,11 @@ KERNEL_SOURCES = {
                    "yolotpu/ops/pallas_q16.py:953"),
     "conv3x3_w8a16": ("yolotpu_torch/csrc/conv3x3_w8a16.cu",
                       "yolotpu/ops/pallas_q16.py:1048"),
+    "conv3x3_pool_q16": ("yolotpu_torch/csrc/conv3x3_pool_q16.cu",
+                         "yolotpu/ops/pallas_q16.py:1857 (K8), :1377 (K9), "
+                         ":1204/:1261 (K10), :417 (K11), :1521 (K12)"),
+    "conv3x3_int8": ("yolotpu_torch/csrc/conv3x3_s8.cu",
+                     "yolotpu/ops/pallas_conv.py:123, :85 (K13)"),
 }
 KERNEL_MODULE = {name: (q16 if name in q16.LAUNCHES else q8)
                  for name in KERNEL_SOURCES}
@@ -87,6 +100,11 @@ TIER_KERNELS = {tier: tuple(f.__name__ for f in fns)
 TARGET = {torch.int8: 2 ** 5, torch.int16: 2 ** 13}
 X_NARROW = {torch.int8: 31, torch.int16: 2047}
 WRAP_BLOCK8 = 1024   # 1024 products (-32768)*(-128) = 2^32
+POOL_CONVS = (0, 2, 6, 10, 16)   # the yolov2 convs a 2x2/s2 pool follows
+# the int16 plan slices: name -> (YOLO2_Q16_PLAN, per-forward launches of
+# mm_q16, conv3x3_q16, conv3x3_pool_q16, the pools that run as their own op)
+PLANS = {"P1": ("0:entry_sdmm,2:sd_pool,6:sd_pool,10:sd_pool", (8, 11, 4), [17]),
+         "P2": ("0:entryf,2:conv3p2,4:conv3p2", (8, 13, 2), [7, 11, 17])}
 
 
 class PlainYoloV2Q(YoloV2Q):
@@ -96,6 +114,7 @@ class PlainYoloV2Q(YoloV2Q):
     kernels = {"int16": (q16.mm_q16_plain, q16.conv3x3_q16_plain),
                "int8": (q8.mm_s8_plain, q8.conv3x3_s8_plain),
                "w8a16": (q8.mm_w8a16_plain, q8.conv3x3_w8a16_plain)}
+    pooled = {"int16": q16.conv3x3_pool_q16_plain}
 
 
 def launch_counts() -> dict:
@@ -139,7 +158,7 @@ class KernelCheck:
         self.plain_ms = {k: 0.0 for k in KERNEL_SOURCES}
 
     def compare(self, name: str, label: str, args: tuple, wraps: bool = False,
-                timed: bool = False, **kw) -> None:
+                timed: bool = False, **kw) -> torch.Tensor:
         kernel = getattr(KERNEL_MODULE[name], name)
         plain = getattr(KERNEL_MODULE[name], name + "_plain")
         got = kernel(*args, **kw)
@@ -157,19 +176,24 @@ class KernelCheck:
             sat |= want == -((-info.min) // 10)   # the minimum through the leaky
         unsat = float((~sat).float().mean())
         exact = (q16.mm_sum64 if name.startswith("mm") else q16.conv3x3_sum64)(x, w)
+        if exact.shape != want.shape:   # a pooled output: each window's largest
+            b_, h_, w_, n_ = exact.shape
+            exact = exact.abs().reshape(b_, h_ // 2, 2, w_ // 2, 2, n_).amax(
+                dim=(2, 4))
         wrapped = float(((exact.abs() >= 2.0 ** 31) & ~sat).float().mean())
         if unsat < UNSAT_FLOOR or (wraps and wrapped < WRAP_FLOOR):
             raise AssertionError(
                 f"{name} {label}: blind case, {unsat:.3f} of the outputs "
                 f"unsaturated, {wrapped:.3f} unsaturated with a wrapped sum")
         if not timed:
-            return
+            return got
         k_ms = cuda_ms(lambda: kernel(*args, **kw), reps=10)
         p_ms = cuda_ms(lambda: plain(*args, **kw), reps=3)
         self.ms[name] += k_ms
         self.plain_ms[name] += p_ms
         say(f"  {name:13s} {label:40s} equal, unsat {unsat:.3f} wrapped "
             f"{wrapped:.3f}  kernel {k_ms:8.3f} ms  plain {p_ms:8.3f} ms")
+        return got
 
 
 def span(shift: int, k: int) -> int:
@@ -491,6 +515,105 @@ def phase_kernels8(check: KernelCheck, dev: torch.device) -> None:
         "unsaturated with a wrapped sum where built to wrap")
 
 
+def phase_kernels_pool(check: KernelCheck, dev: torch.device) -> None:
+    """conv3x3_pool_q16 in each pool order against its plain version."""
+    def on(*arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in arrays)
+
+    def full(shape):
+        return rng.integers(-32768, 32768, shape).astype(np.int16)
+
+    rng = np.random.default_rng(16)
+    say(f"[kernels] conv3x3_pool_q16, orders {q16.POOL_ORDERS}: the yolov2 "
+        f"416x416 convs a 2x2/s2 pool follows ({POOL_CONVS}) at batch "
+        f"{BATCH_SHAPES}, full-range operands at shift {FULL_SHIFT}, then "
+        f"narrow ones at shift {NARROW_SHIFT}")
+    spec = zoo.build("yolov2")
+    for l in spec.conv_layers():
+        if l.idx not in POOL_CONVS:
+            continue
+        leaky = l.activation == "leaky"
+        xshape, wshape = (BATCH_SHAPES, l.h, l.w, l.c), (3, 3, l.c, l.n)
+        label = f"conv{l.idx} {l.h}x{l.w}x{l.c}->{l.n}"
+        x, w, b = on(full(xshape), full(wshape), small_bias(rng, l.n))
+        for order in q16.POOL_ORDERS:
+            check.compare("conv3x3_pool_q16", f"{label} {order}",
+                          (x, w, b, FULL_SHIFT, leaky), wraps=True, timed=True,
+                          order=order)
+        x, w, b = on(*narrow_operands(rng, xshape, wshape, NARROW_SHIFT))
+        for order in q16.POOL_ORDERS:
+            check.compare("conv3x3_pool_q16", f"{label} {order} narrow",
+                          (x, w, b, NARROW_SHIFT, leaky), order=order)
+
+    say(f"[kernels] conv3x3_pool_q16 edge cases, each order: shifts {SHIFTS} "
+        "x leaky on/off at C=3, 4 and 16 (ragged M and N); full-range "
+        "operands at shift 31, where acc + 2^29 wraps and the orders differ")
+    cases = 0
+    for shift in SHIFTS:
+        for leaky in (False, True):
+            for (bb, h, wd, c, n) in ((1, 14, 12, 3, 40), (2, 6, 10, 4, 70),
+                                      (1, 10, 6, 16, 16)):
+                x, w, b = on(*narrow_operands(rng, (bb, h, wd, c), (3, 3, c, n),
+                                              shift))
+                for order in q16.POOL_ORDERS:
+                    check.compare("conv3x3_pool_q16",
+                                  f"{bb}x{h}x{wd}x{c}->{n} {order} "
+                                  f"shift={shift} leaky={leaky}",
+                                  (x, w, b, shift, leaky), order=order)
+                    cases += 1
+    for c in (3, 4):
+        for leaky in (False, True):
+            x, w, b = on(full((2, 8, 16, c)), full((3, 3, c, 32)),
+                         small_bias(rng, 32))
+            got = {order: check.compare(
+                "conv3x3_pool_q16", f"2x8x16x{c}->32 {order} shift=31 "
+                f"leaky={leaky}", (x, w, b, 31, leaky), wraps=True, order=order)
+                for order in q16.POOL_ORDERS}
+            differ = {(a, o): int((got[a] != got[o]).sum())
+                      for i, a in enumerate(q16.POOL_ORDERS)
+                      for o in q16.POOL_ORDERS[i + 1:]}
+            if not all(differ.values()):
+                raise AssertionError(f"conv3x3_pool_q16 C={c} shift=31: the "
+                                     f"orders agree ({differ} outputs differ)")
+            say(f"  conv3x3_pool_q16 2x8x16x{c}->32 shift=31 leaky={leaky}: "
+                f"outputs that differ between orders {differ}")
+            cases += 3
+    say(f"[kernels] {cases} conv3x3_pool_q16 edge cases equal, each with at "
+        f"least {UNSAT_FLOOR} of its outputs unsaturated")
+
+
+def phase_kernels_int8(check: KernelCheck, dev: torch.device) -> None:
+    """q8.conv3x3_int8 (one shift for the layer) against its plain
+    version."""
+    def on(*arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in arrays)
+
+    rng = np.random.default_rng(13)
+    spec = zoo.build("yolov2")
+    say(f"[kernels] conv3x3_int8: the int8 tier's 3x3 conv shapes at batch "
+        f"{BATCH_SHAPES}, full-range operands, one shift for the layer fitted "
+        f"to them; then shifts {SHIFTS} x leaky on/off at C=3")
+    for l in spec.conv_layers():
+        if l.size != 3:
+            continue
+        xshape, wshape = (BATCH_SHAPES, l.h, l.w, l.c), (3, 3, l.c, l.n)
+        x, w, b, s = full_operands8(rng, xshape, wshape, np.int8, torch.int8)
+        shift = int(np.median(s))   # the fitted shift; s spreads it by +-1
+        check.compare("conv3x3_int8",
+                      f"conv{l.idx} {l.h}x{l.w}x{l.c}->{l.n} shift={shift}",
+                      (*on(x, w, b), shift, l.activation == "leaky"),
+                      timed=True)
+    for shift in SHIFTS:
+        for leaky in (False, True):
+            x, w, b, _ = narrow_operands8(rng, (1, 13, 11, 3), (3, 3, 3, 40),
+                                          np.int8, torch.int8, shift)
+            check.compare("conv3x3_int8",
+                          f"1x13x11x3->40 shift={shift} leaky={leaky}",
+                          (*on(x, w, b), shift, leaky))
+
+
 def quantized_store(spec) -> WeightStore:
     """Synthetic weights from seed 0, calibrated on one seeded image and
     quantized for the three integer tiers, as load_or_synthesize does it."""
@@ -611,6 +734,106 @@ def phase_slice(spec, store: WeightStore, tier: str,
     return {mm: launches[mm], c3: launches[c3]}, model
 
 
+def latency_ms(model: YoloV2Q, x1: torch.Tensor) -> np.ndarray:
+    """p50 and p90 of 25 batch-1 forwards (host clock, head to host), after
+    5 warm-up runs."""
+    lat = []
+    for _ in range(30):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model(x1)["head"].cpu()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return np.percentile(lat[5:], [50, 90])
+
+
+def phase_plan(spec, store: WeightStore, name: str, default: YoloV2Q,
+               dev: torch.device) -> int:
+    """An int16 plan slice through Engine under YOLO2_Q16_PLAN: its launch
+    counts, its head against the plain versions on the card and the CPU and
+    against the default plan's, and its times beside the default plan's in
+    turns (default, plan, plan, default). Returns its conv3x3_pool_q16
+    launches."""
+    plan, (n_mm, n_c3, n_pool), own_pools = PLANS[name]
+    tag = f"[plan {name}]"
+    os.environ["YOLO2_Q16_PLAN"] = plan
+    try:
+        eng = Engine(spec, store, precision="int16", device=dev)
+        overrides = engine_plan.plan_overrides()
+    finally:
+        del os.environ["YOLO2_Q16_PLAN"]
+    model = eng.model
+    fused = {i: o for i, (k, o) in model.route.items() if k == "conv3_pool"}
+    pools = [l.idx for l in spec.layers
+             if isinstance(l, MaxPoolSpec) and l.idx not in model.folded]
+    say(f"{tag} YOLO2_Q16_PLAN={plan}: conv3x3_pool_q16 at {fused}; pools "
+        f"{pools} run as their own op")
+    if pools != own_pools:
+        raise AssertionError(f"{tag} pools {pools} run alone, want {own_pools}")
+
+    def expect(forwards: int) -> dict:
+        want = dict.fromkeys(launch_counts(), 0)
+        want.update({"mm_q16": forwards * n_mm, "conv3x3_q16": forwards * n_c3,
+                     "conv3x3_pool_q16": forwards * n_pool})
+        return want
+
+    rng = np.random.default_rng(0)
+    frames = [rng.random((3, 480, 640), dtype=np.float32) for _ in range(3)]
+    batch = rng.integers(0, 256, (BATCH_SLICE, spec.net.height, spec.net.width, 3),
+                         dtype=np.uint8)
+    # the main path, with the launch counts read around it
+    reset_launches()
+    for i, im in enumerate(frames):
+        before = launch_counts()
+        dets, res = eng.detect(im)
+        per = {k: v - before[k] for k, v in launch_counts().items()}
+        if per != expect(1):
+            raise AssertionError(f"{tag} detect ran {per} kernel launches")
+        if not np.isfinite(res.head_chw).all():
+            raise AssertionError(f"{tag} request {i}: non-finite head")
+        say(f"{tag} request {i}: {res.seconds * 1e3:.1f} ms, {len(dets)} boxes "
+            "over the objectness threshold")
+    heads = eng.predict_batch_rgb(batch)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if launches != expect(4):
+        raise AssertionError(f"{tag} main path launched {launches}, want "
+                             f"{expect(4)}")
+    say(f"{tag} main path (3 detect + 1 batch of {BATCH_SLICE}) launched "
+        f"mm_q16 {launches['mm_q16']}, conv3x3_q16 {launches['conv3x3_q16']}, "
+        f"conv3x3_pool_q16 {launches['conv3x3_pool_q16']}; no other kernel")
+
+    xb = torch.from_numpy(batch).to(dev)
+    plain = PlainYoloV2Q(spec, eng.qtables, eng.params, dev, "int16", overrides)
+    if not np.array_equal(heads, plain(xb)["head"].permute(0, 3, 1, 2).cpu().numpy()):
+        raise AssertionError(f"{tag} batch head: kernels != plain versions "
+                             "on the card")
+    cpu_params = {k: {n: t.cpu() for n, t in v.items()} for k, v in eng.params.items()}
+    cpu_model = YoloV2Q(spec, eng.qtables, cpu_params, "cpu", "int16", overrides)
+    cpu_head = cpu_model(torch.from_numpy(batch[:1]))["head"].permute(0, 3, 1, 2).numpy()
+    if not np.array_equal(heads[:1], cpu_head):
+        raise AssertionError(f"{tag} frame 0 head: kernels on the card != "
+                             "plain on the CPU")
+    if not np.array_equal(heads, default(xb)["head"].permute(0, 3, 1, 2).cpu().numpy()):
+        raise AssertionError(f"{tag} batch head != the default plan's")
+    say(f"{tag} head {heads.shape} bit-equal: kernels == plain on the card "
+        f"(batch {BATCH_SLICE}) == plain on the CPU (frame 0) == the default "
+        "plan's kernels")
+
+    ms = {"default": [], name: []}
+    for who, m in (("default", default), (name, model), (name, model),
+                   ("default", default)):
+        ms[who].append(cuda_ms(lambda: m(xb), reps=20))   # noqa: B023
+    x1 = xb[:1].contiguous()
+    lat = {who: latency_ms(m, x1) for who, m in (("default", default),
+                                                  (name, model))}
+    for who in ("default", name):
+        say(f"{tag} {who:7s} batch {BATCH_SLICE}: "
+            f"{' / '.join(f'{v:.3f}' for v in ms[who])} ms per batch "
+            f"(in turns); batch 1 latency p50 {lat[who][0]:.3f} ms p90 "
+            f"{lat[who][1]:.3f} ms")
+    return launches["conv3x3_pool_q16"]
+
+
 def kernel_names(dev: torch.device) -> dict[str, str]:
     """The profiler's full name of each kernel -> the kernel, learned from
     one launch of each wrapper alone (mm_s8 with either output): a trace's
@@ -637,6 +860,9 @@ def kernel_names(dev: torch.device) -> dict[str, str]:
         ("mm_w8a16", lambda: q8.mm_w8a16(x16, w8, b, s, True)),
         ("conv3x3_s8", lambda: q8.conv3x3_s8(c8, k8, b, s, True)),
         ("conv3x3_w8a16", lambda: q8.conv3x3_w8a16(c16, k8, b, s, True)),
+        *(("conv3x3_pool_q16",
+           lambda o=o: q16.conv3x3_pool_q16(c16, k16, b, 3, True, o))
+          for o in q16.POOL_ORDERS),
     ]
     names: dict[str, str] = {}
     for name, call in calls:
@@ -751,6 +977,38 @@ def phase_profile(model: YoloV2Q, dev: torch.device,
                 f"{ms:8.3f} ms {macs / ms / 1e9:7.3f} T {tier} MAC/s{per_clk}")
 
 
+def phase_profile_pool(model: YoloV2Q, dev: torch.device) -> None:
+    """Each conv a 2x2/s2 pool follows, fused (conv3x3_pool_q16, each order)
+    against conv3x3_q16 then pool.maxpool, at batch BATCH_SLICE and 1, on
+    random full-range int16 inputs and the int16 model's weights (CUDA
+    events)."""
+    rng = np.random.default_rng(2)
+    for bsz in (BATCH_SLICE, 1):
+        sums = dict.fromkeys(("unfused", *q16.POOL_ORDERS), 0.0)
+        for l in model.spec.conv_layers():
+            if l.idx not in POOL_CONVS:
+                continue
+            x = torch.from_numpy(rng.integers(
+                -32768, 32768, (bsz, l.h, l.w, l.c)).astype(np.int16)).to(dev)
+            w, b = getattr(model, f"w{l.idx}"), getattr(model, f"b{l.idx}")
+            shift, leaky = model.plan.conv_shift_out[l.idx], l.activation == "leaky"
+            p = model.spec.layers[l.idx + 1]
+            ms = {"unfused": cuda_ms(lambda: pool.maxpool(   # noqa: B023
+                q16.conv3x3_q16(x, w, b, shift, leaky),   # noqa: B023
+                p.size, p.stride, p.padding), reps=10)}
+            for o in q16.POOL_ORDERS:
+                ms[o] = cuda_ms(lambda: q16.conv3x3_pool_q16(   # noqa: B023
+                    x, w, b, shift, leaky, o), reps=10)   # noqa: B023
+            for k, v in ms.items():
+                sums[k] += v
+            say(f"[profile pool] b={bsz} conv{l.idx} {l.h}x{l.w}x{l.c}->{l.n}: "
+                f"conv3x3_q16 + maxpool {ms['unfused']:.4f} ms; "
+                "conv3x3_pool_q16 " + ", ".join(
+                    f"{o} {ms[o]:.4f}" for o in q16.POOL_ORDERS) + " ms")
+        say(f"[profile pool] b={bsz} sum over convs {POOL_CONVS}: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in sums.items()) + " ms")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs "
@@ -763,6 +1021,8 @@ def main() -> int:
     check = KernelCheck()
     phase_kernels(check, dev)
     phase_kernels8(check, dev)
+    phase_kernels_pool(check, dev)
+    phase_kernels_int8(check, dev)
     say(f"[card] phases 1-2 took {time.perf_counter() - t0:.1f} s")
     spec = zoo.build("yolov2")
     store = quantized_store(spec)
@@ -770,12 +1030,17 @@ def main() -> int:
     for tier in TIERS:
         counts, models[tier] = phase_slice(spec, store, tier, dev)
         launches.update(counts)
+    launches["conv3x3_pool_q16"] = sum(phase_plan(spec, store, name,
+                                                  models["int16"], dev)
+                                       for name in PLANS)
+    launches["conv3x3_int8"] = 0   # on no path, as K13 in the JAX package
     say(f"[card] phases 1-3 took {time.perf_counter() - t0:.1f} s")
     names = kernel_names(dev)
-    say(f"[profile] kernels by full name: {len(names)} of 7 instantiations "
+    say(f"[profile] kernels by full name: {len(names)} of 10 instantiations "
         "seen by the profiler")
     for tier in TIERS:
         phase_profile(models[tier], dev, names)
+    phase_profile_pool(models["int16"], dev)
     say(f"[card] phases 1-4 took {time.perf_counter() - t0:.1f} s")
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": check.max_abs_err[name],

@@ -1,7 +1,8 @@
 """yolotpu_torch stands without JAX, and its kernel path never falls back.
 
 - A fresh interpreter with JAX blocked imports every module of the port and
-  runs the slice (Engine and the detect CLI) at 64x64 on the CPU.
+  runs the slice (Engine, under the default plan and under YOLO2_Q16_PLAN,
+  and the detect CLI) at 64x64 on the CPU.
 - With no card, Engine(device="cuda") raises, and a kernel launch raises
   without counting a launch.
 - The nvcc command targets sm_90a and compiles only the port's csrc/*.cu
@@ -26,7 +27,7 @@ REPO = Path(__file__).resolve().parent.parent
 PKG = Path(yolotpu_torch.__file__).resolve().parent
 
 _NO_JAX_RUN = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 sys.modules["jax"] = None          # any import of JAX fails
 sys.modules["flax"] = None
 import numpy as np
@@ -43,6 +44,11 @@ eng = Engine(spec, store, device="cpu")
 frames = np.random.default_rng(0).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
 heads = eng.predict_batch_rgb(frames)
 assert heads.shape == (2, 425, 2, 2) and np.isfinite(heads).all(), heads.shape
+os.environ["YOLO2_Q16_PLAN"] = "0:entryf,2:conv3p2,4:conv3p2"
+planned = Engine(spec, store, device="cpu")
+del os.environ["YOLO2_Q16_PLAN"]
+assert planned.model.route[2] == ("conv3_pool", "out"), planned.model.route
+assert (planned.predict_batch_rgb(frames) == heads).all()
 rc = main(["--synthetic-weights", "--device", "cpu", "--net-size", "64",
            "--output", sys.argv[2], sys.argv[1]])
 assert rc == 0, rc
@@ -123,8 +129,8 @@ def test_nvcc_command_targets_sm90a_and_csrc_only():
         srcs += [Path(a) for a in cmd if a.endswith((".cu", ".cpp", ".c"))]
     assert srcs == sorted((PKG / "csrc").glob("*.cu"))
     assert {p.name for p in srcs} == {
-        "mm_q16.cu", "conv3x3_q16.cu", "mm_s8.cu", "mm_w8a16.cu",
-        "conv3x3_s8.cu", "conv3x3_w8a16.cu"}
+        "mm_q16.cu", "conv3x3_q16.cu", "conv3x3_pool_q16.cu", "mm_s8.cu",
+        "mm_w8a16.cu", "conv3x3_s8.cu", "conv3x3_w8a16.cu"}
     objs = [cmd[cmd.index("-o") + 1] for cmd in compiles]
     assert "-shared" in link and link[link.index("-o") + 1] == "/tmp/b/lib.so"
     assert link[-len(objs):] == objs
@@ -139,10 +145,13 @@ def test_plain_versions_have_no_kernel_launch():
     b = torch.zeros(4, dtype=torch.int32)
     before = dict(q16.LAUNCHES), dict(q8.LAUNCHES), dict(q8.INT16_OUT_LAUNCHES)
     q16.conv3x3_q16(x, w, b, 3, True)
+    for order in q16.POOL_ORDERS:
+        q16.conv3x3_pool_q16(x[:, :4, :4], w, b, 3, True, order)
     q16.mm_q16(x.reshape(-1, 8), w[0, 0].contiguous(), b, 3, True)
     x8, w8 = x.to(torch.int8), w.to(torch.int8)
     s = torch.full((4,), 3, dtype=torch.int32)
     q8.conv3x3_s8(x8, w8, b, s, True)
+    q8.conv3x3_int8(x8, w8, b, 3, True)
     q8.conv3x3_w8a16(x, w8, b, s, True)
     for out in (torch.int8, torch.int16):
         q8.mm_s8(x8.reshape(-1, 8), w8[0, 0].contiguous(), b, s, True, out)

@@ -216,4 +216,5 @@ def test_wrappers_check_operands():
             (3, 3, 4, 3), dtype=torch.int16), b, 0, False)
     with pytest.raises(ValueError):   # neither CPU nor CUDA: no silent path
         q16.mm_q16(x.to("meta"), w.to("meta"), b.to("meta"), 0, False)
-    assert q16.LAUNCHES == {"mm_q16": 0, "conv3x3_q16": 0}
+    assert q16.LAUNCHES == {"mm_q16": 0, "conv3x3_q16": 0,
+                            "conv3x3_pool_q16": 0}

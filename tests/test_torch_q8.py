@@ -8,6 +8,7 @@ tiers against the JAX package's XLA routes:
   mm_w8a16_plain       == pallas_matmul.matmul_w8a16_requant       (K5)
   conv3x3_w8a16_plain  == pallas_q16.conv3x3_w8a16_wi              (K6)
   conv3x3_s8_plain     == pallas_q16.conv3x3_s8_wi                 (K7)
+  conv3x3_int8_plain   == pallas_conv.conv3x3_int8, conv3x3_int8_im2col (K13)
 
 bit for bit, on the same seeded operands, with scalar shifts (broadcast to a
 vector on the port's side) and per-channel shift vectors, at the shapes the
@@ -332,3 +333,28 @@ def test_wrappers_check_operands():
                                      device="meta"),
                          b.to("meta"), s.to("meta"), False)
     assert q8.LAUNCHES == dict.fromkeys(q8.LAUNCHES, 0)
+
+
+@pytest.mark.parametrize("shift,bound", [(12, 127), (7, 20), (0, 2), (-2, 1)])
+def test_conv3x3_int8_plain_equals_pallas_conv(shift, bound):
+    """K13, a scalar-shift int8 conv, at the shape of
+    tests/test_int8_pallas.py: both Pallas variants == the port's
+    conv3x3_int8 (conv3x3_s8 with the shift broadcast), operands sized so
+    the requantized sums span the int8 range at each shift."""
+    from yolotpu.ops.pallas_conv import conv3x3_int8, conv3x3_int8_im2col
+    b, h, w_, c, n = 2, 16, 20, 32, 64
+    rng = np.random.default_rng(13)
+    x = rng.integers(-bound, bound + 1, (b, h, w_, c)).astype(np.int8)
+    x.flat[:2] = [-128, 127]
+    w = rng.integers(-bound, bound + 1, (3, 3, c, n)).astype(np.int8)
+    w.flat[:2] = [-128, 127]
+    bias = rng.integers(-16, 16, n).astype(np.int32)
+    got = q8.conv3x3_int8_plain(_t(x), _t(w), _t(bias), shift, True).numpy()
+    for fn in (conv3x3_int8, conv3x3_int8_im2col):
+        want = np.asarray(fn(jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias),
+                             shift, True, th=8, interpret=True))
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        q8.conv3x3_int8(_t(x), _t(w), _t(bias), shift, True).numpy(), got)
+    assert ((got != 127) & (got != -128) & (got != -12)).mean() > 0.5
+    assert q8.LAUNCHES["conv3x3_int8"] == 0

@@ -20,8 +20,8 @@
 // thread per K step when C % 8 == 0 (the 8 values a thread loads share one
 // tap and are one 16-byte load); only the C=3 entry layer takes the
 // per-element path, and its K of 27 makes that a small share of the network.
-// Tensor cores (s8 wgmma with the hi/lo split), TMA and a fused 2x2 pool are
-// later work.
+// Tensor cores (s8 wgmma with the hi/lo split) and TMA are later work; the
+// same conv fused with a following 2x2/s2 pool is conv3x3_pool_q16.cu.
 #include "igemm.cuh"
 #include "loaders.cuh"
 

@@ -22,7 +22,12 @@
 // The epilogue from an Epi:
 //   W, Out                                  weight and output element types
 //   Col column(int n, int N) const          what column n needs, read once
+//   POOL                                    false: one output per row, by
 //   void store(long long i, uint32_t acc, Col) const   out[i] = requant(acc)
+//                                           true: rows 4i..4i+3 are one 2x2
+//                                           pool window (ConvLoader<T, true>)
+//                                           and give one output row, by
+//   void store4(long long i, const uint32_t a[4], Col) const
 #pragma once
 
 #include <cuda_runtime.h>
@@ -117,14 +122,33 @@ igemm_kernel(const typename Loader::Params p,
     typename Epi::Col col[TN];
 #pragma unroll
     for (int j = 0; j < TN; ++j) col[j] = e.column(n0 + tn + j, N);
+    if constexpr (Epi::POOL) {
+        // m0 and tm are multiples of 4, so a thread's TM rows are TM/4 whole
+        // windows, pooled in registers; M = B*H*W is a multiple of 4, so a
+        // window lies wholly inside M or wholly past it
+        static_assert(TM % 4 == 0, "a thread's rows must be whole windows");
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-        const long long m = m0 + tm + i;
-        if (m >= M) break;
+        for (int g = 0; g < TM / 4; ++g) {
+            const long long m = m0 + tm + 4 * g;
+            if (m >= M) break;
 #pragma unroll
-        for (int j = 0; j < TN; ++j) {
-            const int n = n0 + tn + j;
-            if (n < N) e.store(m * N + n, acc[i][j], col[j]);
+            for (int j = 0; j < TN; ++j) {
+                const int n = n0 + tn + j;
+                const uint32_t a[4] = {acc[4 * g][j], acc[4 * g + 1][j], acc[4 * g + 2][j],
+                                       acc[4 * g + 3][j]};
+                if (n < N) e.store4((m / 4) * N + n, a, col[j]);
+            }
+        }
+    } else {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+            const long long m = m0 + tm + i;
+            if (m >= M) break;
+#pragma unroll
+            for (int j = 0; j < TN; ++j) {
+                const int n = n0 + tn + j;
+                if (n < N) e.store(m * N + n, acc[i][j], col[j]);
+            }
         }
     }
 }
@@ -146,6 +170,7 @@ inline cudaError_t launch_igemm(const typename Loader::Params& p, const void* w,
 struct EpiQ16 {
     using W = int16_t;
     using Out = int16_t;
+    static constexpr bool POOL = false;
     struct Col {
         int n;
     };
@@ -159,12 +184,53 @@ struct EpiQ16 {
     }
 };
 
+// Where a conv fused with the following 2x2/s2 maxpool takes the pool's
+// max, which is a different function once acc + 2^(shift-1) wraps: on the
+// four accumulators; on each horizontal pair's accumulators, then on the
+// requantized pair maxima; or on the four requantized values.
+enum PoolOrder { kPoolAcc = 0, kPoolAccH = 1, kPoolOut = 2 };
+
+// The signed int32 max of two wrapped sums (an unsigned max is wrong as
+// soon as a sum wraps negative).
+__device__ __forceinline__ uint32_t max_s32(uint32_t a, uint32_t b) {
+    return (int32_t)a > (int32_t)b ? a : b;
+}
+
+// EpiQ16 with the pool: out (M/4, N), a[q] the sums of window member
+// q = 2 * dy + dx.
+template <int ORDER>
+struct EpiPoolQ16 : EpiQ16 {
+    static constexpr bool POOL = true;
+
+    __device__ __forceinline__ void store4(long long i, const uint32_t a[4], Col c) const {
+        const int32_t b = bias[c.n];
+        int16_t v;
+        if constexpr (ORDER == kPoolAcc) {
+            v = requant_q16(max_s32(max_s32(a[0], a[1]), max_s32(a[2], a[3])), b, shift,
+                            leaky);
+        } else if constexpr (ORDER == kPoolAccH) {
+            const int16_t top = requant_q16(max_s32(a[0], a[1]), b, shift, leaky);
+            const int16_t bot = requant_q16(max_s32(a[2], a[3]), b, shift, leaky);
+            v = top > bot ? top : bot;
+        } else {
+            v = requant_q16(a[0], b, shift, leaky);
+#pragma unroll
+            for (int q = 1; q < 4; ++q) {
+                const int16_t r = requant_q16(a[q], b, shift, leaky);
+                v = r > v ? r : v;
+            }
+        }
+        out[i] = v;
+    }
+};
+
 // The 8-bit-weight tiers' epilogue: int8 weights, an int8 or int16 output,
 // and one shift per output channel (a per-layer shift arrives broadcast).
 template <class Out_>
 struct EpiVec {
     using W = int8_t;
     using Out = Out_;
+    static constexpr bool POOL = false;
     struct Col {
         int32_t bias;
         int shift;

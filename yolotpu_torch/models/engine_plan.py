@@ -1,43 +1,119 @@
 """Per-layer kernel plan of the integer tiers on the GPU.
 
-The counterpart of ``yolotpu/models/engine_plan.py``. The TPU plan chose,
-per layer, between a dozen engine kinds measured on one TPU generation; on
-the GPU each tier has two hand-written kernels that cover every conv of
-yolov2, yolov2-voc and yolov2-tiny, so the plan is one rule for every tier:
+The counterpart of ``yolotpu/models/engine_plan.py``. The default plan is
+one rule for every tier, and covers every conv of yolov2, yolov2-voc and
+yolov2-tiny:
 
   regular 1x1/s1 conv  -> "mm"
   regular 3x3/s1 conv  -> "conv3", the C=3 entry conv and the 208x208 /
                           104x104 layers included
 
 where regular means stride 1, darknet SAME padding, no groups, and a linear
-or leaky activation. The kernel of each kind, by tier:
+or leaky activation. The kernel of each, by tier:
 
   tier    mm                                   conv3
   int16   ops.q16.mm_q16                       ops.q16.conv3x3_q16
   int8    ops.q8.mm_s8 (int16 out: the head)   ops.q8.conv3x3_s8
   w8a16   ops.q8.mm_w8a16                      ops.q8.conv3x3_w8a16
 
-The TPU plan's fused entry (conv 0 and pool 1 as one 4x4/s2 conv with a
-group-max on the accumulator) computes the same bits as conv3 followed by
-the pool only while acc + 2^(shift-1) does not wrap: the max commutes with
-the requant chain because that chain is monotone, and the wrap breaks the
-monotony. Here the pool runs as its own op, as darknet orders them. Where
-that sum wraps (full-range operands at shift 31) the two differ: see
-ROADMAP.md, Queue 3. Any other conv raises: no kernel serves it yet. No
-plan file is read until one has been measured on the card.
+The int16 tier also takes the TPU plan's per-layer overrides, in its format
+(``YOLO2_Q16_PLAN="0:entry_sdmm,2:sd_pool"``, parsed by ``yolotpu``'s own
+parser), with every kind of ``ALL_KINDS`` accepted where ``yolotpu``'s
+``params_q16`` accepts it and refused with the same ``ValueError`` where it
+does not. A kind that folds the following 2x2/s2 pool into the conv runs
+``ops.q16.conv3x3_pool_q16`` in the order where the TPU kind takes the
+pool's max; the orders differ once acc + 2^(shift-1) wraps:
+
+  | TPU kind                                       | port kernel       | pool order |
+  |------------------------------------------------|-------------------|------------|
+  | entry_sdmm (K8), entry_sd, entry_s2d, sd_pool  | conv3x3_pool_q16  | "acc": max of the 4 accumulators, then requant |
+  | entryf (K9), entry8 (K10)                      | conv3x3_pool_q16  | "acc_h": max of each horizontal pair on the accumulator, requant, max of the vertical pair |
+  | conv3p2 (K11; K12 is its flat-band form) when  | conv3x3_pool_q16  | "out": requant each of the 4, then max |
+  |   a 2x2/s2 pool follows                        |                   |            |
+  | conv3p2 with no pool after; xla, xla8,         | conv3x3_q16 (K2)  | - (a following pool runs as its own op) |
+  |   mm_patches, mm_pairs, nchw                   |                   |            |
+  | mm                                             | mm_q16            | -          |
+
+The TPU kinds' space-to-depth and p2 lane packing, hi/lo s8 planes and
+8-pixel patch groups were how they reached the TPU's s8 matrix unit with
+full lanes; they do not carry over (ROADMAP.md). Where a route reads the
+conv's own pre-pool output, a fused kind runs unfused, conv3x3_q16 then the
+pool, as ``yolotpu`` does (its ``xla_fallback``). A conv no kernel serves
+(stride > 1, other sizes, groups, other activations) raises. No plan file is
+read until one has been measured on the card.
 """
 
 from __future__ import annotations
 
-from yolotpu.graph import ConvSpec, NetworkSpec
+from yolotpu.graph import ConvSpec, NetworkSpec, RouteSpec
+from yolotpu.models.engine_plan import (ALL_KINDS, next_is_pool22,  # noqa: F401
+                                       plan_overrides)
+
+# TPU kind -> where conv3x3_pool_q16 takes the pool's max for it
+POOL_ORDER = {"entry_sdmm": "acc", "entry_sd": "acc", "entry_s2d": "acc",
+              "sd_pool": "acc", "entryf": "acc_h", "entry8": "acc_h",
+              "conv3p2": "out"}
 
 
-def select_engine(l: ConvSpec) -> str:
-    regular = (l.stride == 1 and l.groups == 1 and l.pad == l.size // 2
-               and l.activation in ("leaky", "linear"))
-    if regular and l.size == 1:
+def _regular(l: ConvSpec) -> bool:
+    return (l.stride == 1 and l.groups == 1 and l.pad == l.size // 2
+            and l.activation in ("leaky", "linear"))
+
+
+def _requirement(kind: str, l: ConvSpec,
+                 spec: NetworkSpec) -> tuple[bool, str]:
+    """Whether ``kind`` may run conv ``l``, and what it requires: the checks
+    of ``_prep_engine`` in yolotpu's models/yolov2.py, one for one."""
+    regular = _regular(l)
+    pool = next_is_pool22(spec, l.idx)
+    even = l.h % 2 == 0 and l.w % 2 == 0
+    first = l.idx == spec.conv_layers()[0].idx
+    entry = (l.size == 3 and regular and l.c <= 4 and even and pool,
+             "3x3/s1 C<=4 entry followed by a darknet 2x2/s2 pool")
+    entry8 = (l.size == 3 and regular and l.c <= 4 and l.w % 8 == 0
+              and l.h % 2 == 0 and pool,
+              "3x3/s1 C<=4 entry, W%8==0, followed by 2x2/s2 pool")
+    return {
+        "mm": (l.size == 1 and regular, "1x1/s1, simple act, darknet pad"),
+        "conv3": (l.size == 3 and regular and l.c >= 8,
+                  "3x3/s1 C>=8, simple act, darknet pad"),
+        "entry_sd": entry, "entry_s2d": entry, "entry_sdmm": entry,
+        "sd_pool": (l.size == 3 and regular and even and pool,
+                    "3x3/s1 conv followed by a darknet 2x2/s2 pool"),
+        "entryf": entry8, "entry8": entry8,
+        "conv3p2": (l.size == 3 and regular and l.c < 128
+                    and (4 * l.c) % 128 == 0 and l.n % 64 == 0 and even,
+                    "3x3/s1, 4C%128==0, N%64==0, even H/W"),
+        "mm_pairs": (l.size == 3 and regular and first and l.n % 32 == 0
+                     and l.w % 2 == 0, "first conv, 3x3/s1, N%32==0, even W"),
+        "mm_patches": (l.size == 3 and regular,
+                       "3x3/s1, simple act, darknet pad"),
+        "nchw": (first, "first conv"),
+        "xla8": (l.size > 1 and l.activation in ("leaky", "linear"),
+                 "KxK (K>1), simple act"),
+        "xla": (True, ""),
+    }[kind]
+
+
+def select_engine(l: ConvSpec, spec: NetworkSpec | None = None,
+                  overrides: dict[int, str] | None = None) -> str:
+    """One conv layer -> its kind: the override for it, checked as
+    ``yolotpu`` checks it (ValueError when illegal), or the default rule
+    (NotImplementedError for a conv no kernel serves)."""
+    if overrides and l.idx in overrides:
+        kind = overrides[l.idx]
+        if kind not in ALL_KINDS:
+            raise ValueError(f"unknown engine kind {kind!r} for conv{l.idx}")
+        ok, what = _requirement(kind, l, spec)
+        if not ok:
+            raise ValueError(
+                f"engine {kind!r} is not applicable to conv{l.idx} "
+                f"({l.size}x{l.size}/{l.stride} {l.c}->{l.n} "
+                f"{l.activation}): requires {what}")
+        return kind
+    if _regular(l) and l.size == 1:
         return "mm"
-    if regular and l.size == 3:
+    if _regular(l) and l.size == 3:
         return "conv3"
     raise NotImplementedError(
         f"conv{l.idx} ({l.size}x{l.size}/{l.stride} {l.c}->{l.n}, "
@@ -45,6 +121,33 @@ def select_engine(l: ConvSpec) -> str:
         "ROADMAP.md, Queue 1, item M14 (general convs)")
 
 
-def plan(spec: NetworkSpec) -> dict[int, str]:
-    """conv layer idx -> kernel kind, for every conv of the graph."""
-    return {l.idx: select_engine(l) for l in spec.conv_layers()}
+def plan(spec: NetworkSpec,
+         overrides: dict[int, str] | None = None) -> dict[int, str]:
+    """conv layer idx -> kind, for every conv of the graph."""
+    return {l.idx: select_engine(l, spec, overrides)
+            for l in spec.conv_layers()}
+
+
+def kernels(spec: NetworkSpec,
+            kinds: dict[int, str]) -> dict[int, tuple[str, str | None]]:
+    """conv layer idx -> (kernel, pool order) for a plan's kinds: ("mm",
+    None), ("conv3", None), or ("conv3_pool", order) where the conv also
+    computes the 2x2/s2 pool after it, which then does not run."""
+    routed = {s for l in spec.layers if isinstance(l, RouteSpec)
+              for s in l.layers}
+    out = {}
+    for l in spec.conv_layers():
+        kind = kinds[l.idx]
+        order = POOL_ORDER.get(kind)
+        if (order and l.idx not in routed
+                and (kind != "conv3p2" or next_is_pool22(spec, l.idx))):
+            out[l.idx] = ("conv3_pool", order)
+        elif _regular(l) and l.size in (1, 3):
+            out[l.idx] = ("mm" if l.size == 1 else "conv3", None)
+        else:
+            raise NotImplementedError(
+                f"conv{l.idx} ({l.size}x{l.size}/{l.stride} {l.c}->{l.n}, "
+                f"{l.activation}, groups={l.groups}) under kind {kind!r} has "
+                "no GPU kernel yet: see ROADMAP.md, Queue 1, item M14 "
+                "(general convs)")
+    return out

@@ -5,7 +5,7 @@ The counterpart of the integer tiers of ``yolotpu/models/yolov2.py``. The
 graph walk, the Q routing (``Int16Plan``) and the parameter trees are the
 JAX package's; what differs is how the convs run. Activations stay NHWC at
 their exact channel width throughout (int16, or int8 in the int8 tier), and
-every conv goes through one of the tier's two kernels as ``engine_plan``
+every conv goes through one of the tier's kernels as ``engine_plan``
 assigns it. One walk serves the three tiers. On CPU tensors the kernels'
 plain versions run, so the same module is the CPU reference.
 """
@@ -181,23 +181,37 @@ class YoloV2Q(nn.Module):
     In the int8 tier the conv feeding the region runs the head16 epilogue:
     int16 output at an 8-bits-finer scale, dequantized at ``output_q + 8``.
     The int8 and w8a16 kernels take one shift per output channel; a
-    per-layer shift is broadcast to that vector here, once."""
+    per-layer shift is broadcast to that vector here, once.
+
+    ``overrides`` ({conv idx: TPU engine kind}, the ``YOLO2_Q16_PLAN``
+    lever) is taken by the int16 tier only, as ``yolotpu`` plans only its
+    int16 Pallas path; ``engine_plan`` maps each kind to a kernel, and a conv
+    fused with its pool skips that pool."""
 
     # precision -> the conv functions (mm, conv3), by engine kind
     kernels = {"int16": (q16.mm_q16, q16.conv3x3_q16),
                "int8": (q8.mm_s8, q8.conv3x3_s8),
                "w8a16": (q8.mm_w8a16, q8.conv3x3_w8a16)}
+    # precision -> the conv fused with the 2x2/s2 pool after it
+    pooled = {"int16": q16.conv3x3_pool_q16}
 
     def __init__(self, spec: NetworkSpec, qtables: QTables, params: dict,
-                 device: torch.device | str = "cuda", precision: str = "int16"):
+                 device: torch.device | str = "cuda", precision: str = "int16",
+                 overrides: dict[int, str] | None = None):
         super().__init__()
         if precision not in self.kernels:
             raise ValueError(f"precision {precision!r} (one of "
                              f"{', '.join(self.kernels)})")
+        if overrides and precision != "int16":
+            raise ValueError(f"engine plan overrides {overrides} apply to the "
+                             f"int16 tier only, not {precision!r}")
         self.spec = spec
         self.precision = precision
         self.plan = Int16Plan.build(spec, qtables)
-        self.kinds = engine_plan.plan(spec)
+        self.kinds = engine_plan.plan(spec, overrides)
+        self.route = engine_plan.kernels(spec, self.kinds)
+        self.folded = {idx + 1 for idx, (k, _) in self.route.items()
+                        if k == "conv3_pool"}   # pools a conv computes
         self._needed = {s for l in spec.layers if isinstance(l, RouteSpec)
                         for s in l.layers}
         region_idx = spec.region.idx if spec.region is not None else None
@@ -210,7 +224,7 @@ class YoloV2Q(nn.Module):
                     np.asarray(self.plan.conv_shift_out[l.idx], np.int64),
                     (l.n,)).astype(np.int32)).to(device)
                 if precision == "int8" and l.idx + 1 == region_idx:
-                    if self.kinds[l.idx] != "mm":
+                    if self.route[l.idx][0] != "mm":
                         raise NotImplementedError(
                             f"conv{l.idx}: the head16 epilogue runs on the 1x1 "
                             "kernel only; this head conv is "
@@ -228,11 +242,14 @@ class YoloV2Q(nn.Module):
                  else getattr(self, f"s{l.idx}"))
         leaky = l.activation == "leaky"
         mm, conv3 = self.kernels[self.precision]
-        if self.kinds[l.idx] == "mm":
+        kernel, order = self.route[l.idx]
+        if kernel == "mm":
             out = {"out_dtype": torch.int16} if l.idx == self.head16 else {}
             bsz, h, wd, c = x.shape
             y = mm(x.reshape(-1, c), w, b, shift, leaky, **out)
             return y.reshape(bsz, h, wd, l.n)
+        if kernel == "conv3_pool":
+            return self.pooled[self.precision](x, w, b, shift, leaky, order)
         return conv3(x, w, b, shift, leaky)
 
     @torch.no_grad()
@@ -249,7 +266,8 @@ class YoloV2Q(nn.Module):
             if isinstance(l, ConvSpec):
                 cur = self._conv(l, cur)
             elif isinstance(l, MaxPoolSpec):
-                cur = pool.maxpool(cur, l.size, l.stride, l.padding)
+                if l.idx not in self.folded:
+                    cur = pool.maxpool(cur, l.size, l.stride, l.padding)
             elif isinstance(l, ReorgSpec):
                 cur = reorg.reorg(cur, l.stride)
                 sh = plan.reorg_realign.get(l.idx, 0)

@@ -1,14 +1,19 @@
-"""The two exact-int16 conv kernels: wrappers, plain versions, launch counts.
+"""The exact-int16 conv kernels: wrappers, plain versions, launch counts.
 
-The counterpart of ``yolotpu/ops/pallas_q16.py``. Both kernels compute what
+The counterpart of ``yolotpu/ops/pallas_q16.py``. The kernels compute what
 the Pallas kernels compute, the exact int16 x int16 sum modulo 2^32 followed
 by the requant chain (``convops.requant32``):
 
-  mm_q16        x (M, K) @ w (K, N)               the 1x1 convs
-                (replaces ``matmul_q16_requant``)
-  conv3x3_q16   SAME 3x3/s1 conv, NHWC x HWIO      the 3x3 convs
-                (replaces ``conv3x3_q16_flat`` and its fallback
-                ``conv3x3_q16_requant``)
+  mm_q16            x (M, K) @ w (K, N)               the 1x1 convs
+                    (replaces ``matmul_q16_requant``)
+  conv3x3_q16       SAME 3x3/s1 conv, NHWC x HWIO      the 3x3 convs
+                    (replaces ``conv3x3_q16_flat`` and its fallback
+                    ``conv3x3_q16_requant``)
+  conv3x3_pool_q16  the same conv and the darknet 2x2/s2 maxpool after it,
+                    the pool's max taken in one of ``POOL_ORDERS``
+                    (replaces ``entry_sdmm_forward``, ``entryf_forward``,
+                    ``entry8_forward``, and ``conv3x3p2_q16_requant`` /
+                    ``conv3x3p2f_q16_requant`` under ``maxpool2x2_p2``)
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
 launches the hand-written kernel (``csrc/``, built by ``_build``) or raises.
@@ -32,7 +37,15 @@ import torch.nn.functional as F
 from . import _build
 from .convops import requant32, wrap32
 
-LAUNCHES = {"mm_q16": 0, "conv3x3_q16": 0}
+LAUNCHES = {"mm_q16": 0, "conv3x3_q16": 0, "conv3x3_pool_q16": 0}
+
+# Where conv3x3_pool_q16 takes the pool's max, by the kernel's order index.
+# The three agree while acc + 2^(shift-1) does not wrap:
+#   "acc"    the max of the window's four int32 sums, then the requant
+#   "acc_h"  the max of each horizontal pair's sums, the requant, then the
+#            max of the vertical pair
+#   "out"    the requant of each of the four, then the max (conv, then pool)
+POOL_ORDERS = ("acc", "acc_h", "out")
 
 
 def reset_launches() -> None:
@@ -82,6 +95,28 @@ def conv3x3_q16_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                       shift: int, leaky: bool) -> torch.Tensor:
     acc = acc32(conv3x3_sum64(x, w))
     return requant32(acc, bias, shift, leaky).to(torch.int16)
+
+
+def conv3x3_pool_q16_plain(x: torch.Tensor, w: torch.Tensor,
+                           bias: torch.Tensor, shift: int, leaky: bool,
+                           order: str) -> torch.Tensor:
+    """conv3x3_q16_plain's sums, then the 2x2/s2 pool in ``order``; every
+    max is a signed int32 (or int16) max of the wrapped values, as
+    ``jnp.maximum`` takes it."""
+    acc = acc32(conv3x3_sum64(x, w))
+    b, h, wd, n = acc.shape
+    # (b, ho, dy, wo, dx, n): the pool window's members on axes 2 and 4
+    win = acc.reshape(b, h // 2, 2, wd // 2, 2, n)
+    if order == "acc":
+        v = requant32(win.amax(dim=(2, 4)), bias, shift, leaky)
+    elif order == "acc_h":
+        v = requant32(win.amax(dim=4), bias, shift, leaky).amax(dim=2)
+    elif order == "out":
+        v = requant32(win, bias, shift, leaky).amax(dim=(2, 4))
+    else:
+        raise ValueError(f"conv3x3_pool_q16: order {order!r} (one of "
+                         f"{', '.join(POOL_ORDERS)})")
+    return v.to(torch.int16)
 
 
 def _check(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -150,3 +185,26 @@ def conv3x3_q16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return _launch("conv3x3_q16", "yq16_conv3x3", out, x.data_ptr(),
                    w.data_ptr(), bias.data_ptr(), out.data_ptr(),
                    b, h, wd, c, n, int(shift), int(leaky))
+
+
+def conv3x3_pool_q16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                     shift: int, leaky: bool, order: str) -> torch.Tensor:
+    """x (B, H, W, C) int16 with H and W even, w (3, 3, C, N) int16 -> SAME
+    3x3/s1 conv with fused requant and the darknet 2x2/s2 maxpool after it,
+    the max taken in ``order`` (one of POOL_ORDERS): (B, H/2, W/2, N)
+    int16."""
+    _check("conv3x3_pool_q16", x, w, bias, 4,
+           w.ndim == 4 and w.shape[:3] == (3, 3, x.shape[-1]))
+    b, h, wd, c = x.shape
+    if h % 2 or wd % 2 or order not in POOL_ORDERS:
+        raise ValueError(f"conv3x3_pool_q16: want even H and W and an order "
+                         f"in {POOL_ORDERS}; got {h}x{wd}, {order!r}")
+    if x.device.type == "cpu":
+        return conv3x3_pool_q16_plain(x, w, bias, shift, leaky, order)
+    n = w.shape[-1]
+    out = torch.empty((b, h // 2, wd // 2, n), dtype=torch.int16,
+                      device=x.device)
+    return _launch("conv3x3_pool_q16", "yq16_conv3x3_pool", out, x.data_ptr(),
+                   w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                   b, h, wd, c, n, int(shift), int(leaky),
+                   POOL_ORDERS.index(order))

@@ -15,9 +15,12 @@ an (N,) shift vector and the output type's range):
                  (replaces ``conv3x3_s8_wi``)
   conv3x3_w8a16  SAME 3x3/s1 conv, int16 NHWC x int8 HWIO -> int16
                  (replaces ``conv3x3_w8a16_wi``)
+  conv3x3_int8   conv3x3_s8 with one shift for the layer, broadcast here:
+                 the same function and kernel (replaces
+                 ``pallas_conv.conv3x3_int8`` and ``conv3x3_int8_im2col``)
 
-The shift is always an (N,) int32 tensor: a per-layer shift is broadcast
-once, when the model is built. The w8a16 kernels multiply int16 by int8
+The kernels' shift is always an (N,) int32 tensor: a per-layer shift is
+broadcast once, when the model is built. The w8a16 kernels multiply int16 by int8
 directly; the TPU's hi/lo activation planes and their ``cw``/``nconst``
 correction compute the same sum and do not carry over.
 
@@ -38,7 +41,8 @@ import torch
 from . import q16
 from .convops import requant32
 
-LAUNCHES = {"mm_s8": 0, "mm_w8a16": 0, "conv3x3_s8": 0, "conv3x3_w8a16": 0}
+LAUNCHES = {"mm_s8": 0, "mm_w8a16": 0, "conv3x3_s8": 0, "conv3x3_w8a16": 0,
+            "conv3x3_int8": 0}
 INT16_OUT_LAUNCHES = {"mm_s8": 0}
 
 _RANGE = {torch.int8: (-128, 127), torch.int16: (-32768, 32767)}
@@ -75,6 +79,16 @@ def conv3x3_s8_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 def conv3x3_w8a16_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                         shift: torch.Tensor, leaky: bool) -> torch.Tensor:
     return _requant(q16.conv3x3_sum64(x, w), bias, shift, leaky, torch.int16)
+
+
+def _broadcast(shift_out: int, w: torch.Tensor) -> torch.Tensor:
+    return torch.full((w.shape[-1],), int(shift_out), dtype=torch.int32,
+                      device=w.device)
+
+
+def conv3x3_int8_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                       shift_out: int, leaky: bool) -> torch.Tensor:
+    return conv3x3_s8_plain(x, w, bias, _broadcast(shift_out, w), leaky)
 
 
 def _check(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -151,6 +165,19 @@ def conv3x3_s8(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     if x.device.type == "cpu":
         return conv3x3_s8_plain(x, w, bias, shift, leaky)
     return _conv3("conv3x3_s8", "yq8_conv3x3_s8", x, w, bias, shift, leaky,
+                  torch.int8)
+
+
+def conv3x3_int8(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                 shift_out: int, leaky: bool) -> torch.Tensor:
+    """x (B, H, W, C) int8, w (3, 3, C, N) int8 -> SAME 3x3/s1 conv, one
+    shift for the layer, +bias, clip to int8, integer leaky: (B, H, W, N)
+    int8. conv3x3_s8's kernel, with the shift broadcast to (N,)."""
+    shift = _broadcast(shift_out, w)
+    _check("conv3x3_int8", x, w, bias, shift, torch.int8, 4)
+    if x.device.type == "cpu":
+        return conv3x3_s8_plain(x, w, bias, shift, leaky)
+    return _conv3("conv3x3_int8", "yq8_conv3x3_s8", x, w, bias, shift, leaky,
                   torch.int8)
 
 

@@ -4,7 +4,9 @@ The counterpart of ``yolotpu/runtime/engine.py`` for the integer tiers
 (int16-exact, int8 w8a8 with the head16 epilogue, w8a16). The host steps
 around the network (letterbox, region activation, box decode, NMS, region
 dumps) are the JAX package's numpy code, reused unchanged; the network runs
-as ``models.yolov2.YoloV2Q`` on ``device``.
+as ``models.yolov2.YoloV2Q`` on ``device``. In the int16 tier
+``YOLO2_Q16_PLAN`` ("idx:kind,...") overrides the engine kind of conv
+layers, as it does in ``yolotpu`` (``models.engine_plan``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from yolotpu.postprocess import (Detection, do_nms_sort, forward_region,
 from yolotpu.runtime.engine import PredictResult, maybe_dump_region
 from yolotpu.weights import WeightStore
 
+from ..models import engine_plan
 from ..models.yolov2 import YoloV2Q, params_int8, params_int16, params_w8a16
 
 # precision -> (store weights, store Q tables, params function, what is missing
@@ -58,8 +61,12 @@ class Engine:
         self.precision = precision
         self.qtables = getattr(store, qtables)
         self.params = make_params(spec, store, self.device)
+        # the int16 tier's per-layer engine lever, read as yolotpu's
+        # params_q16 reads it; no plan file until one is measured on the card
+        overrides = (engine_plan.plan_overrides() if precision == "int16"
+                     else None)
         self.model = YoloV2Q(spec, self.qtables, self.params, self.device,
-                             precision)
+                             precision, overrides)
 
     def _head_nchw(self, x: torch.Tensor) -> np.ndarray:
         head = self.model(x.to(self.device))["head"]
