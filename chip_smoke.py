@@ -8,60 +8,70 @@ port's main paths, YOLOv2 at 416x416 with synthetic weights from seed 0 in
 each integer tier (int16-exact; int8 w8a8 with the head16 epilogue; w8a16)
 and in two plan slices of the int16 tier, in four phases:
 
-1. card: name and power limit, torch and CUDA versions, kernel build time;
+1. card: name and power limit, torch and CUDA versions, kernel build time,
+   each kernel's registers and spills, and the shared memory of the two
+   tensor-core kernels (mm_q16, conv3x3_q16);
 2. kernels: each of the six conv kernels against its plain PyTorch version
    on the card at all 23 yolov2 conv shapes of its kind (batch 2) and at
    edge cases (shift extremes, per-channel shift vectors that mix them, sums
    built to wrap, operands at the limits of their types, C=3, N=425, ragged
-   M, the int16-output head16 form of mm_s8); the fused conv+pool kernel in
-   each pool order at the five yolov2 shapes a 2x2/s2 pool follows and at
-   edge cases (C=3 and 4, shifts, sums that wrap at shift 31, where the
-   three orders must differ); the scalar-shift int8 conv at the int8 tier's
-   15 3x3 shapes; all compared with ``torch.equal``, with both times from
-   CUDA events; every case keeps most outputs unsaturated, so they depend on
-   the sums;
+   M, the int16-output head16 form of mm_s8); the two tensor-core kernels
+   also at the 13x13 shapes at batch 1 and 8 (K split over blocks, or not)
+   and at K=33000 and 33300 with every operand -32513, beyond one s32
+   partial sum; the fused conv+pool kernel in each pool order at the five
+   yolov2 shapes a 2x2/s2 pool follows and at edge cases (C=3 and 4,
+   shifts, sums that wrap at shift 31, where the three orders must differ);
+   the scalar-shift int8 conv at the int8 tier's 15 3x3 shapes; all
+   compared with ``torch.equal``, with both times from CUDA events, and, at
+   the model's shapes, the bound (the least time the card could take) and
+   one library call's time for the same sums; every case keeps most outputs
+   unsaturated, so they depend on the sums;
 3. slices, one per tier: ``Engine.detect`` on three frames and
    ``predict_batch_rgb`` at batch 8, the kernel launches of that run
-   counted, the head held bit-equal to the plain versions on the card and on
-   the CPU, and the ms per batch and batch-1 latency; then the same for the
-   int16 tier under the plan slices P1 and P2 (``YOLO2_Q16_PLAN``), whose
-   heads must also equal the default plan's, timed beside it;
-4. profile, per tier: each conv alone at batch 8 and 1 (CUDA events), the
-   forward's device time by kernel against its time per forward
-   (torch.profiler, each kernel known by its full name), and the SM clock
-   and power draw sampled beside them; each fused conv+pool alone against
-   conv3x3_q16 then the pool.
+   counted (and per forward), the head held bit-equal to the plain versions
+   on the card and on the CPU, and the ms per batch and batch-1 latency;
+   then the same for the int16 tier under the plan slices P1 and P2
+   (``YOLO2_Q16_PLAN``), whose heads must also equal the default plan's,
+   timed beside it;
+4. profile, per tier: each conv alone at batch 8 and 1 (CUDA events) beside
+   its plain version, a library call and its bound, summed per kernel over
+   one forward; the forward's device time by kernel against its time per
+   forward (torch.profiler, each kernel known by its full name), and the SM
+   clock and power draw sampled beside them; each fused conv+pool alone
+   against conv3x3_q16 then the pool, and summed over P1's fused convs.
 
 Any failed check raises, so the exit code is not 0. The line before the
 last is a JSON record of the kernels; the last is
-``{"ok": true, "device": {...}}``. JAX is blocked from import for the whole
-run: the port must not need it.
+``{"ok": true, "device": {...}}``. JAX and the JAX package ``yolotpu`` are
+blocked from import for the whole run: the port must not need them.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
 
-sys.modules["jax"] = None   # any import of JAX now fails
+sys.modules["jax"] = None       # any import of JAX now fails,
+sys.modules["yolotpu"] = None   # and of the JAX package
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from yolotpu.graph import MaxPoolSpec  # noqa: E402
-from yolotpu.models import zoo  # noqa: E402
-from yolotpu.names import names_for  # noqa: E402
-from yolotpu.quant import (calibrate_activations,  # noqa: E402
-                           calibrate_activations_int8, quantize_weights,
-                           quantize_weights_int8, quantize_weights_w8a16)
-from yolotpu.weights import WeightStore  # noqa: E402
-from yolotpu_torch.models import engine_plan  # noqa: E402
+from yolotpu_torch.graph import MaxPoolSpec  # noqa: E402
+from yolotpu_torch.models import engine_plan, zoo  # noqa: E402
 from yolotpu_torch.models.yolov2 import YoloV2Q  # noqa: E402
+from yolotpu_torch.names import names_for  # noqa: E402
 from yolotpu_torch.ops import _build, convops, pool, q8, q16  # noqa: E402
+from yolotpu_torch.quant import (calibrate_activations,  # noqa: E402
+                                 calibrate_activations_int8, quantize_weights,
+                                 quantize_weights_int8, quantize_weights_w8a16)
 from yolotpu_torch.runtime.engine import Engine  # noqa: E402
+from yolotpu_torch.weights import WeightStore  # noqa: E402
 
 BATCH_SHAPES = 2
 BATCH_SLICE = 8
@@ -101,6 +111,17 @@ TARGET = {torch.int8: 2 ** 5, torch.int16: 2 ** 13}
 X_NARROW = {torch.int8: 31, torch.int16: 2047}
 WRAP_BLOCK8 = 1024   # 1024 products (-32768)*(-128) = 2^32
 POOL_CONVS = (0, 2, 6, 10, 16)   # the yolov2 convs a 2x2/s2 pool follows
+# the kernels on the 8-bit tensor cores, which take their weights also as
+# packed planes (q16.pack_q16)
+TC_KERNELS = ("mm_q16", "conv3x3_q16")
+INT8_KERNELS = ("mm_s8", "conv3x3_s8", "conv3x3_int8")   # int8 x int8
+# the card's peaks (NVIDIA H100 SXM data sheet, dense): 8-bit tensor-core
+# multiply-adds per second (1,979 T int8 ops) and device memory bytes per
+# second. A bound counts 4 8-bit products per MAC for int16 x int16, 2 for
+# int16 x int8 and 1 for int8 x int8, and each input, weight and output byte
+# once.
+PEAK_MAC8 = 1979e12 / 2
+PEAK_BYTES = 3.35e12
 # the int16 plan slices: name -> (YOLO2_Q16_PLAN, per-forward launches of
 # mm_q16, conv3x3_q16, conv3x3_pool_q16, the pools that run as their own op)
 PLANS = {"P1": ("0:entry_sdmm,2:sd_pool,6:sd_pool,10:sd_pool", (8, 11, 4), [17]),
@@ -115,6 +136,7 @@ class PlainYoloV2Q(YoloV2Q):
                "int8": (q8.mm_s8_plain, q8.conv3x3_s8_plain),
                "w8a16": (q8.mm_w8a16_plain, q8.conv3x3_w8a16_plain)}
     pooled = {"int16": q16.conv3x3_pool_q16_plain}
+    packs = {}   # the plain versions take HWIO weights on every device
 
 
 def launch_counts() -> dict:
@@ -143,9 +165,67 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def products(x: torch.Tensor, w: torch.Tensor) -> int:
+    """8-bit tensor-core products per MAC of an x by w multiply."""
+    return x.element_size() * w.element_size()
+
+
+def bound(m: int, k: int, n: int, per_mac: int, nbytes: int) -> tuple:
+    """(operations ms, bytes ms) of the least time the card could take: m*n*k
+    MACs of per_mac 8-bit products each on the tensor cores, and nbytes
+    moved once."""
+    return (m * n * k * per_mac / PEAK_MAC8 * 1e3, nbytes / PEAK_BYTES * 1e3)
+
+
+def case_bound(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+               out: torch.Tensor, shift) -> tuple:
+    """bound() of one kernel call on these operands: x (M, K) or NHWC, w
+    (K, N) or HWIO, out its output; bias and a shift vector read once."""
+    n = w.shape[-1]
+    nbytes = sum(t.numel() * t.element_size() for t in (x, w, bias, out))
+    if torch.is_tensor(shift):
+        nbytes += shift.numel() * shift.element_size()
+    return bound(x.numel() // x.shape[-1], w.numel() // n, n, products(x, w),
+                 nbytes)
+
+
+def int_mm_ok(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether torch._int_mm takes these int8 operands (its CUDA shape rules:
+    more than 16 rows, K and N multiples of 8)."""
+    return (a.dtype == b.dtype == torch.int8 and a.shape[0] > 16
+            and a.shape[1] % 8 == 0 and b.shape[1] % 8 == 0)
+
+
+def library_call(name: str, x: torch.Tensor, w: torch.Tensor):
+    """One PyTorch call that computes the kernel's sums (not its wrap or
+    requant) on the same operands, as (fn, what): torch._int_mm for int8 x
+    int8 where its shape rules allow, else a float64 matmul (exact below
+    2^53), on the im2col matrix for a 3x3 conv. Never called by the port."""
+    a = x.reshape(-1, x.shape[-1]) if name.startswith("mm") else q16.im2col3x3(x)
+    b = w.reshape(-1, w.shape[-1])
+    if name in INT8_KERNELS and int_mm_ok(a, b):
+        a, b = a.contiguous(), b.contiguous()
+        return (lambda: torch._int_mm(a, b)), "_int_mm"
+    a, b = a.to(torch.float64), b.to(torch.float64)
+    return (lambda: a @ b), "matmul fp64"
+
+
+def add_bound(acc: list, part: tuple) -> None:
+    """Sum bounds: acc = [bound ms, of it bound by operations, by bytes]."""
+    ops, by = part
+    acc[0] += max(ops, by)
+    acc[1 if ops >= by else 2] += max(ops, by)
+
+
+def bound_by(acc: list) -> str:
+    return "operations" if acc[1] >= acc[2] else "bytes"
+
+
 class KernelCheck:
     """Runs a kernel and its plain version on the same card inputs, holds
-    them equal, and keeps the worst disagreement and the per-layer times.
+    them equal, and keeps the worst disagreement and the per-layer times;
+    in a timed case also the bound and one library call's time on the same
+    inputs.
 
     Each case must leave at least UNSAT_FLOOR of its outputs unsaturated,
     so that they depend on the sums and not on the bias alone; a case built
@@ -156,11 +236,17 @@ class KernelCheck:
         self.max_abs_err = {k: 0 for k in KERNEL_SOURCES}
         self.ms = {k: 0.0 for k in KERNEL_SOURCES}
         self.plain_ms = {k: 0.0 for k in KERNEL_SOURCES}
+        self.library_ms = {k: 0.0 for k in KERNEL_SOURCES}
+        self.library = {k: set() for k in KERNEL_SOURCES}
+        self.bound = {k: [0.0, 0.0, 0.0] for k in KERNEL_SOURCES}
 
     def compare(self, name: str, label: str, args: tuple, wraps: bool = False,
                 timed: bool = False, **kw) -> torch.Tensor:
-        kernel = getattr(KERNEL_MODULE[name], name)
-        plain = getattr(KERNEL_MODULE[name], name + "_plain")
+        module = KERNEL_MODULE[name]
+        plain = getattr(module, name + "_plain")
+        kernel = getattr(module, name)
+        if name in TC_KERNELS:   # packed once, as at model build
+            kernel = functools.partial(kernel, planes=q16.pack_q16(args[1]))
         got = kernel(*args, **kw)
         want = plain(*args, **kw)
         torch.cuda.synchronize()
@@ -189,10 +275,17 @@ class KernelCheck:
             return got
         k_ms = cuda_ms(lambda: kernel(*args, **kw), reps=10)
         p_ms = cuda_ms(lambda: plain(*args, **kw), reps=3)
+        lib, what = library_call(name, x, w)
+        l_ms = cuda_ms(lib, reps=5)
+        part = case_bound(x, w, args[2], want, args[3])
         self.ms[name] += k_ms
         self.plain_ms[name] += p_ms
+        self.library_ms[name] += l_ms
+        self.library[name].add(what)
+        add_bound(self.bound[name], part)
         say(f"  {name:13s} {label:40s} equal, unsat {unsat:.3f} wrapped "
-            f"{wrapped:.3f}  kernel {k_ms:8.3f} ms  plain {p_ms:8.3f} ms")
+            f"{wrapped:.3f}  kernel {k_ms:8.3f} ms  plain {p_ms:8.3f} ms  "
+            f"{what} {l_ms:8.3f} ms  bound {max(part):.4f} ms")
         return got
 
 
@@ -348,6 +441,27 @@ def wrap_operands8(rng, rows: int, taps: int, n: int, shift: int, nblk: int,
             bias8(rng, n, torch.int16), np.full(n, shift, np.int32))
 
 
+def sass_counts(lib_path) -> dict[str, tuple[int, int]]:
+    """cuobjdump -sass of the kernel library: each kernel function's
+    (instructions, integer tensor-core MMA instructions)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    dump = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    counts: dict[str, list] = {}
+    fn = None
+    for line in dump.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = [0, 0]
+        elif fn and line.strip().startswith("/*") and "*/" in line:
+            ins = line.split("*/", 1)[1].strip()
+            if ins and not ins.startswith("/*"):
+                counts[fn][0] += 1
+                counts[fn][1] += ins.split()[0].startswith("IMMA") or (
+                    ins.startswith("@") and " IMMA" in ins)
+    return {k: tuple(v) for k, v in counts.items()}
+
+
 def phase_card() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -362,6 +476,19 @@ def phase_card() -> str:
     for line in lib.log.splitlines():
         if "entry function" in line or "registers" in line or "spill" in line:
             say(f"[card]   {line.strip()}")
+    sass = sass_counts(lib.path)
+    for fn, (n, imma) in sorted(sass.items()):
+        say(f"[card]   SASS {fn}: {n} instructions, {imma} IMMA")
+    tc = {fn for fn in sass if "igemm_tc_kernel" in fn}
+    if len(tc) != 2 or any(not sass[fn][1] for fn in tc) or any(
+            sass[fn][1] for fn in sass if fn not in tc):
+        raise AssertionError("integer tensor-core MMA (IMMA) must be in the two "
+                             "yq::tc kernels and only there")
+    say(f"[card] {', '.join(TC_KERNELS)} run on the 8-bit tensor cores "
+        "(the entry functions yq::tc::igemm_tc_kernel above): "
+        f"{q16.TC_BM}x{q16.TC_BN} tiles, K steps of {q16.TC_BK}, "
+        f"{lib.cdll.yq16_tc_smem_bytes()} bytes of dynamic shared memory per "
+        f"block, {q16.TC_RESIDENT} blocks per SM")
     return smi
 
 
@@ -391,6 +518,44 @@ def phase_kernels(check: KernelCheck, dev: torch.device) -> None:
                       timed=True)
         x, w, b = on(*narrow_operands(rng, xshape, wshape, NARROW_SHIFT))
         check.compare(name, label + " narrow", (x, w, b, NARROW_SHIFT, leaky))
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    say("[kernels] the 13x13 shapes also at batch 1 and 8 (K split over "
+        "blocks, or not, as the wrapper chooses), full-range operands")
+    for l in spec.conv_layers():
+        if l.h != 13:
+            continue
+        mm = engine_plan.select_engine(l) == "mm"
+        for bsz in (1, 8):
+            xshape = (bsz * l.h * l.w, l.c) if mm else (bsz, l.h, l.w, l.c)
+            wshape = (l.c, l.n) if mm else (3, 3, l.c, l.n)
+            m, k = bsz * l.h * l.w, l.c * l.size * l.size
+            kps = q16.tc_split(m, l.n, k, sms)
+            splits = -(-(-(-k // q16.TC_BK)) // kps)
+            x, w, b = on(rng.integers(-32768, 32768, xshape).astype(np.int16),
+                         rng.integers(-32768, 32768, wshape).astype(np.int16),
+                         small_bias(rng, l.n))
+            check.compare("mm_q16" if mm else "conv3x3_q16",
+                          f"conv{l.idx} b={bsz} {l.c}->{l.n} K in {splits} "
+                          "splits", (x, w, b, FULL_SHIFT, l.activation == "leaky"),
+                          wraps=True)
+            say(f"  conv{l.idx} b={bsz} {l.h}x{l.w}x{l.c}->{l.n}: equal, K "
+                f"{k} in {splits} splits of {kps * q16.TC_BK}")
+
+    say(f"[kernels] K beyond one s32 partial sum ({q16.TC_KMAX}): every "
+        "operand -32513 (high byte -128, low byte 255), where an unchunked "
+        "middle sum leaves s32")
+    for leaky in (False, True):
+        x, w = (np.full(shape, -32513, np.int16) for shape in ((200, 33000),
+                                                                (33000, 72)))
+        x, w, b = on(x, w, small_bias(rng, 72))
+        check.compare("mm_q16", f"K=33000 -32513 leaky={leaky}",
+                      (x, w, b, 18, leaky), wraps=True)
+        x, w = (np.full(shape, -32513, np.int16) for shape in ((1, 4, 5, 3700),
+                                                                (3, 3, 3700, 16)))
+        x, w, b = on(x, w, small_bias(rng, 16))
+        check.compare("conv3x3_q16", f"1x4x5x3700->16 (K=33300) -32513 "
+                      f"leaky={leaky}", (x, w, b, 18, leaky), wraps=True)
 
     say(f"[kernels] edge cases: shifts {SHIFTS} x leaky on/off; sums built "
         "to wrap, weights and inputs at -32768 and +-32767, C=3, N=425, "
@@ -628,9 +793,10 @@ def quantized_store(spec) -> WeightStore:
 
 
 def phase_slice(spec, store: WeightStore, tier: str,
-                dev: torch.device) -> tuple[dict, YoloV2Q]:
+                dev: torch.device) -> tuple[dict, YoloV2Q, YoloV2Q]:
     """One tier's main path, its launch counts, its heads against the plain
-    versions on the card and the CPU, and its ms per batch and latency."""
+    versions on the card and the CPU, and its ms per batch and latency.
+    Returns the launches, the model and its plain twin."""
     eng = Engine(spec, store, precision=tier, device=dev)
     mm, c3 = TIER_KERNELS[tier]
     n_mm = sum(k == "mm" for k in eng.model.kinds.values())
@@ -671,7 +837,8 @@ def phase_slice(spec, store: WeightStore, tier: str,
     split = (f" ({launches[mm] - head16} with int8 output, {head16} with "
              "int16: the head16 conv)" if tier == "int8" else "")
     say(f"{tag} main path (3 detect + 1 batch of {BATCH_SLICE}) launched "
-        f"{mm} {launches[mm]}{split}, {c3} {launches[c3]}; no other kernel")
+        f"{mm} {launches[mm]}{split}, {c3} {launches[c3]}; no other kernel; "
+        f"per forward {n_mm} {mm} + {n_c3} {c3}")
 
     for i, (dets, res) in enumerate(results):
         labels = sum(int((d.prob > 0.25).sum()) for d in dets)
@@ -731,7 +898,7 @@ def phase_slice(spec, store: WeightStore, tier: str,
         f"{plain_ms_b8:.3f} ms plain versions")
     say(f"{tag} batch 1 latency (host clock, head to host): p50 {p50:.3f} ms "
         f"p90 {p90:.3f} ms")
-    return {mm: launches[mm], c3: launches[c3]}, model
+    return {mm: launches[mm], c3: launches[c3]}, model, plain
 
 
 def latency_ms(model: YoloV2Q, x1: torch.Tensor) -> np.ndarray:
@@ -751,7 +918,7 @@ def phase_plan(spec, store: WeightStore, name: str, default: YoloV2Q,
     """An int16 plan slice through Engine under YOLO2_Q16_PLAN: its launch
     counts, its head against the plain versions on the card and the CPU and
     against the default plan's, and its times beside the default plan's in
-    turns (default, plan, plan, default). Returns its conv3x3_pool_q16
+    turns (default, plan, plan, default). Returns its main path's
     launches."""
     plan, (n_mm, n_c3, n_pool), own_pools = PLANS[name]
     tag = f"[plan {name}]"
@@ -800,7 +967,8 @@ def phase_plan(spec, store: WeightStore, name: str, default: YoloV2Q,
                              f"{expect(4)}")
     say(f"{tag} main path (3 detect + 1 batch of {BATCH_SLICE}) launched "
         f"mm_q16 {launches['mm_q16']}, conv3x3_q16 {launches['conv3x3_q16']}, "
-        f"conv3x3_pool_q16 {launches['conv3x3_pool_q16']}; no other kernel")
+        f"conv3x3_pool_q16 {launches['conv3x3_pool_q16']}; no other kernel; "
+        f"per forward {n_mm} + {n_c3} + {n_pool}")
 
     xb = torch.from_numpy(batch).to(dev)
     plain = PlainYoloV2Q(spec, eng.qtables, eng.params, dev, "int16", overrides)
@@ -831,7 +999,12 @@ def phase_plan(spec, store: WeightStore, name: str, default: YoloV2Q,
             f"{' / '.join(f'{v:.3f}' for v in ms[who])} ms per batch "
             f"(in turns); batch 1 latency p50 {lat[who][0]:.3f} ms p90 "
             f"{lat[who][1]:.3f} ms")
-    return launches["conv3x3_pool_q16"]
+    return launches
+
+
+def is_memset(key: str) -> bool:
+    """A profiler key of a memset (the split-K workspace's zeroing)."""
+    return key.lower().startswith("memset")
 
 
 def kernel_names(dev: torch.device) -> dict[str, str]:
@@ -851,10 +1024,14 @@ def kernel_names(dev: torch.device) -> dict[str, str]:
     w8, w16 = t((16, 16), i8), t((16, 16), i16)
     c8, c16 = t((1, 4, 4, 16), i8), t((1, 4, 4, 16), i16)
     k8, k16 = t((3, 3, 16, 16), i8), t((3, 3, 16, 16), i16)
+    p16, pk16 = q16.pack_q16(w16), q16.pack_q16(k16)
     # the operands exist before the profiler starts: only the kernel runs
+    # (at these shapes K is not split, so the tensor-core kernels launch
+    # alone, with no workspace memset)
     calls = [
-        ("mm_q16", lambda: q16.mm_q16(x16, w16, b, 3, True)),
-        ("conv3x3_q16", lambda: q16.conv3x3_q16(c16, k16, b, 3, True)),
+        ("mm_q16", lambda: q16.mm_q16(x16, w16, b, 3, True, planes=p16)),
+        ("conv3x3_q16", lambda: q16.conv3x3_q16(c16, k16, b, 3, True,
+                                                planes=pk16)),
         ("mm_s8", lambda: q8.mm_s8(x8, w8, b, s, True)),
         ("mm_s8", lambda: q8.mm_s8(x8, w8, b, s, True, i16)),
         ("mm_w8a16", lambda: q8.mm_w8a16(x16, w8, b, s, True)),
@@ -872,7 +1049,7 @@ def kernel_names(dev: torch.device) -> dict[str, str]:
             call()
             torch.cuda.synchronize()
         keys = {e.key for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA}
+                if e.device_type == DeviceType.CUDA and not is_memset(e.key)}
         if len(keys) != 1:
             say(f"[profile] {name}: the profiler saw kernels {sorted(keys)}")
             continue
@@ -880,13 +1057,20 @@ def kernel_names(dev: torch.device) -> dict[str, str]:
     return names
 
 
-def phase_profile(model: YoloV2Q, dev: torch.device,
-                  names: dict[str, str]) -> None:
+def new_forward() -> dict:
+    return {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "library": set(),
+            "bound": [0.0, 0.0, 0.0]}
+
+
+def phase_profile(model: YoloV2Q, plain: YoloV2Q, dev: torch.device,
+                  names: dict[str, str]) -> dict:
     """Where the device time goes in one tier, at batch BATCH_SLICE and 1:
-    each conv alone (CUDA events, random full-range operands at its shape),
+    each conv alone (CUDA events, random full-range operands at its shape)
+    beside its plain version, one library call for its sums and its bound,
     the forward's device time by kernel (torch.profiler, kernels known by
     their full names) against its time per forward (CUDA events), and the
-    SM clock and power sampled beside it."""
+    SM clock and power sampled beside them. Returns, per kernel and batch,
+    those summed over one forward's convs."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -901,22 +1085,54 @@ def phase_profile(model: YoloV2Q, dev: torch.device,
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
          "--format=csv,noheader,nounits", "-lms", "100"],
         stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    forward = {mm: {}, c3: {}}
     try:
         rows = []
         for bsz in (BATCH_SLICE, 1):
             groups: dict[str, list] = {}
+            for name in forward:
+                forward[name][bsz] = new_forward()
             for l in spec.conv_layers():
                 x = torch.from_numpy(rng.integers(
                     lim.min, lim.max + 1, (bsz, l.h, l.w, l.c))).to(act).to(dev)
+                name = mm if model.route[l.idx][0] == "mm" else c3
+                w = getattr(model, f"w{l.idx}")
                 ms = cuda_ms(lambda: model._conv(l, x), reps=10)   # noqa: B023
+                p_ms = cuda_ms(lambda: plain._conv(l, x), reps=3)   # noqa: B023
+                lib, what = library_call(name, x, w)
+                l_ms = cuda_ms(lib, reps=5)
+                del lib
                 macs = bsz * l.h * l.w * l.c * l.n * l.size * l.size
+                out16 = tier != "int8" or l.idx == model.head16
+                nbytes = (x.numel() * x.element_size()
+                          + w.numel() * w.element_size()
+                          + 4 * l.n * (1 if tier == "int16" else 2)
+                          + bsz * l.h * l.w * l.n * (2 if out16 else 1))
+                part = bound(bsz * l.h * l.w, l.c * l.size * l.size, l.n,
+                             products(x, w), nbytes)
+                f = forward[name][bsz]
+                f["ms"] += ms
+                f["plain_ms"] += p_ms
+                f["library_ms"] += l_ms
+                f["library"].add(what)
+                add_bound(f["bound"], part)
                 group = ("entry 3x3 C=3" if l.c == 3 else f"{l.size}x{l.size}"
                          + (" 13x13" if l.size == 3 and l.h == 13 else ""))
                 groups.setdefault(group, []).append((ms, macs))
                 say(f"{tag} b={bsz} conv{l.idx} {l.h}x{l.w}x{l.c}->{l.n} "
                     f"{l.size}x{l.size}: {ms:.4f} ms {macs / ms / 1e9:.3f} "
-                    f"T {tier} MAC/s")
+                    f"T {tier} MAC/s; plain {p_ms:.4f} ms; {what} {l_ms:.4f} "
+                    f"ms; bound {max(part):.4f} ms "
+                    f"({'operations' if part[0] >= part[1] else 'bytes'}), "
+                    f"{100 * max(part) / ms:.1f}% of it")
             rows.append((bsz, groups))
+            for name, per in forward.items():
+                f = per[bsz]
+                say(f"{tag} b={bsz} {name} per forward: kernel {f['ms']:.4f} "
+                    f"ms, bound {f['bound'][0]:.4f} ms ({bound_by(f['bound'])}; "
+                    f"{100 * f['bound'][0] / f['ms']:.1f}% of the kernel time), "
+                    f"plain {f['plain_ms']:.4f} ms, "
+                    f"{' / '.join(sorted(f['library']))} {f['library_ms']:.4f} ms")
 
             xb = torch.from_numpy(rng.integers(
                 0, 256, (bsz, spec.net.height, spec.net.width, 3),
@@ -928,7 +1144,8 @@ def phase_profile(model: YoloV2Q, dev: torch.device,
                 for _ in range(reps):
                     model(xb)
                 torch.cuda.synchronize()
-            by = dict.fromkeys(KERNEL_SOURCES, 0.0) | {"glue": 0.0}
+            by = dict.fromkeys(KERNEL_SOURCES, 0.0) | {"glue": 0.0,
+                                                       "memset": 0.0}
             glue_top = ("", 0.0)
             for e in prof.key_averages():
                 if e.device_type != DeviceType.CUDA:
@@ -937,7 +1154,7 @@ def phase_profile(model: YoloV2Q, dev: torch.device,
                 if us is None:
                     us = e.self_cuda_time_total
                 ms = us / 1e3 / reps
-                kind = names.get(e.key, "glue")
+                kind = "memset" if is_memset(e.key) else names.get(e.key, "glue")
                 by[kind] += ms
                 if kind == "glue" and ms > glue_top[1]:
                     glue_top = (e.key[:60], ms)
@@ -947,14 +1164,15 @@ def phase_profile(model: YoloV2Q, dev: torch.device,
                     "device time by kernel and idle share not measured")
                 continue
             others = {k: v for k, v in by.items()
-                      if v and k not in (mm, c3, "glue")}
+                      if v and k not in (mm, c3, "glue", "memset")}
             if others:
                 raise AssertionError(f"{tag} the {tier} forward ran {others}")
             say(f"{tag} b={bsz} forward: {fwd_ms:.3f} ms (CUDA events), "
                 f"device busy {dev_ms:.3f} ms (profiler): {c3} "
-                f"{by[c3]:.3f}, {mm} {by[mm]:.3f}, glue "
-                f"{by['glue']:.3f} (largest {glue_top[0]!r} {glue_top[1]:.3f}); "
-                f"convs {100 * (dev_ms - by['glue']) / dev_ms:.1f}% of device "
+                f"{by[c3]:.3f}, {mm} {by[mm]:.3f}, split-K workspace memsets "
+                f"{by['memset']:.3f}, glue {by['glue']:.3f} (largest "
+                f"{glue_top[0]!r} {glue_top[1]:.3f}); convs "
+                f"{100 * (dev_ms - by['glue']) / dev_ms:.1f}% of device "
                 f"time, device idle {100 * max(0.0, 1 - dev_ms / fwd_ms):.1f}%")
     finally:
         sampler.terminate()
@@ -975,16 +1193,22 @@ def phase_profile(model: YoloV2Q, dev: torch.device,
                        "MAC/clk/SM" if mhz else "")
             say(f"{tag} b={bsz} {len(vals):2d} convs {group:14s} "
                 f"{ms:8.3f} ms {macs / ms / 1e9:7.3f} T {tier} MAC/s{per_clk}")
+    return forward
 
 
-def phase_profile_pool(model: YoloV2Q, dev: torch.device) -> None:
+def phase_profile_pool(model: YoloV2Q, dev: torch.device) -> dict:
     """Each conv a 2x2/s2 pool follows, fused (conv3x3_pool_q16, each order)
     against conv3x3_q16 then pool.maxpool, at batch BATCH_SLICE and 1, on
     random full-range int16 inputs and the int16 model's weights (CUDA
-    events)."""
+    events). Returns, per batch, the fused kernel's time (order "acc"), its
+    plain version's, one library call's and its bound, summed over the
+    convs that plan P1 fuses: one P1 forward's conv3x3_pool_q16 launches."""
     rng = np.random.default_rng(2)
+    p1 = [int(i.split(":")[0]) for i in PLANS["P1"][0].split(",")]
+    forward = {}
     for bsz in (BATCH_SLICE, 1):
         sums = dict.fromkeys(("unfused", *q16.POOL_ORDERS), 0.0)
+        f = forward[bsz] = new_forward()
         for l in model.spec.conv_layers():
             if l.idx not in POOL_CONVS:
                 continue
@@ -993,8 +1217,10 @@ def phase_profile_pool(model: YoloV2Q, dev: torch.device) -> None:
             w, b = getattr(model, f"w{l.idx}"), getattr(model, f"b{l.idx}")
             shift, leaky = model.plan.conv_shift_out[l.idx], l.activation == "leaky"
             p = model.spec.layers[l.idx + 1]
+            planes = getattr(model, f"p{l.idx}")
             ms = {"unfused": cuda_ms(lambda: pool.maxpool(   # noqa: B023
-                q16.conv3x3_q16(x, w, b, shift, leaky),   # noqa: B023
+                q16.conv3x3_q16(x, w, b, shift, leaky,   # noqa: B023
+                                planes=planes),   # noqa: B023
                 p.size, p.stride, p.padding), reps=10)}
             for o in q16.POOL_ORDERS:
                 ms[o] = cuda_ms(lambda: q16.conv3x3_pool_q16(   # noqa: B023
@@ -1005,8 +1231,26 @@ def phase_profile_pool(model: YoloV2Q, dev: torch.device) -> None:
                 f"conv3x3_q16 + maxpool {ms['unfused']:.4f} ms; "
                 "conv3x3_pool_q16 " + ", ".join(
                     f"{o} {ms[o]:.4f}" for o in q16.POOL_ORDERS) + " ms")
+            if l.idx in p1:
+                lib, what = library_call("conv3x3_pool_q16", x, w)
+                f["ms"] += ms["acc"]
+                f["plain_ms"] += cuda_ms(lambda: q16.conv3x3_pool_q16_plain(  # noqa: B023
+                    x, w, b, shift, leaky, "acc"), reps=3)   # noqa: B023
+                f["library_ms"] += cuda_ms(lib, reps=5)
+                f["library"].add(what)
+                del lib
+                out = bsz * l.h * l.w // 4 * l.n
+                add_bound(f["bound"], bound(
+                    bsz * l.h * l.w, 9 * l.c, l.n, 4,
+                    2 * (x.numel() + w.numel() + out) + 4 * l.n))
         say(f"[profile pool] b={bsz} sum over convs {POOL_CONVS}: "
             + ", ".join(f"{k} {v:.4f}" for k, v in sums.items()) + " ms")
+        say(f"[profile pool] b={bsz} conv3x3_pool_q16 per P1 forward (convs "
+            f"{p1}, order acc): kernel {f['ms']:.4f} ms, bound "
+            f"{f['bound'][0]:.4f} ms ({bound_by(f['bound'])}), plain "
+            f"{f['plain_ms']:.4f} ms, {' / '.join(sorted(f['library']))} "
+            f"{f['library_ms']:.4f} ms")
+    return forward
 
 
 def main() -> int:
@@ -1026,25 +1270,47 @@ def main() -> int:
     say(f"[card] phases 1-2 took {time.perf_counter() - t0:.1f} s")
     spec = zoo.build("yolov2")
     store = quantized_store(spec)
-    launches, models = {}, {}
+    # each main path (3 detect + 1 batch: 4 forwards) -> its launches
+    runs, models, plains = {}, {}, {}
     for tier in TIERS:
-        counts, models[tier] = phase_slice(spec, store, tier, dev)
-        launches.update(counts)
-    launches["conv3x3_pool_q16"] = sum(phase_plan(spec, store, name,
-                                                  models["int16"], dev)
-                                       for name in PLANS)
-    launches["conv3x3_int8"] = 0   # on no path, as K13 in the JAX package
+        runs[tier], models[tier], plains[tier] = phase_slice(spec, store, tier,
+                                                             dev)
+    for name in PLANS:
+        runs[name] = phase_plan(spec, store, name, models["int16"], dev)
+    # conv3x3_int8 is on no path, as K13 in the JAX package
+    launches = {k: sum(r.get(k, 0) for r in runs.values()) for k in KERNEL_SOURCES}
+    per_forward = {k: {path: r[k] // 4 for path, r in runs.items() if r.get(k)}
+                   for k in KERNEL_SOURCES}
+    say(f"[card] launches per forward, by kernel and path: {per_forward}")
     say(f"[card] phases 1-3 took {time.perf_counter() - t0:.1f} s")
     names = kernel_names(dev)
     say(f"[profile] kernels by full name: {len(names)} of 10 instantiations "
         "seen by the profiler")
+    forward = {}
     for tier in TIERS:
-        phase_profile(models[tier], dev, names)
-    phase_profile_pool(models["int16"], dev)
+        forward.update(phase_profile(models[tier], plains[tier], dev, names))
+    forward["conv3x3_pool_q16"] = phase_profile_pool(models["int16"], dev)
     say(f"[card] phases 1-4 took {time.perf_counter() - t0:.1f} s")
+
+    def at(f: dict) -> dict:
+        return {"ms": f["ms"], "bound_ms": f["bound"][0],
+                "bound_by": bound_by(f["bound"]), "plain_ms": f["plain_ms"],
+                "library_ms": f["library_ms"],
+                "library": " / ".join(sorted(f["library"]))}
+
+    # ms, plain_ms, bound_ms and library_ms: summed over phase 2's timed
+    # cases (the yolov2 416 shapes of the kernel's kind at batch 2);
+    # per_forward: phase 4's sums over one forward's convs at batch 8 and 1
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": check.max_abs_err[name],
-                "ms": check.ms[name], "plain_ms": check.plain_ms[name]}
+                "ms": check.ms[name], "plain_ms": check.plain_ms[name],
+                "bound_ms": check.bound[name][0],
+                "bound_by": bound_by(check.bound[name]),
+                "library_ms": check.library_ms[name],
+                "library": " / ".join(sorted(check.library[name])),
+                "launches_per_forward": per_forward[name],
+                "per_forward": ({f"b{b}": at(f) for b, f in forward[name].items()}
+                                if name in forward else None)}
                for name, (src, rep) in KERNEL_SOURCES.items()]
     say(f"[card] {smi}")
     say(json.dumps({"kernels": kernels}))

@@ -1,8 +1,8 @@
 """The port's int16 forward (yolotpu_torch.models.yolov2) and engine against
 the JAX package's, on the CPU, at small sizes.
 
-Both packages are fed from one synthetic WeightStore (seed 0, calibrated on
-one seeded image). The port runs its kernels' plain versions here. The head
+Each package builds its spec and synthetic WeightStore (seed 0, calibrated
+on one seeded image) with its own host layer: the port's is its own copy. The port runs its kernels' plain versions here. The head
 must be bit-equal to yolotpu's build_forward(spec, "int16", compute="int32")
 (which the JAX suite holds equal to compute="pallas"); boxes/obj/probs go
 through fp32 exp/sigmoid/softmax and are held to atol=1e-6, rtol=1e-5.
@@ -17,24 +17,31 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from yolotpu import quant as jquant
+from yolotpu import weights as jweights
 from yolotpu.models import yolov2 as jy
-from yolotpu.models import zoo
-from yolotpu.quant import calibrate_activations, quantize_weights
-from yolotpu.weights import WeightStore
+from yolotpu.models import zoo as jzoo
+from yolotpu_torch import quant as tquant
+from yolotpu_torch import weights as tweights
 from yolotpu_torch.models import engine_plan
 from yolotpu_torch.models import yolov2 as ty
+from yolotpu_torch.models import zoo
+
+# port? -> the host layer (zoo, weights, quant) that builds spec and store
+HOSTS = {False: (jzoo, jweights, jquant), True: (zoo, tweights, tquant)}
 
 CASES = [("yolov2", 64), ("yolov2", 128), ("yolov2-voc", 64),
          ("yolov2-tiny", 96)]
 
 
 @functools.cache
-def _setup(model: str, size: int):
-    spec = zoo.build(model, width=size, height=size)
-    store = WeightStore.synthetic(spec, seed=0)
+def _setup(model: str, size: int, port: bool = False):
+    hzoo, weights, quant = HOSTS[port]
+    spec = hzoo.build(model, width=size, height=size)
+    store = weights.WeightStore.synthetic(spec, seed=0)
     rng = np.random.default_rng(100)
     img = rng.random((3, size, size)).astype(np.float32)
-    quantize_weights(store, calibrate_activations(spec, store, [img]))
+    quant.quantize_weights(store, quant.calibrate_activations(spec, store, [img]))
     return spec, store
 
 
@@ -70,7 +77,8 @@ def _assert_outputs_match(got: dict, want: dict) -> None:
 def test_int16_plan_equals_yolotpu(model):
     size = 96 if model == "yolov2-tiny" else 64
     spec, store = _setup(model, size)
-    got = ty.Int16Plan.build(spec, store.qtables)
+    tspec, tstore = _setup(model, size, port=True)
+    got = ty.Int16Plan.build(tspec, tstore.qtables)
     want = jy.Int16Plan.build(spec, store.qtables)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
@@ -82,7 +90,7 @@ def test_params_from_jax_equals_params_int16(model):
     jp = {k: {n: np.asarray(a) for n, a in v.items()}
           for k, v in jy.params_int16(spec, store).items()}
     got = ty.params_from_jax(jp)
-    want = ty.params_int16(spec, store, "cpu")
+    want = ty.params_int16(*_setup(model, size, port=True), "cpu")
     assert got.keys() == want.keys()
     for k in want:
         for n in ("w", "b"):
@@ -93,7 +101,7 @@ def test_params_from_jax_equals_params_int16(model):
 @pytest.mark.parametrize("model,size", CASES)
 @pytest.mark.parametrize("dtype", ["uint8", "float32"])
 def test_forward_head_bitexact_vs_yolotpu(model, size, dtype):
-    spec, store = _setup(model, size)
+    spec, store = _setup(model, size, port=True)
     x = _inputs(size, dtype)
     want = _jax_forward(model, size)(jnp.asarray(x))
     net = ty.YoloV2Q(spec, store.qtables, ty.params_int16(spec, store),
@@ -123,7 +131,7 @@ def test_engine_plan_refuses_unported_convs():
 
 @pytest.mark.slow
 def test_forward_head_bitexact_vs_yolotpu_pallas():
-    spec, store = _setup("yolov2", 64)
+    spec, store = _setup("yolov2", 64, port=True)
     x = _inputs(64, "uint8")
     want = _jax_forward("yolov2", 64, "pallas")(jnp.asarray(x))
     net = ty.YoloV2Q(spec, store.qtables, ty.params_int16(spec, store),
@@ -140,7 +148,8 @@ def test_engine_detect_equals_yolotpu_engine(monkeypatch):
     im = rng.random((3, 150, 200)).astype(np.float32)
     want, wres = JaxEngine(spec, store, precision="int16", backend="xla",
                            compute="int32", warmup=False).detect(im, thresh=0.005)
-    eng = Engine(spec, store, precision="int16", device="cpu")
+    eng = Engine(*_setup("yolov2", 128, port=True), precision="int16",
+                 device="cpu")
     got, res = eng.detect(im, thresh=0.005)
     np.testing.assert_array_equal(res.head_chw, wres.head_chw)
     assert len(got) == len(want) > 0

@@ -24,27 +24,33 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from yolotpu import quant as jquant
+from yolotpu import weights as jweights
 from yolotpu.models import engine_plan as jplan
 from yolotpu.models import yolov2 as jy
-from yolotpu.models import zoo
-from yolotpu.quant import (calibrate_activations, quantize_weights,
-                           quantize_weights_w8a16)
-from yolotpu.weights import WeightStore
+from yolotpu.models import zoo as jzoo
+from yolotpu_torch import quant as tquant
+from yolotpu_torch import weights as tweights
 from yolotpu_torch.models import engine_plan
 from yolotpu_torch.models import yolov2 as ty
+from yolotpu_torch.models import zoo as tzoo
+
+# port? -> the host layer (zoo, weights, quant) that builds spec and store
+HOSTS = {False: (jzoo, jweights, jquant), True: (tzoo, tweights, tquant)}
 
 P1 = "0:entry_sdmm,2:sd_pool,6:sd_pool,10:sd_pool"
 P2 = "0:entryf,2:conv3p2,4:conv3p2"
 
 
 @functools.cache
-def _setup(model: str, size: int):
+def _setup(model: str, size: int, port: bool = False):
+    zoo, weights, quant = HOSTS[port]
     spec = zoo.build(model, width=size, height=size)
-    store = WeightStore.synthetic(spec, seed=0)
+    store = weights.WeightStore.synthetic(spec, seed=0)
     img = np.random.default_rng(100).random((3, size, size)).astype(np.float32)
-    act_q = calibrate_activations(spec, store, [img])
-    quantize_weights(store, act_q)
-    quantize_weights_w8a16(store, act_q)
+    act_q = quant.calibrate_activations(spec, store, [img])
+    quant.quantize_weights(store, act_q)
+    quant.quantize_weights_w8a16(store, act_q)
     return spec, store
 
 
@@ -63,9 +69,9 @@ def _frames(size: int) -> np.ndarray:
 
 
 def _port(model: str, size: int, plan: str):
-    spec, store = _setup(model, size)
+    spec, store = _setup(model, size, port=True)
     return ty.YoloV2Q(spec, store.qtables, ty.params_int16(spec, store), "cpu",
-                      "int16", jplan._parse_plan_items(plan))
+                      "int16", engine_plan._parse_plan_items(plan))
 
 
 def _head(net, size: int) -> np.ndarray:
@@ -99,10 +105,11 @@ def test_legal_table_covers_all_kinds():
 def test_every_kind_is_accepted_where_yolotpu_accepts_it(kind, monkeypatch):
     idx, route = LEGAL[kind]
     spec, store = _setup("yolov2", 64)
+    tspec, _ = _setup("yolov2", 64, port=True)
     overrides = {idx: kind}
-    kinds = engine_plan.plan(spec, overrides)
+    kinds = engine_plan.plan(tspec, overrides)
     assert kinds[idx] == kind
-    assert engine_plan.kernels(spec, kinds)[idx] == route
+    assert engine_plan.kernels(tspec, kinds)[idx] == route
     monkeypatch.setenv("YOLO2_Q16_PLAN", f"{idx}:{kind}")
     # yolotpu builds its weight pack for the same pairing (xla8 may fall
     # back to xla there, for weights its s8 plane split cannot hold)
@@ -125,8 +132,9 @@ def test_every_kind_is_accepted_where_yolotpu_accepts_it(kind, monkeypatch):
 ])
 def test_illegal_pairing_raises_in_both_packages(plan, monkeypatch):
     spec, store = _setup("yolov2", 64)
+    tspec, _ = _setup("yolov2", 64, port=True)
     with pytest.raises(ValueError, match="is not applicable") as port:
-        engine_plan.plan(spec, jplan._parse_plan_items(plan))
+        engine_plan.plan(tspec, engine_plan._parse_plan_items(plan))
     monkeypatch.setenv("YOLO2_Q16_PLAN", plan)
     with pytest.raises(ValueError, match="is not applicable") as ref:
         jy.params_q16(spec, store)
@@ -162,9 +170,9 @@ def test_plan_slice_head_bitexact_vs_yolotpu_pallas(monkeypatch):
 
 
 def test_tiny_sd_pool_on_every_pooled_conv():
-    spec, _ = _setup("yolov2-tiny", 96)
+    spec, _ = _setup("yolov2-tiny", 96, port=True)
     pooled = [l.idx for l in spec.conv_layers()
-              if jplan.next_is_pool22(spec, l.idx)]
+              if engine_plan.next_is_pool22(spec, l.idx)]
     assert pooled == [0, 2, 4, 6, 8]   # the 2x2/s1 pool at 3x3 is not one
     net = _port("yolov2-tiny", 96, ",".join(f"{i}:sd_pool" for i in pooled))
     assert net.folded == {i + 1 for i in pooled}
@@ -181,7 +189,7 @@ def test_fused_kind_under_a_route_runs_unfused():
 
 
 def test_overrides_on_another_tier_raise():
-    spec, store = _setup("yolov2", 64)
+    spec, store = _setup("yolov2", 64, port=True)
     for precision, params in (("int8", ty.params_int16),
                               ("w8a16", ty.params_w8a16)):
         with pytest.raises(ValueError, match="int16 tier only"):
@@ -191,7 +199,7 @@ def test_overrides_on_another_tier_raise():
 
 def test_engine_reads_the_plan_lever(monkeypatch):
     from yolotpu_torch.runtime.engine import Engine
-    spec, store = _setup("yolov2", 64)
+    spec, store = _setup("yolov2", 64, port=True)
     frames = _frames(64)
     default = Engine(spec, store, device="cpu")
     assert {k for k, _ in default.model.route.values()} == {"mm", "conv3"}

@@ -2,9 +2,9 @@
 runtime.engine, cli.detect) against the JAX package's, on the CPU, at small
 sizes.
 
-Both packages are fed from one synthetic WeightStore (seed 0, calibrated on
-one seeded image, each tier quantized as load_or_synthesize does it; the
-int8 tier also with per-channel weight Qs). The port runs its kernels'
+Each package builds its spec and synthetic WeightStore (seed 0, calibrated
+on one seeded image, each tier quantized as load_or_synthesize does it; the
+int8 tier also with per-channel weight Qs) with its own host layer. The port runs its kernels'
 plain versions here. The head must be bit-equal to yolotpu's
 build_forward(spec, "int8" | "w8a16", compute="int32"); boxes/obj/probs go
 through fp32 exp/sigmoid/softmax and are held to atol=1e-6, rtol=1e-5, as in
@@ -20,13 +20,17 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from yolotpu import quant as jquant
+from yolotpu import weights as jweights
 from yolotpu.models import yolov2 as jy
-from yolotpu.models import zoo
-from yolotpu.quant import (calibrate_activations, calibrate_activations_int8,
-                           quantize_weights, quantize_weights_int8,
-                           quantize_weights_w8a16)
-from yolotpu.weights import WeightStore
+from yolotpu.models import zoo as jzoo
+from yolotpu_torch import quant as tquant
+from yolotpu_torch import weights as tweights
 from yolotpu_torch.models import yolov2 as ty
+from yolotpu_torch.models import zoo as tzoo
+
+# port? -> the host layer (zoo, weights, quant) that builds spec and store
+HOSTS = {False: (jzoo, jweights, jquant), True: (tzoo, tweights, tquant)}
 
 CASES = [("yolov2", 64), ("yolov2-voc", 64), ("yolov2-tiny", 96)]
 # tier -> (precision, Q tables attribute, JAX params, port params)
@@ -38,21 +42,24 @@ TIERS = {
 
 
 @functools.cache
-def _setup(model: str, size: int, per_channel: bool = False):
+def _setup(model: str, size: int, per_channel: bool = False,
+           port: bool = False):
+    zoo, weights, quant = HOSTS[port]
     spec = zoo.build(model, width=size, height=size)
-    store = WeightStore.synthetic(spec, seed=0)
+    store = weights.WeightStore.synthetic(spec, seed=0)
     img = np.random.default_rng(100).random((3, size, size)).astype(np.float32)
-    act_q = calibrate_activations(spec, store, [img])
-    quantize_weights(store, act_q)
-    quantize_weights_w8a16(store, act_q)
-    quantize_weights_int8(store, calibrate_activations_int8(spec, store, [img]),
-                          per_channel=per_channel)
+    act_q = quant.calibrate_activations(spec, store, [img])
+    quant.quantize_weights(store, act_q)
+    quant.quantize_weights_w8a16(store, act_q)
+    quant.quantize_weights_int8(
+        store, quant.calibrate_activations_int8(spec, store, [img]),
+        per_channel=per_channel)
     return spec, store
 
 
-def _tier(model: str, size: int, tier: str):
+def _tier(model: str, size: int, tier: str, port: bool = False):
     precision, qattr, jparams, tparams = TIERS[tier]
-    spec, store = _setup(model, size, tier == "int8-pc")
+    spec, store = _setup(model, size, tier == "int8-pc", port)
     return spec, store, precision, getattr(store, qattr), jparams, tparams
 
 
@@ -75,7 +82,7 @@ def _inputs(size: int, dtype: str) -> np.ndarray:
 @pytest.mark.parametrize("model,size", CASES)
 @pytest.mark.parametrize("dtype", ["uint8", "float32"])
 def test_forward_head_bitexact_vs_yolotpu(model, size, tier, dtype):
-    spec, store, precision, qt, _, tparams = _tier(model, size, tier)
+    spec, store, precision, qt, _, tparams = _tier(model, size, tier, True)
     x = _inputs(size, dtype)
     want = _jax_forward(model, size, tier)(jnp.asarray(x))
     net = ty.YoloV2Q(spec, qt, tparams(spec, store), "cpu", precision)
@@ -90,7 +97,7 @@ def test_forward_head_bitexact_vs_yolotpu(model, size, tier, dtype):
 
 
 def test_int8_head16_conv_writes_int16():
-    spec, store, precision, qt, _, tparams = _tier("yolov2", 64, "int8")
+    spec, store, precision, qt, _, tparams = _tier("yolov2", 64, "int8", True)
     net = ty.YoloV2Q(spec, qt, tparams(spec, store), "cpu", precision)
     head_conv = spec.layers[spec.region.idx - 1]
     assert net.head16 == head_conv.idx
@@ -115,7 +122,8 @@ def test_int8_head16_conv_writes_int16():
 def test_int16_plan_equals_yolotpu(model, tier):
     size = 96 if model == "yolov2-tiny" else 64
     spec, _, _, qt, _, _ = _tier(model, size, tier)
-    got = dataclasses.asdict(ty.Int16Plan.build(spec, qt))
+    tspec, _, _, tqt, _, _ = _tier(model, size, tier, True)
+    got = dataclasses.asdict(ty.Int16Plan.build(tspec, tqt))
     want = dataclasses.asdict(jy.Int16Plan.build(spec, qt))
     assert got.keys() == want.keys()
     for field, w in want.items():
@@ -138,7 +146,7 @@ def test_params_from_jax_equals_params(model, tier):
     jp = {k: {n: np.asarray(a) for n, a in v.items()}
           for k, v in jparams(spec, store).items()}
     got = ty.params_from_jax(jp)
-    want = tparams(spec, store, "cpu")
+    want = tparams(*_tier(model, size, tier, True)[:2], "cpu")
     assert got.keys() == want.keys()
     for k in want:
         assert set(got[k]) == {"w", "b"}   # cw and wp8 serve the TPU only
@@ -158,7 +166,8 @@ def test_engine_detect_equals_yolotpu_engine(monkeypatch, tier):
     im = rng.random((3, 150, 200)).astype(np.float32)
     want, wres = JaxEngine(spec, store, precision=tier, backend="xla",
                            compute="int32", warmup=False).detect(im, thresh=0.005)
-    eng = Engine(spec, store, precision=tier, device="cpu")
+    eng = Engine(*_setup("yolov2", 128, port=True), precision=tier,
+                 device="cpu")
     got, res = eng.detect(im, thresh=0.005)
     np.testing.assert_array_equal(res.head_chw, wres.head_chw)
     assert len(got) == len(want) > 0
@@ -174,8 +183,8 @@ def test_engine_detect_equals_yolotpu_engine(monkeypatch, tier):
 
 def test_engine_checks_the_store():
     from yolotpu_torch.runtime.engine import Engine
-    spec = zoo.build("yolov2-tiny", width=32, height=32)
-    store = WeightStore.synthetic(spec, seed=0)
+    spec = tzoo.build("yolov2-tiny", width=32, height=32)
+    store = tweights.WeightStore.synthetic(spec, seed=0)
     for precision, what in (("int8", "quantize_weights_int8"),
                             ("w8a16", "quantize_weights_w8a16"),
                             ("int16", "quantized weights")):

@@ -1,8 +1,12 @@
-"""yolotpu_torch stands without JAX, and its kernel path never falls back.
+"""yolotpu_torch stands without JAX and without the JAX package, and its
+kernel path never falls back.
 
-- A fresh interpreter with JAX blocked imports every module of the port and
-  runs the slice (Engine, under the default plan and under YOLO2_Q16_PLAN,
-  and the detect CLI) at 64x64 on the CPU.
+- No source of the port, nor chip_smoke.py, imports JAX or anything of
+  ``yolotpu``.
+- A fresh interpreter with JAX and ``yolotpu`` blocked imports every module
+  of the port, builds its spec and store from the port alone, and runs the
+  slice (Engine, under the default plan and under YOLO2_Q16_PLAN, and the
+  detect CLI) at 64x64 on the CPU.
 - With no card, Engine(device="cuda") raises, and a kernel launch raises
   without counting a launch.
 - The nvcc command targets sm_90a and compiles only the port's csrc/*.cu
@@ -28,15 +32,15 @@ PKG = Path(yolotpu_torch.__file__).resolve().parent
 
 _NO_JAX_RUN = r"""
 import importlib, os, pkgutil, sys
-sys.modules["jax"] = None          # any import of JAX fails
+sys.modules["jax"] = None          # any import of JAX fails,
 sys.modules["flax"] = None
+sys.modules["yolotpu"] = None      # and any of the JAX package
 import numpy as np
 import yolotpu_torch
 for m in pkgutil.walk_packages(yolotpu_torch.__path__, "yolotpu_torch."):
     importlib.import_module(m.name)
-from yolotpu.models import zoo
-from yolotpu.runtime.engine import load_or_synthesize
-from yolotpu_torch.runtime.engine import Engine
+from yolotpu_torch.models import zoo
+from yolotpu_torch.runtime.engine import Engine, load_or_synthesize
 from yolotpu_torch.cli.detect import main
 spec = zoo.build("yolov2", width=64, height=64)
 store = load_or_synthesize(spec, None, "int16", synthetic=True, seed=0)
@@ -52,8 +56,8 @@ assert (planned.predict_batch_rgb(frames) == heads).all()
 rc = main(["--synthetic-weights", "--device", "cpu", "--net-size", "64",
            "--output", sys.argv[2], sys.argv[1]])
 assert rc == 0, rc
-loaded = sorted(n for n, m in sys.modules.items()
-                if m is not None and n.split(".")[0] in ("jax", "jaxlib", "flax"))
+loaded = sorted(n for n, m in sys.modules.items() if m is not None
+                and n.split(".")[0] in ("jax", "jaxlib", "flax", "yolotpu"))
 assert not loaded, loaded
 print("NO_JAX_OK")
 """
@@ -73,8 +77,9 @@ def test_slice_runs_with_jax_blocked(tmp_path):
 
 def test_port_sources_never_import_jax():
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax)\b|"
-                     r"yolotpu\.(models\.yolov2|ops|train|parallel)\b", re.M)
-    offenders = [str(p.relative_to(REPO)) for p in PKG.rglob("*.py")
+                     r"^\s*(import|from)\s+yolotpu(\.|\s|$)", re.M)
+    sources = [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]
+    offenders = [str(p.relative_to(REPO)) for p in sources
                  if bad.search(p.read_text())]
     assert not offenders, offenders
     names = {m.name for m in pkgutil.walk_packages(yolotpu_torch.__path__,
@@ -85,9 +90,8 @@ def test_port_sources_never_import_jax():
 
 
 def test_engine_on_cuda_raises_without_a_card():
-    from yolotpu.models import zoo
-    from yolotpu.runtime.engine import load_or_synthesize
-    from yolotpu_torch.runtime.engine import Engine
+    from yolotpu_torch.models import zoo
+    from yolotpu_torch.runtime.engine import Engine, load_or_synthesize
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this checks the no-card path")
     spec = zoo.build("yolov2-tiny", width=32, height=32)
@@ -109,7 +113,8 @@ def test_kernel_launch_raises_without_nvcc(monkeypatch, tmp_path):
         out = torch.empty((4, 3), dtype=torch.int16)
         before = dict(q16.LAUNCHES)
         with pytest.raises(RuntimeError, match="nvcc not found"):
-            q16._launch("mm_q16", "yq16_mm", out, 0, 0, 0, 0, 4, 8, 3, 0, 0)
+            q16._launch("mm_q16", "yq16_mm", out, 0, 0, 0, 0, None, 4, 8, 3,
+                        0, 0, 1)
         assert q16.LAUNCHES == before
     finally:
         _build.load_library.cache_clear()

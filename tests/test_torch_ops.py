@@ -11,11 +11,12 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from yolotpu.models import zoo
+from yolotpu.models import zoo as jzoo
 from yolotpu.ops import convops as jconv
 from yolotpu.ops import pool as jpool
 from yolotpu.ops import region as jregion
 from yolotpu.ops import reorg as jreorg
+from yolotpu_torch.models import zoo as tzoo
 from yolotpu_torch.ops import convops, pool, region, reorg
 
 SHIFTS = (-3, -1, 0, 1, 7, 30, 31, 40)
@@ -115,13 +116,16 @@ def test_reorg(hw, c, stride):
 ])
 def test_decode_region(model, softmax, background):
     import dataclasses
-    spec = zoo.build(model, width=64, height=64).region
-    spec = dataclasses.replace(spec, softmax=softmax, background=background)
+    opts = dict(softmax=softmax, background=background)
+    jspec = dataclasses.replace(
+        jzoo.build(model, width=64, height=64).region, **opts)
+    spec = dataclasses.replace(
+        tzoo.build(model, width=64, height=64).region, **opts)
     oc = spec.num * (spec.coords + spec.classes + 1)
     rng = np.random.default_rng(7)
     head = (rng.standard_normal((2, spec.h, spec.w, oc)) * 4).astype(np.float32)
     got = region.decode_region(torch.from_numpy(head), spec)
-    want = jregion.decode_region(jnp.asarray(head), spec)
+    want = jregion.decode_region(jnp.asarray(head), jspec)
     for g, w in zip(got, want):
         assert tuple(g.shape) == np.asarray(w).shape
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-6,

@@ -13,17 +13,25 @@ outputs depend on the sums; the wrap cases build sums far outside int32
 that wrap to small values. The shift, leaky and weight-encoding extremes
 are those of tests/test_q16_kernels.py. The kernels themselves run only on
 the card: chip_smoke.py holds them to these plain versions there.
+
+The tensor-core kernels' arithmetic is held here through ``mm_split_sum``,
+which sums from the packed weight planes (``pack_q16``) and the split
+activations as the kernels do: equal to the exact sums modulo 2^32
+(``acc32(mm_sum64)``) and to XLA's int32 dot and conv, at operands at
+-32768, -32513 and 32767, ragged K, N=425, and K=33000, where an unchunked
+middle sum would leave s32.
 """
 
 import numpy as np
 import jax.numpy as jnp
+from jax import lax
 import pytest
 import torch
 
 from yolotpu.ops import convops as jconv
 from yolotpu.ops import pallas_q16 as pq16
 from yolotpu.ops import pool as jpool
-from yolotpu_torch.ops import pool, q16
+from yolotpu_torch.ops import convops, pool, q16
 
 
 def _span(shift, k):
@@ -218,3 +226,120 @@ def test_wrappers_check_operands():
         q16.mm_q16(x.to("meta"), w.to("meta"), b.to("meta"), 0, False)
     assert q16.LAUNCHES == {"mm_q16": 0, "conv3x3_q16": 0,
                             "conv3x3_pool_q16": 0}
+
+
+def _split_case(rng, m, k, n, values=None):
+    draw = ((lambda shape: rng.choice(values, shape)) if values is not None
+            else (lambda shape: rng.integers(-32768, 32768, shape)))
+    return draw((m, k)).astype(np.int16), draw((k, n)).astype(np.int16)
+
+
+@pytest.mark.parametrize("m,k,n,values", [
+    (40, 96, 64, (-32768, -32513, 32767)),   # the byte planes' extremes
+    (37, 300, 70, None),                     # K not a multiple of 32
+    (20, 1024, 425, None),                   # the head's N
+    (9, 27, 32, (-32768, -32513, 32767, 0, 1, -1, 255, -256)),   # entry K
+])
+def test_split_sum_equals_exact_and_xla(m, k, n, values):
+    x, w = _split_case(np.random.default_rng(k), m, k, n, values)
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    got = q16.mm_split_sum(tx, q16.pack_q16(tw), k, n)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, q16.acc32(q16.mm_sum64(tx, tw)))
+    # the int32 dot of yolotpu's convops.conv_int16 1x1 path
+    want = jnp.dot(jnp.asarray(x), jnp.asarray(w),
+                   preferred_element_type=jnp.int32)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_split_sum_requant_equals_pallas():
+    x, w, bias = _operands(np.random.default_rng(6), (64, 300), (300, 70), 7)
+    sums = q16.mm_split_sum(torch.from_numpy(x),
+                            q16.pack_q16(torch.from_numpy(w)), 300, 70)
+    got = convops.requant32(sums, torch.from_numpy(bias), 7, True)
+    want = pq16.matmul_q16_requant(jnp.asarray(x),
+                                   pq16.prep_matmul_weights(w, bias), 7, True,
+                                   interpret=True)
+    np.testing.assert_array_equal(got.to(torch.int16).numpy(), np.asarray(want))
+
+
+def test_split_sum_chunks_a_long_k():
+    """K = 33000 at -32513 (high byte -128, low byte 255): the middle sum
+    over all of K is -65280 * 33000 < -2^31, so it is cut at TC_KMAX."""
+    k, n = 33000, 8
+    x = np.full((3, k), -32513, np.int16)
+    w = np.full((k, n), -32513, np.int16)
+    assert (-128 * 255 * 2) * k < -2 ** 31 <= (-128 * 255 * 2) * q16.TC_KMAX
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    got = q16.mm_split_sum(tx, q16.pack_q16(tw), k, n)
+    assert torch.equal(got, q16.acc32(q16.mm_sum64(tx, tw)))
+    want = jnp.dot(jnp.asarray(x), jnp.asarray(w),
+                   preferred_element_type=jnp.int32)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # the kernel cuts the same K into at least two splits
+    kps = q16.tc_split(3, n, k, 132)
+    assert -(-k // (kps * q16.TC_BK)) >= 2 and kps * q16.TC_BK <= q16.TC_KMAX
+
+
+@pytest.mark.parametrize("b,h,w_,c,n", [(2, 7, 5, 3, 40), (1, 6, 6, 40, 70)])
+def test_split_sum_of_im2col_equals_conv(b, h, w_, c, n):
+    rng = np.random.default_rng(c)
+    x = rng.integers(-32768, 32768, (b, h, w_, c)).astype(np.int16)
+    w = rng.integers(-32768, 32768, (3, 3, c, n)).astype(np.int16)
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    got = q16.mm_split_sum(q16.im2col3x3(tx), q16.pack_q16(tw), 9 * c, n)
+    assert torch.equal(got.reshape(b, h, w_, n),
+                       q16.acc32(q16.conv3x3_sum64(tx, tw)))
+    want = lax.conv_general_dilated(
+        jnp.asarray(x), jnp.asarray(w), (1, 1), "SAME",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        preferred_element_type=jnp.int32)
+    np.testing.assert_array_equal(got.reshape(b, h, w_, n).numpy(),
+                                  np.asarray(want))
+
+
+def test_pack_q16_layout():
+    """Byte 4h + i of lane 4g + t in block (kc, nt) is the high (then the
+    low) byte of w[32 kc + FRAG_K[16h + 4t + i], 8 nt + g]; K and N are
+    padded with zeros to the tile."""
+    k, n = 70, 20
+    w = np.random.default_rng(9).integers(-32768, 32768, (k, n)).astype(np.int16)
+    planes = q16.pack_q16(torch.from_numpy(w)).numpy()
+    assert planes.shape == q16.planes_shape(k, n) == (4, 8, 32, 16)
+    assert sorted(q16.FRAG_K[:16]) == list(range(16))
+    assert sorted(q16.FRAG_K[16:]) == list(range(16, 32))
+    wp = np.zeros((128, 64), np.int64)
+    wp[:k, :n] = w
+    rng = np.random.default_rng(10)
+    for _ in range(200):
+        kc, nt, g, t, h, i = (int(rng.integers(0, e))
+                              for e in (4, 8, 8, 4, 2, 4))
+        v = wp[32 * kc + q16.FRAG_K[16 * h + 4 * t + i], 8 * nt + g]
+        lane = planes[kc, nt, 4 * g + t]
+        assert lane[4 * h + i] == (v >> 8) & 255 and lane[8 + 4 * h + i] == v & 255
+
+
+@pytest.mark.parametrize("m,n,k", [(169, 1024, 9216), (1352, 1024, 11520),
+                                   (2 * 416 * 416, 32, 27), (200, 72, 33000),
+                                   (8 * 104 * 104, 128, 576)])
+def test_tc_split(m, n, k):
+    kps = q16.tc_split(m, n, k, 132)
+    ktiles = -(-k // q16.TC_BK)
+    splits = -(-ktiles // kps)
+    assert 1 <= kps and kps * q16.TC_BK <= q16.TC_KMAX
+    if m == 169:     # one image at 13x13: 32 output tiles for 132 SMs
+        assert splits >= 4
+    if m > 10000:    # tiles enough to fill the card: no split
+        assert splits == 1
+
+
+def test_planes_are_checked():
+    with pytest.raises(TypeError, match="pack_q16"):
+        q16._check_planes("mm_q16", None, 64, 64, torch.device("cpu"))
+    good = q16.pack_q16(torch.zeros((64, 64), dtype=torch.int16))
+    q16._check_planes("mm_q16", good, 64, 64, torch.device("cpu"))
+    with pytest.raises(ValueError, match="planes"):
+        q16._check_planes("mm_q16", good, 128, 64, torch.device("cpu"))
+    with pytest.raises(ValueError, match="planes"):
+        q16._check_planes("mm_q16", good.view(torch.int8), 64, 64,
+                          torch.device("cpu"))

@@ -4,8 +4,10 @@ int8 w8a8 and w8a16 tiers) on PyTorch and CUDA (NVIDIA Hopper).
 The JAX package ``yolotpu`` is the reference; this package runs the same
 graphs, weights and Q tables with PyTorch, and every conv through a CUDA C++
 kernel written for ``sm_90a`` (``csrc/``). Its numpy host layer (cfg, graph,
-zoo, weights, quant, postprocess, image, names) is ``yolotpu``'s, imported as
-it is. It never imports JAX.
+models.zoo, weights, golden's fp32 forward, quant, image, postprocess, names,
+runtime.logging and runtime.drawing) is its own copy of ``yolotpu``'s, module
+for module, each saying which file it mirrors. It imports nothing of
+``yolotpu`` and never imports JAX.
 
 Public entry points:
     yolotpu_torch.runtime.engine.Engine         — weights + graph -> detections

@@ -48,15 +48,13 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def main(argv: list[str] | None = None) -> int:
-    from yolotpu.graph import NetworkSpec
-    from yolotpu.image import load_image, save_image
-    from yolotpu.models import zoo
-    from yolotpu.names import names_for
-    from yolotpu.runtime import logging as ylog
-    from yolotpu.runtime.drawing import draw_detections
-    from yolotpu.runtime.engine import load_or_synthesize
-
-    from ..runtime.engine import Engine
+    from ..graph import NetworkSpec
+    from ..image import load_image, save_image
+    from ..models import zoo
+    from ..names import names_for
+    from ..runtime import logging as ylog
+    from ..runtime.drawing import draw_detections
+    from ..runtime.engine import Engine, load_or_synthesize
 
     args = build_argparser().parse_args(argv)
     input_path = args.input or args.positional

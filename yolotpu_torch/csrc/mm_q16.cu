@@ -3,29 +3,35 @@
 //
 // Replaces yolotpu/ops/pallas_q16.py:matmul_q16_requant (kernel bodies
 // _mm_kernel and _mm_kernel_pl). That kernel reached the TPU's s8 matrix
-// unit by splitting each int16 operand into hi/lo s8 planes and recombining
-// (hh << 16) + ((hl + lh) << 8) + ll + nconst; none of that is part of the
-// function. This kernel computes the same sum directly: int16 x int16
-// products accumulated in uint32 on the CUDA cores, which is the exact sum
-// modulo 2^32, then requant_q16.
+// unit by splitting each int16 operand into hi/lo s8 planes with a balanced
+// or offset weight encoding and an nconst column constant. Here the same
+// idea meets Hopper's integer mma, which takes u8 and s8 operands in any
+// pairing: the low bytes stay unsigned and no constant is needed
+// (igemm_tc.cuh). The result is the exact sum modulo 2^32, then
+// requant_q16.
 //
-// What bounds it on an H100: 32-bit integer multiply-adds. The CUDA cores
-// retire 64 of them per clock per SM, far below what the tensor cores
-// deliver through s8 mma with the hi/lo split. The 128x64 tile with 32
-// accumulators per thread keeps shared-memory traffic at 12 words per 32
-// multiply-adds, so the multiply-adds and not the loads set the pace; the
-// global reads of a 1x1 layer (x once per 64 output columns, w once per 128
-// rows) are far below the 3.35 TB/s of device memory. Moving the products
-// onto the tensor cores (s8 wgmma with the hi/lo split) is later work.
-#include "igemm.cuh"
+// What bounds it on an H100: an int16 product is four 8-bit products, so
+// the tensor-core bound is 4*MAC / 989.5e12 8-bit MAC/s; for the 1x1
+// layers of yolov2 416 that is below the time to move their bytes (each
+// int16 input and output once, the weights once: 88.5 MB at b=8, 0.026 ms
+// at 3.35 TB/s), so the bytes bound it. The design moves each operand once
+// per tile through a cp.async ring, keeps the three s32 partial-sum sets in
+// registers, and writes each output once as 16-byte stores; for the 13x13
+// layers at b=1, whose few output tiles cannot fill 132 SMs, it splits K.
+#include "igemm_tc.cuh"
 #include "loaders.cuh"
 
-// x (M, K) int16, w (K, N) int16, bias (N,) int32 -> out (M, N) int16, all
-// contiguous on the current device. Returns cudaGetLastError() after the
-// launch.
-extern "C" int yq16_mm(const void* x, const void* w, const void* bias, void* out,
-                       int M, int K, int N, int shift, int leaky, void* stream) {
-    const yq::MmParams<int16_t> p{(const int16_t*)x, K, yq::vec_ok<int16_t>(x, K)};
-    const yq::EpiQ16 e{(const int32_t*)bias, (int16_t*)out, shift, leaky};
-    return (int)yq::launch_igemm<yq::MmLoader<int16_t>>(p, w, e, M, N, K, stream);
+// x (M, K) int16, wp the packed weight planes (ops/q16.py: pack_q16),
+// bias (N,) int32 -> out (M, N) int16, all contiguous on the current
+// device; ws as launch_igemm_tc wants it. Returns cudaGetLastError() after
+// the launch.
+extern "C" int yq16_mm(const void* x, const void* wp, const void* bias, void* out, void* ws,
+                       int M, int K, int N, int shift, int leaky, int ktiles_per_split,
+                       void* stream) {
+    const yq::tc::MmTc::Params p{(const int16_t*)x, K, yq::vec_ok<int16_t>(x, K)};
+    return (int)yq::tc::launch_igemm_tc<yq::tc::MmTc>(p, wp, bias, out, ws, M, N, K, shift,
+                                                      leaky, ktiles_per_split, stream);
 }
+
+// The dynamic shared memory of one block of the tensor-core body, in bytes.
+extern "C" int yq16_tc_smem_bytes() { return yq::tc::SMEM; }

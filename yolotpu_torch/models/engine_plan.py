@@ -17,8 +17,9 @@ or leaky activation. The kernel of each, by tier:
   w8a16   ops.q8.mm_w8a16                      ops.q8.conv3x3_w8a16
 
 The int16 tier also takes the TPU plan's per-layer overrides, in its format
-(``YOLO2_Q16_PLAN="0:entry_sdmm,2:sd_pool"``, parsed by ``yolotpu``'s own
-parser), with every kind of ``ALL_KINDS`` accepted where ``yolotpu``'s
+(``YOLO2_Q16_PLAN="0:entry_sdmm,2:sd_pool"``, parsed by ``plan_overrides``,
+which with ``ALL_KINDS`` and ``next_is_pool22`` mirrors
+``yolotpu/models/engine_plan.py``), with every kind of ``ALL_KINDS`` accepted where ``yolotpu``'s
 ``params_q16`` accepts it and refused with the same ``ValueError`` where it
 does not. A kind that folds the following 2x2/s2 pool into the conv runs
 ``ops.q16.conv3x3_pool_q16`` in the order where the TPU kind takes the
@@ -45,9 +46,52 @@ read until one has been measured on the card.
 
 from __future__ import annotations
 
-from yolotpu.graph import ConvSpec, NetworkSpec, RouteSpec
-from yolotpu.models.engine_plan import (ALL_KINDS, next_is_pool22,  # noqa: F401
-                                       plan_overrides)
+import os
+
+from ..graph import ConvSpec, MaxPoolSpec, NetworkSpec, RouteSpec
+
+PRODUCTION_KINDS = ("mm", "conv3", "entry_sd", "xla")
+EVIDENCE_KINDS = ("entryf", "entry8", "entry_sdmm", "entry_s2d", "conv3p2",
+                  "mm_pairs", "mm_patches", "nchw", "xla8", "sd_pool")
+ALL_KINDS = PRODUCTION_KINDS + EVIDENCE_KINDS
+
+
+def _parse_plan_items(s: str) -> dict[int, str]:
+    """'idx:kind,idx:kind' -> {idx: kind}; unknown kinds fail loudly."""
+    out: dict[int, str] = {}
+    for item in s.split(","):
+        item = item.strip()
+        if not item:
+            continue
+        idx, _, kind = item.partition(":")
+        kind = kind.strip()
+        if kind not in ALL_KINDS:
+            raise ValueError(
+                f"YOLO2_Q16_PLAN: unknown engine kind {kind!r} "
+                f"(choose from {ALL_KINDS})")
+        out[int(idx)] = kind
+    return out
+
+
+def plan_overrides() -> dict[int, str]:
+    """Parse YOLO2_Q16_PLAN — the one per-layer bisection override."""
+    return _parse_plan_items(os.environ.get("YOLO2_Q16_PLAN", ""))
+
+
+def next_is_pool22(spec: NetworkSpec, idx: int) -> bool:
+    """True when the layer after ``idx`` is a darknet 2x2/s2 maxpool whose
+    effective padding is zero (darknet's default padding=size-1 pads only
+    bottom/right and is unused when the input dims are even) — the shape
+    the fused entry kinds fold into their epilogue."""
+    nxt = next((l for l in spec.layers if l.idx == idx + 1), None)
+    if not (isinstance(nxt, MaxPoolSpec) and nxt.size == 2
+            and nxt.stride == 2):
+        return False
+    out_h = (nxt.h + nxt.padding - 2) // 2 + 1
+    out_w = (nxt.w + nxt.padding - 2) // 2 + 1
+    return (nxt.h % 2 == 0 and nxt.w % 2 == 0
+            and out_h == nxt.h // 2 and out_w == nxt.w // 2)
+
 
 # TPU kind -> where conv3x3_pool_q16 takes the pool's max for it
 POOL_ORDER = {"entry_sdmm": "acc", "entry_sd": "acc", "entry_s2d": "acc",

@@ -18,11 +18,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from yolotpu.graph import (ConvSpec, MaxPoolSpec, NetworkSpec, RegionSpec,
-                           ReorgSpec, RouteSpec)
-from yolotpu.weights import QTables, WeightStore
-
+from ..graph import (ConvSpec, MaxPoolSpec, NetworkSpec, RegionSpec,
+                     ReorgSpec, RouteSpec)
 from ..ops import convops, pool, q16, q8, region, reorg
+from ..weights import QTables, WeightStore
 from . import engine_plan
 
 # ---------------------------------------------------------------------------
@@ -183,6 +182,9 @@ class YoloV2Q(nn.Module):
     The int8 and w8a16 kernels take one shift per output channel; a
     per-layer shift is broadcast to that vector here, once.
 
+    On the card the int16 tier's mm and conv3 weights are also packed for
+    the tensor cores here, once (buffers ``p{idx}``; ``packs``).
+
     ``overrides`` ({conv idx: TPU engine kind}, the ``YOLO2_Q16_PLAN``
     lever) is taken by the int16 tier only, as ``yolotpu`` plans only its
     int16 Pallas path; ``engine_plan`` maps each kind to a kernel, and a conv
@@ -194,6 +196,9 @@ class YoloV2Q(nn.Module):
                "w8a16": (q8.mm_w8a16, q8.conv3x3_w8a16)}
     # precision -> the conv fused with the 2x2/s2 pool after it
     pooled = {"int16": q16.conv3x3_pool_q16}
+    # precision -> how its (mm, conv3) kernels take their weights on the
+    # card, packed once here (the tensor-core layout of ops.q16.pack_q16)
+    packs = {"int16": q16.pack_q16}
 
     def __init__(self, spec: NetworkSpec, qtables: QTables, params: dict,
                  device: torch.device | str = "cuda", precision: str = "int16",
@@ -232,8 +237,12 @@ class YoloV2Q(nn.Module):
                     self.head16 = l.idx
                     b, s = convops.head16(b, s)
                 self.register_buffer(f"s{l.idx}", s)
-            self.register_buffer(f"w{l.idx}", q16.prep_weights(pw["w"].to(device)))
+            w = q16.prep_weights(pw["w"].to(device))
+            self.register_buffer(f"w{l.idx}", w)
             self.register_buffer(f"b{l.idx}", b)
+            if (torch.device(device).type != "cpu" and precision in self.packs
+                    and self.route[l.idx][0] in ("mm", "conv3")):
+                self.register_buffer(f"p{l.idx}", self.packs[precision](w))
         self._head_q = self.plan.output_q + (8 if precision == "int8" else 0)
 
     def _conv(self, l: ConvSpec, x: torch.Tensor) -> torch.Tensor:
@@ -243,14 +252,17 @@ class YoloV2Q(nn.Module):
         leaky = l.activation == "leaky"
         mm, conv3 = self.kernels[self.precision]
         kernel, order = self.route[l.idx]
+        planes = getattr(self, f"p{l.idx}", None)
+        kw = {} if planes is None else {"planes": planes}
         if kernel == "mm":
-            out = {"out_dtype": torch.int16} if l.idx == self.head16 else {}
+            if l.idx == self.head16:
+                kw["out_dtype"] = torch.int16
             bsz, h, wd, c = x.shape
-            y = mm(x.reshape(-1, c), w, b, shift, leaky, **out)
+            y = mm(x.reshape(-1, c), w, b, shift, leaky, **kw)
             return y.reshape(bsz, h, wd, l.n)
         if kernel == "conv3_pool":
             return self.pooled[self.precision](x, w, b, shift, leaky, order)
-        return conv3(x, w, b, shift, leaky)
+        return conv3(x, w, b, shift, leaky, **kw)
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor) -> dict:

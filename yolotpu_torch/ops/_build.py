@@ -30,8 +30,9 @@ LIB_NAME = "libyolotpu_q16.so"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argtypes (pointers and the stream as c_void_p)
 SIGNATURES = {
-    "yq16_mm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "yq16_conv3x3": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "yq16_mm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "yq16_conv3x3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "yq16_tc_smem_bytes": (),
     "yq16_conv3x3_pool": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "yq8_mm_s8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "yq8_mm_w8a16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from yolotpu.graph import RegionSpec
+from ..graph import RegionSpec
 
 
 def _activate_obj_cls(x: torch.Tensor, spec: RegionSpec):
