@@ -441,9 +441,9 @@ def wrap_operands8(rng, rows: int, taps: int, n: int, shift: int, nblk: int,
             bias8(rng, n, torch.int16), np.full(n, shift, np.int32))
 
 
-def sass_counts(lib_path) -> dict[str, tuple[int, int]]:
+def sass_counts(lib_path) -> dict[str, tuple[int, int, str]]:
     """cuobjdump -sass of the kernel library: each kernel function's
-    (instructions, integer tensor-core MMA instructions)."""
+    (instructions, tensor-core MMA instructions, their opcodes)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     dump = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True, timeout=120).stdout
@@ -452,14 +452,17 @@ def sass_counts(lib_path) -> dict[str, tuple[int, int]]:
     for line in dump.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = [0, 0]
+            counts[fn] = [0, 0, set()]
         elif fn and line.strip().startswith("/*") and "*/" in line:
             ins = line.split("*/", 1)[1].strip()
             if ins and not ins.startswith("/*"):
                 counts[fn][0] += 1
-                counts[fn][1] += ins.split()[0].startswith("IMMA") or (
-                    ins.startswith("@") and " IMMA" in ins)
-    return {k: tuple(v) for k, v in counts.items()}
+                words = ins.split()
+                op = words[1] if words[0].startswith("@") and len(words) > 1 else words[0]
+                if "MMA" in op.split(".")[0]:   # IMMA, IGMMA, HMMA, HGMMA
+                    counts[fn][1] += 1
+                    counts[fn][2].add(op.split(".")[0])
+    return {k: (n, m, "/".join(sorted(ops))) for k, (n, m, ops) in counts.items()}
 
 
 def phase_card() -> str:
@@ -477,13 +480,15 @@ def phase_card() -> str:
         if "entry function" in line or "registers" in line or "spill" in line:
             say(f"[card]   {line.strip()}")
     sass = sass_counts(lib.path)
-    for fn, (n, imma) in sorted(sass.items()):
-        say(f"[card]   SASS {fn}: {n} instructions, {imma} IMMA")
+    for fn, (n, mma, ops) in sorted(sass.items()):
+        say(f"[card]   SASS {fn}: {n} instructions, {mma} tensor-core MMA "
+            f"{ops}")
     tc = {fn for fn in sass if "igemm_tc_kernel" in fn}
-    if len(tc) != 2 or any(not sass[fn][1] for fn in tc) or any(
+    if len(tc) != 2 or any("GMMA" not in sass[fn][2] for fn in tc) or any(
             sass[fn][1] for fn in sass if fn not in tc):
-        raise AssertionError("integer tensor-core MMA (IMMA) must be in the two "
-                             "yq::tc kernels and only there")
+        raise AssertionError("warpgroup MMA (wgmma: *GMMA in SASS) must be in "
+                             "the two yq::tc kernels, and no tensor-core MMA "
+                             "elsewhere")
     say(f"[card] {', '.join(TC_KERNELS)} run on the 8-bit tensor cores "
         "(the entry functions yq::tc::igemm_tc_kernel above): "
         f"{q16.TC_BM}x{q16.TC_BN} tiles, K steps of {q16.TC_BK}, "

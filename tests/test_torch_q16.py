@@ -299,24 +299,23 @@ def test_split_sum_of_im2col_equals_conv(b, h, w_, c, n):
 
 
 def test_pack_q16_layout():
-    """Byte 4h + i of lane 4g + t in block (kc, nt) is the high (then the
-    low) byte of w[32 kc + FRAG_K[16h + 4t + i], 8 nt + g]; K and N are
+    """Byte (g, h, r, e) of plane 0 (high) or 1 (low) in block (nb, kc) is
+    that byte of w[32 kc + FRAG_K[16 h + e], 64 nb + 8 g + r]; K and N are
     padded with zeros to the tile."""
-    k, n = 70, 20
+    k, n = 70, 100
     w = np.random.default_rng(9).integers(-32768, 32768, (k, n)).astype(np.int16)
     planes = q16.pack_q16(torch.from_numpy(w)).numpy()
-    assert planes.shape == q16.planes_shape(k, n) == (4, 8, 32, 16)
+    assert planes.shape == q16.planes_shape(k, n) == (2, 4, 2, 8, 2, 8, 16)
     assert sorted(q16.FRAG_K[:16]) == list(range(16))
     assert sorted(q16.FRAG_K[16:]) == list(range(16, 32))
-    wp = np.zeros((128, 64), np.int64)
+    wp = np.zeros((128, 128), np.int64)
     wp[:k, :n] = w
     rng = np.random.default_rng(10)
-    for _ in range(200):
-        kc, nt, g, t, h, i = (int(rng.integers(0, e))
-                              for e in (4, 8, 8, 4, 2, 4))
-        v = wp[32 * kc + q16.FRAG_K[16 * h + 4 * t + i], 8 * nt + g]
-        lane = planes[kc, nt, 4 * g + t]
-        assert lane[4 * h + i] == (v >> 8) & 255 and lane[8 + 4 * h + i] == v & 255
+    for _ in range(300):
+        nb, kc, g, h, r, e = (int(rng.integers(0, d)) for d in (2, 4, 8, 2, 8, 16))
+        v = wp[32 * kc + q16.FRAG_K[16 * h + e], 64 * nb + 8 * g + r]
+        assert planes[nb, kc, 0, g, h, r, e] == (v >> 8) & 255
+        assert planes[nb, kc, 1, g, h, r, e] == v & 255
 
 
 @pytest.mark.parametrize("m,n,k", [(169, 1024, 9216), (1352, 1024, 11520),

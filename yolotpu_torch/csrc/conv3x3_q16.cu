@@ -9,7 +9,7 @@
 // _convw_kernel / _convw_kernel_pl and _convf_kernel / _convf_kernel_pl) and
 // its fallback conv3x3_q16_requant (_conv_kernel), which compute the same
 // function. Their hi/lo s8 planes reached the TPU's s8 matrix unit; the
-// same split reaches Hopper's integer mma here (s8 high bytes, u8 low
+// same split reaches Hopper's integer wgmma here (s8 high bytes, u8 low
 // bytes, three s32 partial sums recombined in uint32, no correction
 // constant), while their lane padding, row padding, image groups and manual
 // DMA bands do not carry over. One kernel also serves the C=3 entry
@@ -24,13 +24,13 @@
 // C < 8, the entry layer, each kernel row's 3C contiguous values are
 // gathered into the same tiles, and any other C that is not a multiple of 8
 // is gathered value by value), reads A with ldmatrix and splits its bytes
-// in registers, reads each lane's B fragments with one 16-byte load from
-// planes packed at model build, keeps three 64x64 blocks on each SM so
-// that short-K blocks overlap, and splits K where the output tiles cannot
-// fill the card (the 13x13 layers at b=1). mma.sync (m16n8k32) is the
-// instruction; wgmma, and TMA for B, are the next step. The same conv fused
-// with a following 2x2/s2 pool is conv3x3_pool_q16.cu, on the CUDA-core
-// body.
+// in registers for wgmma (m64n64k32, A from registers, B from shared
+// memory in planes packed at model build), keeps three 64x64 blocks on each
+// SM so that short-K blocks overlap, and splits K where the output tiles
+// cannot fill the card (the 13x13 layers at b=1). TMA for B and keeping
+// more than one wgmma group in flight are the next steps. The same conv
+// fused with a following 2x2/s2 pool is conv3x3_pool_q16.cu, on the
+// CUDA-core body.
 #include "igemm_tc.cuh"
 #include "loaders.cuh"
 

@@ -10,8 +10,8 @@
 //
 //   sum x*w = (sum xh*wh << 16) + ((sum xh*wl + sum xl*wh) << 8) + sum xl*wl
 //
-// as integers, and mma.sync takes s8 and u8 operands in any pairing, so the
-// four products need no correction constant. The two middle products shift
+// as integers, and the integer wgmma takes s8 and u8 operands in any
+// pairing, so the four products need no correction constant. The two middle products shift
 // alike and share one accumulator: three s32 accumulator sets. Per k,
 // |xh*wh| <= 2^14, |xh*wl + xl*wh| <= 65280 and xl*wl <= 65025, so each s32
 // partial sum is exact for K <= 32896 without relying on how the tensor
@@ -26,14 +26,16 @@
 // tile arrives as int16 from a Loader: the activation rows (1x1 convs) or
 // the implicit im2col of a SAME 3x3 window; rows or channels that do not
 // come in whole 16-byte chunks are gathered by the threads into the same
-// tiles. ldmatrix (b16) brings A to registers and __byte_perm separates the
-// high and low bytes into the two 8-bit A fragments; that puts k values 2t,
-// 2t+1, 8+2t, 9+2t (+16) where the m16n8k32 fragment expects 4t .. 4t+3
-// (+16). The weights absorb this
-// permutation: they are split into their high (s8) and low (u8) planes,
-// permuted and laid out as the B fragments once, at model build
-// (ops/q16.py: pack_q16, whose FRAG_K is the permutation), so each lane
-// reads its two planes' fragments with one 16-byte load.
+// tiles. The block is one warpgroup: wgmma (m64n64k32) takes A from
+// registers and B from shared memory through a descriptor. ldmatrix (b16)
+// brings each warp's 16 rows of A to registers and __byte_perm separates
+// the high and low bytes into the two 8-bit A fragments; that puts k values
+// 2t, 2t+1, 8+2t, 9+2t (+16) where the fragment expects 4t .. 4t+3 (+16).
+// The weights absorb this permutation: they are split into their high (s8)
+// and low (u8) planes, permuted, and laid out as the descriptor reads them
+// (8x16-byte core matrices, no swizzle) once, at model build (ops/q16.py:
+// pack_q16, whose FRAG_K is the permutation), so a B stage is one
+// contiguous copy.
 //
 // Small M. Where the output tiles are too few to fill the card, the grid's
 // z dimension cuts K into splits of ktiles_per_split BK steps; each block
@@ -52,14 +54,12 @@
 namespace yq {
 namespace tc {
 
-// A block of 4 warps (2 x 2, each 32 x 32) computes a 64 x 64 tile, and
-// three blocks stay resident on an SM (the registers of 3 x 128 threads,
-// 3 x 68 KB of shared memory), so where a block has few K steps (a large M
-// and a small K, the entry conv) one block's loads and epilogue overlap the
-// others' products. (A 128-row block of 8 warps, one per SM, was slower at
-// every yolov2 416 shape but those its K split served worse.)
+// A block of 4 warps (one warpgroup, 16 rows each) computes a 64 x 64
+// tile, and three blocks stay resident on an SM (the registers of 3 x 128
+// threads, 3 x 68 KB of shared memory), so where a block has few K steps
+// (a large M and a small K, the entry conv) one block's loads and epilogue
+// overlap the others' products.
 constexpr int BM = 64, BN = 64, BK = 64, STAGES = 4, THREADS = 128, MIN_BLOCKS = 3;
-constexpr int WM = 32, WN = 32;          // a warp's tile
 constexpr int A_LD = BK + 8;             // int16 per A row in shared memory:
                                          // 144 bytes, so the 8 rows of an
                                          // ldmatrix hit 8 distinct bank groups
@@ -70,9 +70,8 @@ constexpr int ROW_STEP = THREADS / 8;    // rows between a thread's A chunks
 constexpr int C_LD = BN + 8;             // uint32 per staged output row
 constexpr int SMEM = STAGES * (A_STAGE * 2 + B_STAGE);
 constexpr int KMAX = 32768;              // k per s32 partial sum
-constexpr int FRAG = 512;                // bytes of one (32 k, 8 n) B fragment
-                                         // block: 32 lanes x 16 bytes
-static_assert((BM / WM) * (BN / WN) * 32 == THREADS, "warps must cover the tile");
+constexpr int PLANE = 32 * BN;           // bytes of one plane of a (32 k, BN n) B chunk
+static_assert(THREADS == 128 && BM == 64, "one warpgroup, 16 rows per warp");
 static_assert(BM * BK / 8 == 4 * THREADS, "each thread copies 4 A chunks per stage");
 static_assert(B_CHUNKS * 16 * THREADS == B_STAGE, "threads cover a B stage");
 static_assert(BM * C_LD * 4 <= SMEM, "the staged output tile fits the ring");
@@ -102,19 +101,62 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
                  : "r"(smem_addr(p)));
 }
 
-#define YQ_MMA_8BIT(NAME, AT, BT)                                                          \
-    __device__ __forceinline__ void NAME(int32_t c[4], const uint32_t a[4],                \
-                                         const uint32_t b[2]) {                            \
-        asm volatile("mma.sync.aligned.m16n8k32.row.col.s32." AT "." BT ".s32 "            \
-                     "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"             \
-                     : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])                      \
-                     : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1])); \
+// B operand descriptor of one plane of a (32 k, 64 n) chunk in shared
+// memory: 8 groups of 8 n rows, each group two 8x16-byte core matrices (k
+// 0-15, then k 16-31); no swizzle. Leading offset (between the two k
+// halves) 128 bytes, stride offset (between n groups) 256 bytes.
+__device__ __forceinline__ uint64_t b_desc(const void* p) {
+    return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+           ((uint64_t)(256 >> 4) << 32);
+}
+
+// d (64 x 64 s32, 32 per thread) += A (64 x 32 8-bit, from registers) x
+// B (32 x 64 8-bit, descriptor), on the warpgroup.
+#define YQ_WGMMA_8BIT(NAME, AT, BT)                                                        \
+    __device__ __forceinline__ void NAME(int32_t d[32], const uint32_t a[4], uint64_t b) { \
+        asm volatile(                                                                      \
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                   \
+            "wgmma.mma_async.sync.aligned.m64n64k32.s32." AT "." BT " "                    \
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "      \
+            "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "  \
+            "%31}, {%32, %33, %34, %35}, %36, p;\n}\n"                                     \
+            : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),      \
+              "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),    \
+              "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]),             \
+              "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]),             \
+              "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]),             \
+              "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])              \
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));                 \
     }
-YQ_MMA_8BIT(mma_ss, "s8", "s8")
-YQ_MMA_8BIT(mma_su, "s8", "u8")
-YQ_MMA_8BIT(mma_us, "u8", "s8")
-YQ_MMA_8BIT(mma_uu, "u8", "u8")
-#undef YQ_MMA_8BIT
+YQ_WGMMA_8BIT(wgmma_ss, "s8", "s8")
+YQ_WGMMA_8BIT(wgmma_su, "s8", "u8")
+YQ_WGMMA_8BIT(wgmma_us, "u8", "s8")
+YQ_WGMMA_8BIT(wgmma_uu, "u8", "u8")
+#undef YQ_WGMMA_8BIT
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps r live, and its later reads after this point: a register that an
+// asynchronous wgmma reads or writes must not be reused or read before the
+// wait.
+__device__ __forceinline__ void fence_operand(uint32_t& r) {
+    asm volatile("" : "+r"(r)::"memory");
+}
+__device__ __forceinline__ void fence_operand(int32_t& r) {
+    asm volatile("" : "+r"(r)::"memory");
+}
+// Orders this thread's shared-memory writes (cp.async, stores) before the
+// async proxy's reads of them (wgmma's B operand).
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 // The three partial sums of one output, recombined modulo 2^32.
 __device__ __forceinline__ uint32_t combine(int32_t hh, int32_t mid, int32_t ll) {
@@ -288,50 +330,47 @@ __device__ __forceinline__ void store8(int16_t* out, const int32_t* __restrict__
     }
 }
 
-// wp: the packed planes, FRAG-byte blocks indexed (k / 32) * NT + n / 8,
-// with K padded to whole BK steps and N to whole BN tiles (zeros).
+// wp: the packed planes, one 2 * PLANE-byte block (high plane, then low)
+// per BN columns and 32 k, indexed (n / BN) * (Kp / 32) + k / 32, with K
+// padded to whole BK steps (Kp) and N to whole BN tiles, with zeros.
 // ws (used when gridDim.z > 1): M*N uint32 sums, then one counter per
 // output tile, all zero at launch.
 template <class Loader>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 igemm_tc_kernel(const typename Loader::Params p, const uint8_t* __restrict__ wp,
                 const int32_t* __restrict__ bias, int16_t* __restrict__ out,
-                uint32_t* __restrict__ ws, long long M, int N, int K, int NT, int shift,
-                int leaky, int ktiles_per_split) {
+                uint32_t* __restrict__ ws, long long M, int N, int K, int shift, int leaky,
+                int ktiles_per_split) {
     extern __shared__ __align__(128) uint8_t smem[];
     int16_t* sA = reinterpret_cast<int16_t*>(smem);
     uint8_t* sB = smem + STAGES * A_STAGE * 2;
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int wm = warp >> 1, wn = warp & 1;
     const long long m0 = (long long)blockIdx.x * BM;
     const int n0 = blockIdx.y * BN;
     const int ktiles = (K + BK - 1) / BK;
     const int kt0 = blockIdx.z * ktiles_per_split;
     const int nk = min(ktiles, kt0 + ktiles_per_split) - kt0;
     const Loader ld(p, m0, M, tid);
+    // this column tile's planes; a stage (BK k) is 2 * BK / 32 planes,
+    // contiguous in wp and in shared memory
+    const uint8_t* wcol = wp + (long long)blockIdx.y * (ktiles * BK / 32) * 2 * PLANE;
 
-    // a B stage is BK/32 runs of (BN/8) fragment blocks, one run per 32 k,
-    // each contiguous in wp and in shared memory
     auto load_stage = [&](int s, int kt) {
         ld.load(sA + s * A_STAGE, kt * BK);
+        const uint8_t* src = wcol + (long long)kt * B_STAGE;
 #pragma unroll
         for (int j = 0; j < B_CHUNKS; ++j) {
             const int c = tid + j * THREADS;   // 16-byte chunk of the stage
-            const int run = c / (BN / 8 * FRAG / 16), off = c % (BN / 8 * FRAG / 16);
-            const uint8_t* src =
-                wp + ((long long)(kt * (BK / 32) + run) * NT + n0 / 8) * FRAG + off * 16;
-            cp_async16(sB + s * B_STAGE + c * 16, src, true);
+            cp_async16(sB + s * B_STAGE + c * 16, src + c * 16, true);
         }
     };
 
-    int32_t hh[2][4][4], md[2][4][4], ll[2][4][4];
+    // warp w owns output rows 16w .. 16w+15: accumulator 4j + r of a set
+    // is row 16w + g + 8 (r >> 1), column 8j + 2t + (r & 1)
+    int32_t hh[32], md[32], ll[32];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int r = 0; r < 4; ++r) hh[i][j][r] = md[i][j][r] = ll[i][j][r] = 0;
+    for (int i = 0; i < 32; ++i) hh[i] = md[i] = ll[i] = 0;
 
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
@@ -346,65 +385,65 @@ igemm_tc_kernel(const typename Loader::Params p, const uint8_t* __restrict__ wp,
 
     for (int t = 0; t < nk; ++t) {
         cp_async_wait<STAGES - 2>();
+        fence_proxy_async();
         __syncthreads();
-        // refill the slot that step t-1 read; every thread is past it
+        // refill the slot that step t-1 read; every thread is past it, and
+        // its wgmma finished before that step ended
         if (t + STAGES - 1 < nk) load_stage((t + STAGES - 1) % STAGES, kt0 + t + STAGES - 1);
         cp_async_commit();
 
-        const int16_t* a = sA + (t % STAGES) * A_STAGE + (wm * WM + lrow) * A_LD + lcol;
-        const uint8_t* b = sB + (t % STAGES) * B_STAGE + (wn * (WN / 8)) * FRAG + lane * 16;
+        const int16_t* a = sA + (t % STAGES) * A_STAGE + (16 * warp + lrow) * A_LD + lcol;
+        const uint8_t* b = sB + (t % STAGES) * B_STAGE;
+        // rows g and g+8, fragment k 4t..4t+3 and 16+4t..16+4t+3, of each
+        // 32-k chunk: the high and the low bytes
+        uint32_t ah[BK / 32][4], al[BK / 32][4];
 #pragma unroll
         for (int kc = 0; kc < BK / 32; ++kc) {
-            uint32_t bh[4][2], bl[4][2];
-#pragma unroll
-            for (int ni = 0; ni < 4; ++ni) {
-                const uint4 v = *reinterpret_cast<const uint4*>(b + (kc * (BN / 8) + ni) * FRAG);
-                bh[ni][0] = v.x, bh[ni][1] = v.y, bl[ni][0] = v.z, bl[ni][1] = v.w;
-            }
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi) {
-                uint32_t r[4], s[4];
-                ldmatrix_x4(r, a + mi * 16 * A_LD + kc * 32);
-                ldmatrix_x4(s, a + mi * 16 * A_LD + kc * 32 + 16);
-                // rows g and g+8, fragment k 4t..4t+3 and 16+4t..16+4t+3
-                const uint32_t ah[4] = {__byte_perm(r[0], r[2], 0x7531),
-                                        __byte_perm(r[1], r[3], 0x7531),
-                                        __byte_perm(s[0], s[2], 0x7531),
-                                        __byte_perm(s[1], s[3], 0x7531)};
-                const uint32_t al[4] = {__byte_perm(r[0], r[2], 0x6420),
-                                        __byte_perm(r[1], r[3], 0x6420),
-                                        __byte_perm(s[0], s[2], 0x6420),
-                                        __byte_perm(s[1], s[3], 0x6420)};
-#pragma unroll
-                for (int ni = 0; ni < 4; ++ni) {
-                    mma_ss(hh[mi][ni], ah, bh[ni]);
-                    mma_su(md[mi][ni], ah, bl[ni]);
-                    mma_us(md[mi][ni], al, bh[ni]);
-                    mma_uu(ll[mi][ni], al, bl[ni]);
-                }
-            }
+            uint32_t r[4], q[4];
+            ldmatrix_x4(r, a + kc * 32);
+            ldmatrix_x4(q, a + kc * 32 + 16);
+            ah[kc][0] = __byte_perm(r[0], r[2], 0x7531);
+            ah[kc][1] = __byte_perm(r[1], r[3], 0x7531);
+            ah[kc][2] = __byte_perm(q[0], q[2], 0x7531);
+            ah[kc][3] = __byte_perm(q[1], q[3], 0x7531);
+            al[kc][0] = __byte_perm(r[0], r[2], 0x6420);
+            al[kc][1] = __byte_perm(r[1], r[3], 0x6420);
+            al[kc][2] = __byte_perm(q[0], q[2], 0x6420);
+            al[kc][3] = __byte_perm(q[1], q[3], 0x6420);
         }
+        wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < BK / 32; ++kc) {
+            const uint64_t bh = b_desc(b + kc * 2 * PLANE), bl = b_desc(b + kc * 2 * PLANE + PLANE);
+            wgmma_ss(hh, ah[kc], bh);
+            wgmma_su(md, ah[kc], bl);
+            wgmma_us(md, al[kc], bh);
+            wgmma_uu(ll, al[kc], bl);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int kc = 0; kc < BK / 32; ++kc)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) fence_operand(ah[kc][i]), fence_operand(al[kc][i]);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) fence_operand(hh[i]), fence_operand(md[i]), fence_operand(ll[i]);
     }
     cp_async_wait<0>();
     __syncthreads();
 
-    // accumulator r of (mi, ni): row g + 8 (r >> 1), column 2t + (r & 1)
     const int g = lane >> 2, t4 = lane & 3;
     if (gridDim.z == 1) {
         uint32_t* sC = reinterpret_cast<uint32_t*>(smem);
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-            for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-                for (int h = 0; h < 2; ++h) {
-                    const int row = wm * WM + mi * 16 + g + 8 * h;
-                    const int col = wn * WN + ni * 8 + 2 * t4;
-                    *reinterpret_cast<uint2*>(sC + row * C_LD + col) =
-                        make_uint2(combine(hh[mi][ni][2 * h], md[mi][ni][2 * h], ll[mi][ni][2 * h]),
-                                   combine(hh[mi][ni][2 * h + 1], md[mi][ni][2 * h + 1],
-                                           ll[mi][ni][2 * h + 1]));
-                }
+            for (int h = 0; h < 2; ++h) {
+                const int row = 16 * warp + g + 8 * h, col = 8 * j + 2 * t4, i = 4 * j + 2 * h;
+                *reinterpret_cast<uint2*>(sC + row * C_LD + col) =
+                    make_uint2(combine(hh[i], md[i], ll[i]),
+                               combine(hh[i + 1], md[i + 1], ll[i + 1]));
+            }
         __syncthreads();
 #pragma unroll
         for (int j = 0; j < BM * BN / 8 / THREADS; ++j) {
@@ -421,16 +460,11 @@ igemm_tc_kernel(const typename Loader::Params p, const uint8_t* __restrict__ wp,
 
     // split K: add this block's partial tile into the workspace
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-                const long long m = m0 + wm * WM + mi * 16 + g + 8 * (r >> 1);
-                const int n = n0 + wn * WN + ni * 8 + 2 * t4 + (r & 1);
-                if (m < M && n < N)
-                    atomicAdd(ws + m * N + n, combine(hh[mi][ni][r], md[mi][ni][r], ll[mi][ni][r]));
-            }
+    for (int i = 0; i < 32; ++i) {
+        const long long m = m0 + 16 * warp + g + 8 * ((i & 3) >> 1);
+        const int n = n0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        if (m < M && n < N) atomicAdd(ws + m * N + n, combine(hh[i], md[i], ll[i]));
+    }
     __threadfence();
     __syncthreads();
     __shared__ int last;
@@ -483,7 +517,7 @@ inline cudaError_t launch_igemm_tc(const typename Loader::Params& p, const void*
     }
     igemm_tc_kernel<Loader><<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
         p, (const uint8_t*)wp, (const int32_t*)bias, (int16_t*)out, (uint32_t*)ws, M, N, K,
-        ntiles * (BN / 8), shift, leaky, ktiles_per_split);
+        shift, leaky, ktiles_per_split);
     return cudaGetLastError();
 }
 

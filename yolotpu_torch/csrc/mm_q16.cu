@@ -5,7 +5,7 @@
 // _mm_kernel and _mm_kernel_pl). That kernel reached the TPU's s8 matrix
 // unit by splitting each int16 operand into hi/lo s8 planes with a balanced
 // or offset weight encoding and an nconst column constant. Here the same
-// idea meets Hopper's integer mma, which takes u8 and s8 operands in any
+// idea meets Hopper's integer wgmma, which takes u8 and s8 operands in any
 // pairing: the low bytes stay unsigned and no constant is needed
 // (igemm_tc.cuh). The result is the exact sum modulo 2^32, then
 // requant_q16.

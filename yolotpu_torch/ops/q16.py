@@ -80,7 +80,7 @@ TC_BM, TC_BN, TC_BK, TC_KMAX, TC_RESIDENT = 64, 64, 64, 32768, 3
 # Fragment position p = 16h + 4t + i of a 32-k chunk (h < 2, lane t < 4,
 # byte i < 4) holds k = FRAG_K[p]: ldmatrix gives lane t the int16 pairs
 # (2t, 2t+1) and (8+2t, 9+2t), and their high or low bytes make one 8-bit
-# fragment register.
+# A fragment register; the B operand holds its k in the same order.
 FRAG_K = tuple(16 * (p // 16) + 2 * (p % 16 // 4) + p % 2 + 8 * (p % 4 // 2)
                for p in range(32))
 
@@ -89,49 +89,48 @@ def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-def planes_shape(k: int, n: int) -> tuple[int, int, int, int]:
-    """The packed planes of a (K, N) weight: (Kp/32, Np/8, 32 lanes, 16
-    bytes)."""
-    return (_round_up(k, TC_BK) // 32, _round_up(n, TC_BN) // 8, 32, 16)
+def planes_shape(k: int, n: int) -> tuple[int, ...]:
+    """The packed planes of a (K, N) weight: (Np/64 column tiles, Kp/32
+    chunks, 2 planes, 8 column groups g, 2 k halves h, 8 columns r, 16 k
+    bytes e)."""
+    return (_round_up(n, TC_BN) // 64, _round_up(k, TC_BK) // 32, 2, 8, 2, 8, 16)
 
 
 def pack_q16(w: torch.Tensor) -> torch.Tensor:
     """int16 weights, (C, N) or HWIO (3, 3, C, N), read as (K, N) -> the
     tensor-core kernels' B operand, uint8 ``planes_shape(K, N)`` on w's
     device: K padded to TC_BK and N to TC_BN with zeros, each value split
-    into its high byte (s8, w >> 8) and low byte (u8, w & 255), and for the
-    32-k chunk kc, the 8 columns nt and lane 4g + t, the 16 bytes the lane's
-    mma fragments take: the high plane at fragment positions 4t..4t+3 and
-    16+4t..16+4t+3 of column 8 nt + g (k = 32 kc + FRAG_K[p]), then the low
-    plane at the same positions."""
+    into its high byte (s8, w >> 8) and low byte (u8, w & 255); for each
+    64-column tile nb and 32-k chunk kc, the high plane, then the low, in
+    the shared-memory layout of the wgmma B descriptor: byte (g, h, r, e)
+    holds column 64 nb + 8 g + r at k = 32 kc + FRAG_K[16 h + e]."""
     wk = w.reshape(-1, w.shape[-1])
     k, n = wk.shape
-    kc, nt = planes_shape(k, n)[:2]
-    wp = torch.zeros((kc * 32, nt * 8), dtype=torch.int16, device=w.device)
+    nb, kc = planes_shape(k, n)[:2]
+    wp = torch.zeros((kc * 32, nb * 64), dtype=torch.int16, device=w.device)
     wp[:k, :n] = wk
     order = torch.tensor(FRAG_K, device=w.device)
 
-    def frag(plane: torch.Tensor) -> torch.Tensor:
-        # (kc, h, t, i, nt, g) -> (kc, nt, g, t, h, i)
-        p = plane.view(kc, 32, nt * 8)[:, order].view(kc, 2, 4, 4, nt, 8)
-        return p.permute(0, 4, 5, 2, 1, 3).reshape(kc, nt, 32, 8)
+    def arrange(plane: torch.Tensor) -> torch.Tensor:
+        # (kc, h, e, nb, g, r) -> (nb, kc, g, h, r, e)
+        p = plane.view(kc, 32, nb * 64)[:, order].view(kc, 2, 16, nb, 8, 8)
+        return p.permute(3, 0, 4, 1, 5, 2)
 
     hi = (wp >> 8).to(torch.int8).view(torch.uint8)
     lo = (wp & 255).to(torch.uint8)
-    return torch.cat([frag(hi), frag(lo)], dim=-1).contiguous()
+    return torch.stack([arrange(hi), arrange(lo)], dim=2).contiguous()
 
 
 def unpack_planes(planes: torch.Tensor, k: int, n: int):
     """The high (s8) and low (u8) planes of pack_q16's output as int64 (Kp,
     Np) matrices, rows in fragment order: row 32 kc + p holds k =
     32 kc + FRAG_K[p], as the kernel's A fragments take it."""
-    kc, nt = planes_shape(k, n)[:2]
-    p = planes.view(kc, nt, 8, 4, 2, 2, 4)   # kc, nt, g, t, plane, h, i
+    nb, kc = planes_shape(k, n)[:2]
 
     def plane(j: int, dtype: torch.dtype) -> torch.Tensor:
-        q = p[:, :, :, :, j].contiguous().view(dtype).to(torch.int64)
-        # (kc, nt, g, t, h, i) -> (kc, h, t, i, nt, g)
-        return q.permute(0, 4, 3, 5, 1, 2).reshape(kc * 32, nt * 8)
+        q = planes[:, :, j].contiguous().view(dtype).to(torch.int64)
+        # (nb, kc, g, h, r, e) -> (kc, h, e, nb, g, r)
+        return q.permute(1, 3, 5, 0, 2, 4).reshape(kc * 32, nb * 64)
 
     return plane(0, torch.int8), plane(1, torch.uint8)
 
