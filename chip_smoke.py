@@ -16,8 +16,8 @@ and in two plan slices of the int16 tier, in four phases:
    edge cases (shift extremes, per-channel shift vectors that mix them, sums
    built to wrap, operands at the limits of their types, C=3, N=425, ragged
    M, the int16-output head16 form of mm_s8); the two tensor-core kernels
-   also at the 13x13 shapes at batch 1 and 8 (K split over blocks, or not)
-   and at K=33000 and 33300 with every operand -32513, beyond one s32
+   also at the 23 shapes at batch 1 and 8, the main path's batches, whose
+   split of K over blocks differs from batch 2's, and at K=33000 and 33300 with every operand -32513, beyond one s32
    partial sum; the fused conv+pool kernel in each pool order at the five
    yolov2 shapes a 2x2/s2 pool follows and at edge cases (C=3 and 4,
    shifts, sums that wrap at shift 31, where the three orders must differ);
@@ -28,8 +28,9 @@ and in two plan slices of the int16 tier, in four phases:
    unsaturated, so they depend on the sums;
 3. slices, one per tier: ``Engine.detect`` on three frames and
    ``predict_batch_rgb`` at batch 8, the kernel launches of that run
-   counted (and per forward), the head held bit-equal to the plain versions
-   on the card and on the CPU, and the ms per batch and batch-1 latency;
+   counted (and per forward), each detect head and the batch head held
+   bit-equal to the plain versions on the card, frame 0 also on the CPU,
+   and the ms per batch and batch-1 latency;
    then the same for the int16 tier under the plan slices P1 and P2
    (``YOLO2_Q16_PLAN``), whose heads must also equal the default plan's,
    timed beside it;
@@ -38,7 +39,10 @@ and in two plan slices of the int16 tier, in four phases:
    one forward; the forward's device time by kernel against its time per
    forward (torch.profiler, each kernel known by its full name), and the SM
    clock and power draw sampled beside them; each fused conv+pool alone
-   against conv3x3_q16 then the pool, and summed over P1's fused convs.
+   against conv3x3_q16 then the pool, and summed over P1's fused convs;
+   then, for the int16 tier's tensor-core convs at batch 1 and 8, the
+   device time (CUDA graph replays) of every split of K beside the one
+   ``q16.tc_split`` picks.
 
 Any failed check raises, so the exit code is not 0. The line before the
 last is a JSON record of the kernels; the last is
@@ -63,6 +67,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from yolotpu_torch.graph import MaxPoolSpec  # noqa: E402
+from yolotpu_torch.image import letterbox_image  # noqa: E402
 from yolotpu_torch.models import engine_plan, zoo  # noqa: E402
 from yolotpu_torch.models.yolov2 import YoloV2Q  # noqa: E402
 from yolotpu_torch.names import names_for  # noqa: E402
@@ -124,6 +129,7 @@ PEAK_MAC8 = 1979e12 / 2
 PEAK_BYTES = 3.35e12
 # the int16 plan slices: name -> (YOLO2_Q16_PLAN, per-forward launches of
 # mm_q16, conv3x3_q16, conv3x3_pool_q16, the pools that run as their own op)
+SPLIT_SWEEP = 32   # the most splits of K that phase_split times
 PLANS = {"P1": ("0:entry_sdmm,2:sd_pool,6:sd_pool,10:sd_pool", (8, 11, 4), [17]),
          "P2": ("0:entryf,2:conv3p2,4:conv3p2", (8, 13, 2), [7, 11, 17])}
 
@@ -136,7 +142,6 @@ class PlainYoloV2Q(YoloV2Q):
                "int8": (q8.mm_s8_plain, q8.conv3x3_s8_plain),
                "w8a16": (q8.mm_w8a16_plain, q8.conv3x3_w8a16_plain)}
     pooled = {"int16": q16.conv3x3_pool_q16_plain}
-    packs = {}   # the plain versions take HWIO weights on every device
 
 
 def launch_counts() -> dict:
@@ -525,11 +530,10 @@ def phase_kernels(check: KernelCheck, dev: torch.device) -> None:
         check.compare(name, label + " narrow", (x, w, b, NARROW_SHIFT, leaky))
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    say("[kernels] the 13x13 shapes also at batch 1 and 8 (K split over "
-        "blocks, or not, as the wrapper chooses), full-range operands")
+    say("[kernels] mm_q16 and conv3x3_q16 also at batch 1 and 8, the main "
+        "path's batches, at all 23 shapes: K split over blocks as the "
+        "wrapper chooses for each (q16.tc_split), full-range operands")
     for l in spec.conv_layers():
-        if l.h != 13:
-            continue
         mm = engine_plan.select_engine(l) == "mm"
         for bsz in (1, 8):
             xshape = (bsz * l.h * l.w, l.c) if mm else (bsz, l.h, l.w, l.c)
@@ -797,6 +801,23 @@ def quantized_store(spec) -> WeightStore:
     return store
 
 
+def hold_detect_heads(tag: str, spec, frames: list, results: list,
+                      plain: YoloV2Q, dev: torch.device) -> None:
+    """Each detect request's head, the batch-1 path, against the plain
+    versions on the same letterboxed frame on the card (at batch 1 the
+    tensor-core kernels split K as they do at no other batch)."""
+    for i, (im, (_, res)) in enumerate(zip(frames, results)):
+        boxed = letterbox_image(im, spec.net.width, spec.net.height)
+        x = torch.from_numpy(np.ascontiguousarray(
+            boxed.transpose(1, 2, 0)[None], np.float32)).to(dev)
+        want = plain(x)["head"][0].permute(2, 0, 1).cpu().numpy()
+        if not np.array_equal(res.head_chw, want):
+            raise AssertionError(f"{tag} request {i}: head (batch 1) kernels "
+                                 "!= plain versions on the card")
+    say(f"{tag} the {len(results)} detect heads (batch 1) bit-equal: kernels "
+        "== plain on the card")
+
+
 def phase_slice(spec, store: WeightStore, tier: str,
                 dev: torch.device) -> tuple[dict, YoloV2Q, YoloV2Q]:
     """One tier's main path, its launch counts, its heads against the plain
@@ -869,6 +890,7 @@ def phase_slice(spec, store: WeightStore, tier: str,
 
     # the same model through the plain versions, on the card and on the CPU
     plain = PlainYoloV2Q(spec, eng.qtables, eng.params, dev, tier)
+    hold_detect_heads(tag, spec, frames, results, plain, dev)
     xb = torch.from_numpy(batch).to(dev)
     want_heads = plain(xb)["head"].permute(0, 3, 1, 2).cpu().numpy()
     if not np.array_equal(heads, want_heads):
@@ -890,14 +912,7 @@ def phase_slice(spec, store: WeightStore, tier: str,
     model = eng.model
     ms_b8 = cuda_ms(lambda: model(xb), reps=20)
     plain_ms_b8 = cuda_ms(lambda: plain(xb), reps=3)
-    x1 = xb[:1].contiguous()
-    lat = []
-    for _ in range(30):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model(x1)["head"].cpu()
-        lat.append((time.perf_counter() - t0) * 1e3)
-    p50, p90 = np.percentile(lat[5:], [50, 90])
+    p50, p90 = latency_ms(model, xb[:1].contiguous())
     say(f"{tag} batch {BATCH_SLICE}: {ms_b8:.3f} ms per batch "
         f"({BATCH_SLICE * 1e3 / ms_b8:.1f} frames/s) kernels, "
         f"{plain_ms_b8:.3f} ms plain versions")
@@ -954,9 +969,11 @@ def phase_plan(spec, store: WeightStore, name: str, default: YoloV2Q,
                          dtype=np.uint8)
     # the main path, with the launch counts read around it
     reset_launches()
+    results = []
     for i, im in enumerate(frames):
         before = launch_counts()
         dets, res = eng.detect(im)
+        results.append((dets, res))
         per = {k: v - before[k] for k, v in launch_counts().items()}
         if per != expect(1):
             raise AssertionError(f"{tag} detect ran {per} kernel launches")
@@ -977,6 +994,7 @@ def phase_plan(spec, store: WeightStore, name: str, default: YoloV2Q,
 
     xb = torch.from_numpy(batch).to(dev)
     plain = PlainYoloV2Q(spec, eng.qtables, eng.params, dev, "int16", overrides)
+    hold_detect_heads(tag, spec, frames, results, plain, dev)
     if not np.array_equal(heads, plain(xb)["head"].permute(0, 3, 1, 2).cpu().numpy()):
         raise AssertionError(f"{tag} batch head: kernels != plain versions "
                              "on the card")
@@ -1258,6 +1276,87 @@ def phase_profile_pool(model: YoloV2Q, dev: torch.device) -> dict:
     return forward
 
 
+def graph_ms(fn, launches: int = 20, reps: int = 5) -> float:
+    """Device ms of one fn() call: fn launched ``launches`` times into a
+    CUDA graph, whose replays are timed with CUDA events, so the host's
+    time per call does not enter."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(launches):
+            fn()
+    ms = cuda_ms(g.replay, reps) / launches
+    del g
+    return ms
+
+
+def split_steps(k: int) -> list[int]:
+    """The K steps per split of each split count of K, from the least that
+    one s32 partial sum allows up to SPLIT_SWEEP (or one step per split),
+    largest first, each once."""
+    kt = -(-k // q16.TC_BK)
+    steps: list[int] = []
+    for s in range(-(-k // q16.TC_KMAX), min(SPLIT_SWEEP, kt) + 1):
+        if -(-kt // s) not in steps:
+            steps.append(-(-kt // s))
+    return steps
+
+
+def phase_split(model: YoloV2Q, dev: torch.device) -> None:
+    """q16.tc_split's split of K against every other split (split_steps),
+    for each mm_q16 and conv3x3_q16 conv of the int16 model at batch 1 and
+    8, on random full-range inputs and the model's weights: each conv's
+    device time (graph_ms) at every split, the split chosen, the fastest,
+    and their sums over one forward."""
+    rng = np.random.default_rng(4)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    choose = q16.tc_split
+    say(f"[split] tc_split against every split of K (1 to {SPLIT_SWEEP} "
+        "splits), device ms per call from CUDA graph replays")
+    try:
+        for bsz in (1, 8):
+            tot = dict.fromkeys(("chosen", "fastest", "unsplit"), 0.0)
+            near = 0
+            for l in model.spec.conv_layers():
+                w, b = getattr(model, f"w{l.idx}"), getattr(model, f"b{l.idx}")
+                planes = getattr(model, f"p{l.idx}")
+                shift, leaky = model.plan.conv_shift_out[l.idx], l.activation == "leaky"
+                m, k = bsz * l.h * l.w, l.c * l.size * l.size
+                mm = model.route[l.idx][0] == "mm"
+                x = torch.from_numpy(rng.integers(
+                    -32768, 32768, (m, l.c) if mm else (bsz, l.h, l.w, l.c)
+                ).astype(np.int16)).to(dev)
+                fn = functools.partial(q16.mm_q16 if mm else q16.conv3x3_q16,
+                                       x, w, b, shift, leaky, planes=planes)
+                chosen = choose(m, l.n, k, sms)
+                ms = {}
+                for kps in split_steps(k) + [chosen]:
+                    if kps not in ms:
+                        q16.tc_split = lambda *a, kps=kps: kps   # noqa: E731
+                        ms[kps] = graph_ms(fn)
+                q16.tc_split = choose
+                kt = -(-k // q16.TC_BK)
+                best = min(ms, key=ms.get)
+                tot["chosen"] += ms[chosen]
+                tot["fastest"] += ms[best]
+                tot["unsplit"] += ms[max(ms)]   # the fewest splits
+                near += ms[chosen] <= 1.05 * ms[best]
+                say(f"[split] b={bsz} conv{l.idx} {l.h}x{l.w}x{l.c}->{l.n} "
+                    f"M={m} K={k} ({kt} steps), ms by splits: " + ", ".join(
+                        f"{-(-kt // v)}: {t:.4f}" for v, t in ms.items())
+                    + f"; tc_split {-(-kt // chosen)} ({ms[chosen]:.4f}), "
+                    f"fastest {-(-kt // best)} ({ms[best]:.4f}), chosen/fastest "
+                    f"{ms[chosen] / ms[best]:.3f}")
+            say(f"[split] b={bsz} per forward ({len(model.spec.conv_layers())} "
+                f"convs): tc_split's splits {tot['chosen']:.4f} ms, the "
+                f"fastest split of each conv {tot['fastest']:.4f} ms, unsplit "
+                f"{tot['unsplit']:.4f} ms; {near} convs within 5% of their "
+                "fastest")
+    finally:
+        q16.tc_split = choose
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs "
@@ -1295,6 +1394,7 @@ def main() -> int:
     for tier in TIERS:
         forward.update(phase_profile(models[tier], plains[tier], dev, names))
     forward["conv3x3_pool_q16"] = phase_profile_pool(models["int16"], dev)
+    phase_split(models["int16"], dev)
     say(f"[card] phases 1-4 took {time.perf_counter() - t0:.1f} s")
 
     def at(f: dict) -> dict:

@@ -491,7 +491,7 @@ igemm_tc_kernel(const typename Loader::Params p, const uint8_t* __restrict__ wp,
 
 // Launch on `stream`: one block per BM x BN output tile and split; the
 // K steps of a split, ktiles_per_split, come from the wrapper (ops/q16.py:
-// tc_plan), at most KMAX / BK. With more than one split, ws holds M*N +
+// tc_split), at most KMAX / BK. With more than one split, ws holds M*N +
 // (output tiles) uint32 and is zeroed here first; it may be null
 // otherwise. Returns cudaGetLastError() after the launch.
 template <class Loader>

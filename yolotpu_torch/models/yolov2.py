@@ -183,7 +183,7 @@ class YoloV2Q(nn.Module):
     per-layer shift is broadcast to that vector here, once.
 
     On the card the int16 tier's mm and conv3 weights are also packed for
-    the tensor cores here, once (buffers ``p{idx}``; ``packs``).
+    the tensor cores here, once (buffers ``p{idx}``, ``q16.pack_q16``).
 
     ``overrides`` ({conv idx: TPU engine kind}, the ``YOLO2_Q16_PLAN``
     lever) is taken by the int16 tier only, as ``yolotpu`` plans only its
@@ -196,9 +196,6 @@ class YoloV2Q(nn.Module):
                "w8a16": (q8.mm_w8a16, q8.conv3x3_w8a16)}
     # precision -> the conv fused with the 2x2/s2 pool after it
     pooled = {"int16": q16.conv3x3_pool_q16}
-    # precision -> how its (mm, conv3) kernels take their weights on the
-    # card, packed once here (the tensor-core layout of ops.q16.pack_q16)
-    packs = {"int16": q16.pack_q16}
 
     def __init__(self, spec: NetworkSpec, qtables: QTables, params: dict,
                  device: torch.device | str = "cuda", precision: str = "int16",
@@ -240,9 +237,9 @@ class YoloV2Q(nn.Module):
             w = q16.prep_weights(pw["w"].to(device))
             self.register_buffer(f"w{l.idx}", w)
             self.register_buffer(f"b{l.idx}", b)
-            if (torch.device(device).type != "cpu" and precision in self.packs
+            if (torch.device(device).type != "cpu" and precision == "int16"
                     and self.route[l.idx][0] in ("mm", "conv3")):
-                self.register_buffer(f"p{l.idx}", self.packs[precision](w))
+                self.register_buffer(f"p{l.idx}", q16.pack_q16(w))
         self._head_q = self.plan.output_q + (8 if precision == "int8" else 0)
 
     def _conv(self, l: ConvSpec, x: torch.Tensor) -> torch.Tensor:

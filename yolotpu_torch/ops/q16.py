@@ -169,24 +169,30 @@ def mm_split_sum(x: torch.Tensor, planes: torch.Tensor, k: int,
     return wrap32(acc[:, :n])
 
 
+# What splitting K adds to a block's time, in K steps (TC_BK each): the
+# workspace's memset, the atomic adds and the last block's pass over its
+# tile. Set from chip_smoke.py's split sweep (every split of K at every
+# yolov2 416 shape at batch 1 and 8, NVIDIA H100 80GB HBM3): any value from
+# 15 to 26 picks, at each shape, a split at most 6% slower than the fastest
+# one measured there, and 20 is the middle of that range.
+TC_SPLIT_COST = 20
+
+
 @functools.lru_cache(maxsize=4096)
 def tc_split(m: int, n: int, k: int, sms: int) -> int:
     """The K steps (of TC_BK) per split for an (M, K) @ (K, N) on the
     tensor-core body with ``sms`` SMs: of the split counts from
-    ceil(K / TC_KMAX) up (each split keeping at least 4 steps, 16 splits at
-    most), the one whose waves of resident blocks times a block's time is
-    least, a block's time being its steps plus 3 for its loads and
-    epilogue, plus 8 more where K is split (the workspace's memset, the
-    atomic adds and the last block's pass); the fewest splits on a tie."""
+    ceil(K / TC_KMAX) up, the one whose waves of resident blocks times a
+    block's time is least, a block's time being its K steps, plus
+    TC_SPLIT_COST where K is split; the fewest splits on a tie."""
     tiles = -(-m // TC_BM) * -(-n // TC_BN)
     ktiles = -(-k // TC_BK)
-    least = -(-k // TC_KMAX)
     best, best_cost = None, None
-    for s in range(least, max(least, min(16, ktiles // 4)) + 1):
+    for s in range(-(-k // TC_KMAX), ktiles + 1):
         kps = -(-ktiles // s)
         splits = -(-ktiles // kps)
         waves = -(-tiles * splits // (sms * TC_RESIDENT))
-        cost = waves * (kps + 3 + (8 if splits > 1 else 0))
+        cost = waves * (kps + (TC_SPLIT_COST if splits > 1 else 0))
         if best_cost is None or cost < best_cost:
             best, best_cost = kps, cost
     return best
@@ -223,13 +229,17 @@ def conv3x3_sum64(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def mm_q16_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-                 shift: int, leaky: bool) -> torch.Tensor:
+                 shift: int, leaky: bool, planes=None) -> torch.Tensor:
+    """mm_q16 in float64; ``planes`` is taken, as the kernel takes it, and
+    not read: the plain version reads w."""
     acc = acc32(mm_sum64(x, w))
     return requant32(acc, bias, shift, leaky).to(torch.int16)
 
 
 def conv3x3_q16_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-                      shift: int, leaky: bool) -> torch.Tensor:
+                      shift: int, leaky: bool, planes=None) -> torch.Tensor:
+    """conv3x3_q16 in float64; ``planes`` is taken and not read, as in
+    mm_q16_plain."""
     acc = acc32(conv3x3_sum64(x, w))
     return requant32(acc, bias, shift, leaky).to(torch.int16)
 
