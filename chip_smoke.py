@@ -9,16 +9,23 @@ each integer tier (int16-exact; int8 w8a8 with the head16 epilogue; w8a16)
 and in two plan slices of the int16 tier, in four phases:
 
 1. card: name and power limit, torch and CUDA versions, kernel build time,
-   each kernel's registers and spills, and the shared memory of the two
-   tensor-core kernels (mm_q16, conv3x3_q16);
+   each kernel's registers and spills, the tensor-core MMA instructions of
+   each kernel (cuobjdump: the four tensor-core instantiations hold integer
+   wgmma, no other kernel any MMA), and the tile, shared memory and
+   registers of each operand scheme of the tensor-core body (Q16: mm_q16,
+   conv3x3_q16; W8A16: conv3x3_w8a16; S8: conv3x3_s8, conv3x3_int8),
+   checked against the wrappers' copy of it;
 2. kernels: each of the six conv kernels against its plain PyTorch version
    on the card at all 23 yolov2 conv shapes of its kind (batch 2) and at
    edge cases (shift extremes, per-channel shift vectors that mix them, sums
    built to wrap, operands at the limits of their types, C=3, N=425, ragged
-   M, the int16-output head16 form of mm_s8); the two tensor-core kernels
-   also at the 23 shapes at batch 1 and 8, the main path's batches, whose
-   split of K over blocks differs from batch 2's, and at K=33000 and 33300 with every operand -32513, beyond one s32
-   partial sum; the fused conv+pool kernel in each pool order at the five
+   M, the int16-output head16 form of mm_s8); the tensor-core kernels
+   also at their yolov2 shapes at batch 1 and 8, the main path's batches,
+   whose split of K over blocks differs from batch 2's, and with K beyond
+   one split (33,000 to 131,472) and operands at their extremes, where an
+   unsplit s32 partial sum would leave s32 (Q16 at K=33000, W8A16 at
+   66,600, S8 at 131,472, whose exact sums wrap); the
+   fused conv+pool kernel in each pool order at the five
    yolov2 shapes a 2x2/s2 pool follows and at edge cases (C=3 and 4,
    shifts, sums that wrap at shift 31, where the three orders must differ);
    the scalar-shift int8 conv at the int8 tier's 15 3x3 shapes; all
@@ -40,8 +47,8 @@ and in two plan slices of the int16 tier, in four phases:
    forward (torch.profiler, each kernel known by its full name), and the SM
    clock and power draw sampled beside them; each fused conv+pool alone
    against conv3x3_q16 then the pool, and summed over P1's fused convs;
-   then, for the int16 tier's tensor-core convs at batch 1 and 8, the
-   device time (CUDA graph replays) of every split of K beside the one
+   then, for each tier's tensor-core convs at batch 1 and 8, the device
+   time (CUDA graph replays) of every split of K beside the one
    ``q16.tc_split`` picks.
 
 Any failed check raises, so the exit code is not 0. The line before the
@@ -117,8 +124,17 @@ X_NARROW = {torch.int8: 31, torch.int16: 2047}
 WRAP_BLOCK8 = 1024   # 1024 products (-32768)*(-128) = 2^32
 POOL_CONVS = (0, 2, 6, 10, 16)   # the yolov2 convs a 2x2/s2 pool follows
 # the kernels on the 8-bit tensor cores, which take their weights also as
-# packed planes (q16.pack_q16)
-TC_KERNELS = ("mm_q16", "conv3x3_q16")
+# packed planes: kernel -> (its operand scheme, what packs its planes)
+TC_KERNELS = {"mm_q16": (q16.TC_Q16, q16.pack_q16),
+              "conv3x3_q16": (q16.TC_Q16, q16.pack_q16),
+              "conv3x3_w8a16": (q8.TC_W8A16, q8.pack_conv3x3_w8a16),
+              "conv3x3_s8": (q8.TC_S8, q8.pack_conv3x3_s8),
+              "conv3x3_int8": (q8.TC_S8, q8.pack_conv3x3_s8)}
+# each scheme's tensor-core instantiations, known by the scheme's and the
+# loader's part of their mangled names
+TC_INSTANCES = {"mm_q16": ("3Q16", "4MmTc"), "conv3x3_q16": ("3Q16", "ConvTcIs"),
+                "conv3x3_w8a16": ("5W8A16", "ConvTcIs"),
+                "conv3x3_s8": ("2S8", "ConvTcIa")}
 INT8_KERNELS = ("mm_s8", "conv3x3_s8", "conv3x3_int8")   # int8 x int8
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): 8-bit tensor-core
 # multiply-adds per second (1,979 T int8 ops) and device memory bytes per
@@ -251,7 +267,8 @@ class KernelCheck:
         plain = getattr(module, name + "_plain")
         kernel = getattr(module, name)
         if name in TC_KERNELS:   # packed once, as at model build
-            kernel = functools.partial(kernel, planes=q16.pack_q16(args[1]))
+            kernel = functools.partial(kernel,
+                                       planes=TC_KERNELS[name][1](args[1]))
         got = kernel(*args, **kw)
         want = plain(*args, **kw)
         torch.cuda.synchronize()
@@ -470,6 +487,19 @@ def sass_counts(lib_path) -> dict[str, tuple[int, int, str]]:
     return {k: (n, m, "/".join(sorted(ops))) for k, (n, m, ops) in counts.items()}
 
 
+def ptxas_registers(log: str) -> dict[str, int]:
+    """Each entry function's registers, from nvcc's -Xptxas=-v output
+    (mangled name -> registers)."""
+    regs, fn = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn and "Used" in line and "registers" in line:
+            regs[fn] = int(line.split("Used")[1].split("registers")[0])
+            fn = None
+    return regs
+
+
 def phase_card() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -489,16 +519,34 @@ def phase_card() -> str:
         say(f"[card]   SASS {fn}: {n} instructions, {mma} tensor-core MMA "
             f"{ops}")
     tc = {fn for fn in sass if "igemm_tc_kernel" in fn}
-    if len(tc) != 2 or any("GMMA" not in sass[fn][2] for fn in tc) or any(
+    if len(tc) != len(TC_INSTANCES) or any(
+            "GMMA" not in sass[fn][2] for fn in tc) or any(
             sass[fn][1] for fn in sass if fn not in tc):
-        raise AssertionError("warpgroup MMA (wgmma: *GMMA in SASS) must be in "
-                             "the two yq::tc kernels, and no tensor-core MMA "
-                             "elsewhere")
-    say(f"[card] {', '.join(TC_KERNELS)} run on the 8-bit tensor cores "
-        "(the entry functions yq::tc::igemm_tc_kernel above): "
-        f"{q16.TC_BM}x{q16.TC_BN} tiles, K steps of {q16.TC_BK}, "
-        f"{lib.cdll.yq16_tc_smem_bytes()} bytes of dynamic shared memory per "
-        f"block, {q16.TC_RESIDENT} blocks per SM")
+        raise AssertionError(f"warpgroup MMA (wgmma: *GMMA in SASS) must be in "
+                             f"the {len(TC_INSTANCES)} yq::tc kernels, and no "
+                             "tensor-core MMA elsewhere")
+    regs = ptxas_registers(lib.log)
+    cfg = lib.cdll.yq_tc_config
+    for name, (scheme_part, loader_part) in TC_INSTANCES.items():
+        scheme = TC_KERNELS[name][0]
+        bm, bn, bk, smem, blocks, planes, kmax = (cfg(scheme.id, i)
+                                                  for i in range(7))
+        if (bm, bn, bk, blocks, planes, kmax) != (
+                q16.TC_BM, q16.TC_BN, scheme.bk, scheme.resident,
+                scheme.planes, q16.TC_KMAX):
+            raise AssertionError(
+                f"{name}: the kernel's tile (BM {bm}, BN {bn}, BK {bk}, "
+                f"{blocks} blocks per SM, {planes} planes, KMAX {kmax}) is not "
+                f"the wrappers' {scheme}")
+        fns = [fn for fn in regs if "igemm_tc_kernel" in fn
+               and scheme_part in fn and loader_part in fn]
+        if len(fns) != 1:
+            raise AssertionError(f"{name}: ptxas reports {fns}")
+        say(f"[card] {name} on the 8-bit tensor cores, scheme "
+            f"{scheme.name.upper()}: {bm}x{bn} tiles, K steps of {bk}, "
+            f"{planes} weight plane(s), {smem} bytes of dynamic shared memory "
+            f"per block, {blocks} blocks per SM ({scheme.wave} in tc_split's "
+            f"waves), {regs[fns[0]]} registers")
     return smi
 
 
@@ -632,6 +680,47 @@ def phase_kernels8(check: KernelCheck, dev: torch.device) -> None:
                                         torch.int16))
         check.compare("mm_w8a16" if mm else "conv3x3_w8a16", label,
                       (x, w, b, s, leaky), timed=True)
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    say("[kernels] conv3x3_s8 and conv3x3_w8a16 also at batch 1 and 8, the "
+        "main path's batches, at the 15 3x3 shapes: K split over blocks as "
+        "the wrapper chooses for each (q16.tc_split), full-range operands")
+    for l in spec.conv_layers():
+        if engine_plan.select_engine(l) == "mm":
+            continue
+        for bsz in (1, 8):
+            xshape, wshape = (bsz, l.h, l.w, l.c), (3, 3, l.c, l.n)
+            m, k = bsz * l.h * l.w, 9 * l.c
+            for name, xdtype, out in (("conv3x3_s8", np.int8, torch.int8),
+                                      ("conv3x3_w8a16", np.int16, torch.int16)):
+                scheme = TC_KERNELS[name][0]
+                kps = q16.tc_split(m, l.n, k, sms, scheme)
+                splits = -(-(-(-k // scheme.bk)) // kps)
+                x, w, b, s = on(*full_operands8(rng, xshape, wshape, xdtype, out))
+                check.compare(name, f"conv{l.idx} b={bsz} {l.c}->{l.n} K in "
+                              f"{splits} splits", (x, w, b, s,
+                                                   l.activation == "leaky"))
+                say(f"  {name} conv{l.idx} b={bsz} {l.h}x{l.w}x{l.c}->{l.n}: "
+                    f"equal, K {k} in {splits} splits of {kps * scheme.bk}")
+
+    say(f"[kernels] conv3x3_s8 and conv3x3_w8a16 with K beyond one split "
+        f"({q16.TC_KMAX} values of k), operands at their extremes: x = w = "
+        "-128 (s8; at C=14608 the exact sum leaves int32, and an unsplit s32 "
+        "sum would too), x = -32513 (high byte -128, low byte 255) and w = "
+        "-128 (w8a16; at C=7400 an unsplit low-byte sum leaves s32)")
+    for leaky in (False, True):
+        for name, c, xv, shift, wraps in (
+                ("conv3x3_s8", 3700, -128, 23, False),
+                ("conv3x3_s8", 14608, -128, 25, True),
+                ("conv3x3_w8a16", 3700, -32513, 18, True),
+                ("conv3x3_w8a16", 7400, -32513, 18, True)):
+            xdtype = np.int8 if name == "conv3x3_s8" else np.int16
+            out = torch.int8 if name == "conv3x3_s8" else torch.int16
+            x = np.full((1, 4, 5, c), xv, xdtype)
+            w = np.full((3, 3, c, 16), -128, np.int8)
+            args = on(x, w, bias8(rng, 16, out), np.full(16, shift, np.int32))
+            check.compare(name, f"1x4x5x{c}->16 (K={9 * c}) x={xv} w=-128 "
+                          f"leaky={leaky}", args + (leaky,), wraps=wraps)
 
     say(f"[kernels] int8 and w8a16 edge cases, leaky on/off: shift vectors "
         f"mixing {SHIFTS} over the columns; each shift broadcast; "
@@ -1048,6 +1137,7 @@ def kernel_names(dev: torch.device) -> dict[str, str]:
     c8, c16 = t((1, 4, 4, 16), i8), t((1, 4, 4, 16), i16)
     k8, k16 = t((3, 3, 16, 16), i8), t((3, 3, 16, 16), i16)
     p16, pk16 = q16.pack_q16(w16), q16.pack_q16(k16)
+    ps8, pw8 = q8.pack_conv3x3_s8(k8), q8.pack_conv3x3_w8a16(k8)
     # the operands exist before the profiler starts: only the kernel runs
     # (at these shapes K is not split, so the tensor-core kernels launch
     # alone, with no workspace memset)
@@ -1058,8 +1148,10 @@ def kernel_names(dev: torch.device) -> dict[str, str]:
         ("mm_s8", lambda: q8.mm_s8(x8, w8, b, s, True)),
         ("mm_s8", lambda: q8.mm_s8(x8, w8, b, s, True, i16)),
         ("mm_w8a16", lambda: q8.mm_w8a16(x16, w8, b, s, True)),
-        ("conv3x3_s8", lambda: q8.conv3x3_s8(c8, k8, b, s, True)),
-        ("conv3x3_w8a16", lambda: q8.conv3x3_w8a16(c16, k8, b, s, True)),
+        ("conv3x3_s8", lambda: q8.conv3x3_s8(c8, k8, b, s, True,
+                                             planes=ps8)),
+        ("conv3x3_w8a16", lambda: q8.conv3x3_w8a16(c16, k8, b, s, True,
+                                                   planes=pw8)),
         *(("conv3x3_pool_q16",
            lambda o=o: q16.conv3x3_pool_q16(c16, k16, b, 3, True, o))
           for o in q16.POOL_ORDERS),
@@ -1291,11 +1383,11 @@ def graph_ms(fn, launches: int = 20, reps: int = 5) -> float:
     return ms
 
 
-def split_steps(k: int) -> list[int]:
-    """The K steps per split of each split count of K, from the least that
-    one s32 partial sum allows up to SPLIT_SWEEP (or one step per split),
-    largest first, each once."""
-    kt = -(-k // q16.TC_BK)
+def split_steps(k: int, bk: int) -> list[int]:
+    """The K steps (of bk) per split of each split count of K, from the least
+    that one s32 partial sum allows up to SPLIT_SWEEP (or one step per
+    split), largest first, each once."""
+    kt = -(-k // bk)
     steps: list[int] = []
     for s in range(-(-k // q16.TC_KMAX), min(SPLIT_SWEEP, kt) + 1):
         if -(-kt // s) not in steps:
@@ -1305,54 +1397,61 @@ def split_steps(k: int) -> list[int]:
 
 def phase_split(model: YoloV2Q, dev: torch.device) -> None:
     """q16.tc_split's split of K against every other split (split_steps),
-    for each mm_q16 and conv3x3_q16 conv of the int16 model at batch 1 and
-    8, on random full-range inputs and the model's weights: each conv's
-    device time (graph_ms) at every split, the split chosen, the fastest,
-    and their sums over one forward."""
+    for each conv of one tier's model that runs on the tensor cores (the
+    convs with packed planes), at batch 1 and 8, on random full-range
+    inputs and the model's weights (``model._conv``): each conv's device
+    time (graph_ms) at every split, the split chosen, the fastest, and
+    their sums over one forward; a choice more than 10% slower than the
+    fastest split is flagged."""
     rng = np.random.default_rng(4)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     choose = q16.tc_split
-    say(f"[split] tc_split against every split of K (1 to {SPLIT_SWEEP} "
-        "splits), device ms per call from CUDA graph replays")
+    tier = model.precision
+    act = torch.int8 if tier == "int8" else torch.int16
+    lim = torch.iinfo(act)
+    convs = [l for l in model.spec.conv_layers() if hasattr(model, f"p{l.idx}")]
+    tag = f"[split {tier}]"
+    say(f"{tag} tc_split against every split of K (1 to {SPLIT_SWEEP} "
+        f"splits) of the {len(convs)} tensor-core convs, device ms per call "
+        "from CUDA graph replays")
     try:
         for bsz in (1, 8):
             tot = dict.fromkeys(("chosen", "fastest", "unsplit"), 0.0)
-            near = 0
-            for l in model.spec.conv_layers():
-                w, b = getattr(model, f"w{l.idx}"), getattr(model, f"b{l.idx}")
-                planes = getattr(model, f"p{l.idx}")
-                shift, leaky = model.plan.conv_shift_out[l.idx], l.activation == "leaky"
+            near, far = 0, []
+            for l in convs:
+                mm, c3 = TIER_KERNELS[tier]
+                name = mm if model.route[l.idx][0] == "mm" else c3
+                scheme = TC_KERNELS[name][0]
                 m, k = bsz * l.h * l.w, l.c * l.size * l.size
-                mm = model.route[l.idx][0] == "mm"
                 x = torch.from_numpy(rng.integers(
-                    -32768, 32768, (m, l.c) if mm else (bsz, l.h, l.w, l.c)
-                ).astype(np.int16)).to(dev)
-                fn = functools.partial(q16.mm_q16 if mm else q16.conv3x3_q16,
-                                       x, w, b, shift, leaky, planes=planes)
-                chosen = choose(m, l.n, k, sms)
+                    lim.min, lim.max + 1, (bsz, l.h, l.w, l.c))).to(act).to(dev)
+                fn = functools.partial(model._conv, l, x)
+                chosen = choose(m, l.n, k, sms, scheme)
                 ms = {}
-                for kps in split_steps(k) + [chosen]:
+                for kps in split_steps(k, scheme.bk) + [chosen]:
                     if kps not in ms:
                         q16.tc_split = lambda *a, kps=kps: kps   # noqa: E731
                         ms[kps] = graph_ms(fn)
                 q16.tc_split = choose
-                kt = -(-k // q16.TC_BK)
+                kt = -(-k // scheme.bk)
                 best = min(ms, key=ms.get)
                 tot["chosen"] += ms[chosen]
                 tot["fastest"] += ms[best]
                 tot["unsplit"] += ms[max(ms)]   # the fewest splits
                 near += ms[chosen] <= 1.05 * ms[best]
-                say(f"[split] b={bsz} conv{l.idx} {l.h}x{l.w}x{l.c}->{l.n} "
-                    f"M={m} K={k} ({kt} steps), ms by splits: " + ", ".join(
-                        f"{-(-kt // v)}: {t:.4f}" for v, t in ms.items())
+                if ms[chosen] > 1.10 * ms[best]:
+                    far.append(f"conv{l.idx}")
+                say(f"{tag} b={bsz} conv{l.idx} {l.h}x{l.w}x{l.c}->{l.n} "
+                    f"{name} M={m} K={k} ({kt} steps), ms by splits: "
+                    + ", ".join(f"{-(-kt // v)}: {t:.4f}" for v, t in ms.items())
                     + f"; tc_split {-(-kt // chosen)} ({ms[chosen]:.4f}), "
                     f"fastest {-(-kt // best)} ({ms[best]:.4f}), chosen/fastest "
                     f"{ms[chosen] / ms[best]:.3f}")
-            say(f"[split] b={bsz} per forward ({len(model.spec.conv_layers())} "
-                f"convs): tc_split's splits {tot['chosen']:.4f} ms, the "
-                f"fastest split of each conv {tot['fastest']:.4f} ms, unsplit "
-                f"{tot['unsplit']:.4f} ms; {near} convs within 5% of their "
-                "fastest")
+            say(f"{tag} b={bsz} per forward ({len(convs)} convs): tc_split's "
+                f"splits {tot['chosen']:.4f} ms, the fastest split of each conv "
+                f"{tot['fastest']:.4f} ms, unsplit {tot['unsplit']:.4f} ms; "
+                f"{near} convs within 5% of their fastest; more than 10% "
+                f"slower: {', '.join(far) or 'none'}")
     finally:
         q16.tc_split = choose
 
@@ -1394,7 +1493,8 @@ def main() -> int:
     for tier in TIERS:
         forward.update(phase_profile(models[tier], plains[tier], dev, names))
     forward["conv3x3_pool_q16"] = phase_profile_pool(models["int16"], dev)
-    phase_split(models["int16"], dev)
+    for tier in TIERS:
+        phase_split(models[tier], dev)
     say(f"[card] phases 1-4 took {time.perf_counter() - t0:.1f} s")
 
     def at(f: dict) -> dict:

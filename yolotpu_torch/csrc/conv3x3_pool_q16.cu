@@ -2,7 +2,7 @@
 // requant, followed by a darknet 2x2/s2 maxpool, in one pass: NHWC (B, H, W,
 // C) int16 with H and W even -> (B, H/2, W/2, N) int16. The implicit GEMM of
 // conv3x3_q16.cu with the output pixels visited window-major
-// (loaders.cuh, ConvLoader<int16_t, true>): a thread's 8 accumulator rows
+// (loaders.cuh, ConvLoader<int16_t>): a thread's 8 accumulator rows
 // are two whole pool windows, so the epilogue pools in registers, with no
 // shuffles and no shared memory, and writes only the pooled rows
 // (igemm.cuh, EpiPoolQ16).
@@ -40,7 +40,7 @@ static cudaError_t launch(const void* x, const void* w, const void* bias, void* 
     const yq::ConvParams<int16_t> p{(const int16_t*)x, H, W, C, yq::vec_ok<int16_t>(x, C)};
     const yq::EpiPoolQ16<ORDER> e{{(const int32_t*)bias, (int16_t*)out, shift, leaky}};
     const long long M = (long long)B * H * W;
-    return yq::launch_igemm<yq::ConvLoader<int16_t, true>>(p, w, e, M, N, 9 * C, stream);
+    return yq::launch_igemm<yq::ConvLoader<int16_t>>(p, w, e, M, N, 9 * C, stream);
 }
 
 // x (B, H, W, C) int16 with H and W even, w (3, 3, C, N) int16 (HWIO, read

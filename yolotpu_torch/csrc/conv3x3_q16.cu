@@ -32,7 +32,6 @@
 // fused with a following 2x2/s2 pool is conv3x3_pool_q16.cu, on the
 // CUDA-core body.
 #include "igemm_tc.cuh"
-#include "loaders.cuh"
 
 // x (B, H, W, C) int16, wp the packed planes of w (3, 3, C, N) read as
 // (9C, N) (ops/q16.py: pack_q16), bias (N,) int32 -> out (B, H, W, N)
@@ -41,8 +40,10 @@
 extern "C" int yq16_conv3x3(const void* x, const void* wp, const void* bias, void* out,
                             void* ws, int B, int H, int W, int C, int N, int shift, int leaky,
                             int ktiles_per_split, void* stream) {
-    const yq::tc::ConvTc::Params p{(const int16_t*)x, H, W, C, yq::vec_ok<int16_t>(x, C)};
+    using Loader = yq::tc::ConvTc<int16_t>;
+    const Loader::Params p{(const int16_t*)x, H, W, C, yq::tc::vec16(x, 2LL * C)};
+    const yq::tc::EpiLayer e{(const int32_t*)bias, (int16_t*)out, shift, leaky};
     const long long M = (long long)B * H * W;
-    return (int)yq::tc::launch_igemm_tc<yq::tc::ConvTc>(p, wp, bias, out, ws, M, N, 9 * C,
-                                                        shift, leaky, ktiles_per_split, stream);
+    return (int)yq::tc::launch_igemm_tc<yq::tc::Q16, Loader>(p, wp, e, ws, M, N, 9 * C,
+                                                             ktiles_per_split, stream);
 }

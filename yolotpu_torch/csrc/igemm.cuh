@@ -1,8 +1,10 @@
-// Tiled exact integer GEMM with a fused requant epilogue: the body of every
-// kernel in csrc/. Each kernel is an instantiation with its own A loader
-// (loaders.cuh: activation matrix rows, or the implicit im2col of a SAME 3x3
-// window, gathered while loading) and its own epilogue (the weight type, the
-// output type, one shift for the layer or one per output channel):
+// Tiled exact integer GEMM with a fused requant epilogue on the CUDA cores:
+// the body of mm_s8.cu, mm_w8a16.cu and conv3x3_pool_q16.cu (the other
+// kernels of csrc/ run on the tensor cores, igemm_tc.cuh). Each kernel is an
+// instantiation with its own A loader (loaders.cuh: activation matrix rows,
+// or the implicit im2col of a SAME 3x3 window, gathered while loading) and
+// its own epilogue (the weight type, the output type, one shift for the
+// layer or one per output channel):
 //
 //   out[m, n] = requant(sum_k A[m, k] * w[k, n]  (mod 2^32), bias[n], shift)
 //
@@ -25,7 +27,7 @@
 //   POOL                                    false: one output per row, by
 //   void store(long long i, uint32_t acc, Col) const   out[i] = requant(acc)
 //                                           true: rows 4i..4i+3 are one 2x2
-//                                           pool window (ConvLoader<T, true>)
+//                                           pool window (ConvLoader<T>)
 //                                           and give one output row, by
 //   void store4(long long i, const uint32_t a[4], Col) const
 #pragma once

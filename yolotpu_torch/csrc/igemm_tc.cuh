@@ -1,81 +1,178 @@
-// Exact int16 GEMM on the 8-bit tensor cores, with the fused requant: the
-// body of mm_q16.cu and conv3x3_q16.cu.
+// Exact integer GEMM on the 8-bit tensor cores, with the fused requant: the
+// body of mm_q16.cu, conv3x3_q16.cu, conv3x3_w8a16.cu and conv3x3_s8.cu.
 //
-//   out[m, n] = requant_q16(sum_k A[m, k] * w[k, n]  (mod 2^32), bias[n], shift)
+//   out[m, n] = requant(sum_k A[m, k] * w[k, n]  (mod 2^32), bias[n], shift)
 //
-// The split. The tensor cores multiply 8-bit operands, so each int16 is cut
-// into a signed high byte and an unsigned low byte, x = 256*xh + xl with
-// xh = x >> 8 in [-128, 127] (s8) and xl = x & 255 in [0, 255] (u8), and w
-// alike. Then
+// The tensor cores multiply 8-bit operands into s32. Three operand schemes,
+// chosen at compile time, reach them (the structs Q16, W8A16 and S8 below):
 //
-//   sum x*w = (sum xh*wh << 16) + ((sum xh*wl + sum xl*wh) << 8) + sum xl*wl
+//   Q16    int16 A x int16 w, the int16 tier. Each int16 is cut into a signed
+//          high byte and an unsigned low byte, x = 256*xh + xl with
+//          xh = x >> 8 in [-128, 127] (s8) and xl = x & 255 in [0, 255] (u8),
+//          and w alike. Then, as integers,
+//            sum x*w = (sum xh*wh << 16) + ((sum xh*wl + sum xl*wh) << 8)
+//                      + sum xl*wl,
+//          and the integer wgmma takes s8 and u8 operands in any pairing, so
+//          the four products need no correction constant. The two middle
+//          products shift alike and share one accumulator: three s32 sets.
+//          Per k, |xh*wh| <= 2^14, |xh*wl + xl*wh| <= 65280 and
+//          xl*wl <= 65025: each partial sum is exact for K <= 32896.
+//   W8A16  int16 A x int8 w, the w8a16 tier: A split as in Q16, w whole,
+//            sum x*w = (sum xh*w << 8) + sum xl*w,
+//          two sets; |xh*w| <= 2^14 and |xl*w| <= 32640, exact for
+//          K <= 65793. The low byte stays unsigned, so the TPU kernels'
+//          -128 offset and their nconst column constant do not carry over.
+//   S8     int8 A x int8 w, the int8 tier: one set, |x*w| <= 2^14, exact for
+//          K <= 131072.
 //
-// as integers, and the integer wgmma takes s8 and u8 operands in any
-// pairing, so the four products need no correction constant. The two middle products shift
-// alike and share one accumulator: three s32 accumulator sets. Per k,
-// |xh*wh| <= 2^14, |xh*wl + xl*wh| <= 65280 and xl*wl <= 65025, so each s32
-// partial sum is exact for K <= 32896 without relying on how the tensor
-// cores overflow; a block sums at most KMAX = 32768 values of k, and longer
-// K is cut into splits (below). The three sums are recombined in uint32_t,
-// where the wrap is defined, and SAME padding splits to zeros.
+// A block sums at most KMAX = 32768 values of k, so no partial sum relies on
+// how the tensor cores overflow, and longer K is cut into splits (below).
+// The sets are recombined in uint32_t, where the wrap is defined; SAME
+// padding splits to zeros.
 //
-// Operands. Activations stay int16 in memory. A block computes a BM x BN
-// output tile and walks its K range in BK steps through a STAGES-deep ring
-// of shared-memory tiles filled by cp.async (16 bytes per copy; a copy with
-// source size 0 writes zeros, for SAME padding and ragged edges). The A
-// tile arrives as int16 from a Loader: the activation rows (1x1 convs) or
-// the implicit im2col of a SAME 3x3 window; rows or channels that do not
-// come in whole 16-byte chunks are gathered by the threads into the same
-// tiles. The block is one warpgroup: wgmma (m64n64k32) takes A from
-// registers and B from shared memory through a descriptor. ldmatrix (b16)
-// brings each warp's 16 rows of A to registers and __byte_perm separates
-// the high and low bytes into the two 8-bit A fragments; that puts k values
-// 2t, 2t+1, 8+2t, 9+2t (+16) where the fragment expects 4t .. 4t+3 (+16).
-// The weights absorb this permutation: they are split into their high (s8)
-// and low (u8) planes, permuted, and laid out as the descriptor reads them
-// (8x16-byte core matrices, no swizzle) once, at model build (ops/q16.py:
-// pack_q16, whose FRAG_K is the permutation), so a B stage is one
+// Operands. Activations stay int16 or int8 in memory. A block computes a
+// BM x BN output tile and walks its K range in K steps of 128 bytes of A per
+// row (BK = 64 int16 or 128 int8 values of k) through a STAGES-deep ring of
+// shared-memory tiles filled by cp.async (16 bytes per copy; a copy with
+// source size 0 writes zeros, for SAME padding and ragged edges). The A tile
+// arrives from a Loader: the activation rows (1x1 convs) or the implicit
+// im2col of a SAME 3x3 window; rows or channels that do not come in whole
+// 16-byte chunks are gathered by the threads into the same tiles. The block
+// is one warpgroup: wgmma (m64n64k32) takes A from registers and B from
+// shared memory through a descriptor.
+// ldmatrix (b16) brings each warp's 16 rows of a 32-k chunk to registers.
+// For 8-bit A that is the 8-bit A fragment itself (k 4t .. 4t+3 and
+// 16+4t .. 16+4t+3 of rows g and g+8). For int16 A, __byte_perm separates
+// the high and low bytes into two fragments, and that puts k values 2t,
+// 2t+1, 8+2t, 9+2t (+16) where the fragment expects 4t .. 4t+3 (+16). The
+// weights absorb this permutation: they are laid out as the descriptor reads
+// them (8x16-byte core matrices, no swizzle), in the permuted order for
+// int16 A and in natural order for int8 A, split into their high (s8) and
+// low (u8) planes for Q16, once, at model build (ops/q16.py: pack_q16 and
+// FRAG_K, the permutation; ops/q8.py: pack_w8), so a B stage is one
 // contiguous copy.
 //
 // Small M. Where the output tiles are too few to fill the card, the grid's
-// z dimension cuts K into splits of ktiles_per_split BK steps; each block
+// z dimension cuts K into splits of ktiles_per_split K steps; each block
 // adds its uint32 partial tile into a zeroed workspace with atomicAdd (sums
 // mod 2^32 are exact in any order, so the result does not depend on it),
 // and the block that finishes a tile last requantizes it. The epilogue of
-// an unsplit block stages its tile through shared memory, and every output
-// leaves as 16 bytes (eight int16) per thread where N allows.
+// an unsplit block stages its tile through shared memory, reads each
+// column's bias and shift once, and every output leaves as 16 bytes (eight
+// int16) or 8 bytes (eight int8) per thread where N allows.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "requant.cuh"
 
 namespace yq {
 namespace tc {
 
-// A block of 4 warps (one warpgroup, 16 rows each) computes a 64 x 64
-// tile, and three blocks stay resident on an SM (the registers of 3 x 128
-// threads, 3 x 68 KB of shared memory), so where a block has few K steps
-// (a large M and a small K, the entry conv) one block's loads and epilogue
-// overlap the others' products.
-constexpr int BM = 64, BN = 64, BK = 64, STAGES = 4, THREADS = 128, MIN_BLOCKS = 3;
-constexpr int A_LD = BK + 8;             // int16 per A row in shared memory:
-                                         // 144 bytes, so the 8 rows of an
-                                         // ldmatrix hit 8 distinct bank groups
-constexpr int A_STAGE = BM * A_LD;       // int16 per A stage
-constexpr int B_STAGE = BK * BN * 2;     // bytes per B stage (two planes)
-constexpr int B_CHUNKS = B_STAGE / 16 / THREADS;   // 16-byte copies per thread
-constexpr int ROW_STEP = THREADS / 8;    // rows between a thread's A chunks
-constexpr int C_LD = BN + 8;             // uint32 per staged output row
-constexpr int SMEM = STAGES * (A_STAGE * 2 + B_STAGE);
-constexpr int KMAX = 32768;              // k per s32 partial sum
-constexpr int PLANE = 32 * BN;           // bytes of one plane of a (32 k, BN n) B chunk
-static_assert(THREADS == 128 && BM == 64, "one warpgroup, 16 rows per warp");
-static_assert(BM * BK / 8 == 4 * THREADS, "each thread copies 4 A chunks per stage");
-static_assert(B_CHUNKS * 16 * THREADS == B_STAGE, "threads cover a B stage");
-static_assert(BM * C_LD * 4 <= SMEM, "the staged output tile fits the ring");
-static_assert(KMAX % BK == 0, "a split's K is whole BK steps");
+// A block of 4 warps (one warpgroup, 16 rows each) computes a 64 x 64 tile.
+constexpr int BM = 64, BN = 64, THREADS = 128;
+constexpr int A_ROW = 128;          // bytes of an A row per K step
+constexpr int A_LD = A_ROW + 16;    // bytes per A row in shared memory: the 8
+                                    // rows of an ldmatrix hit 8 distinct
+                                    // 16-byte bank groups
+constexpr int A_STAGE = BM * A_LD;  // bytes per A stage
+constexpr int ROW_STEP = THREADS / 8;   // rows between a thread's A chunks
+constexpr int C_LD = BN + 8;        // uint32 per staged output row
+constexpr int PLANE = 32 * BN;      // bytes of one plane of a (32 k, BN n) B chunk
+constexpr int KMAX = 32768;         // k per s32 partial sum
+
+// The epilogues: what an output column needs (Col, read once per column),
+// and the requant of one sum into the output type.
+// One shift for the layer, int16 output: the int16 tier. A column carries
+// only its index, and bias[n] is read at the store, which keeps the
+// epilogue the compiler makes for this tier as small as it was before the
+// other schemes shared the body.
+struct EpiLayer {
+    using Out = int16_t;
+    struct Col {
+        int n;
+    };
+    const int32_t* bias;  // (N,)
+    int16_t* out;         // (M, N)
+    int shift, leaky;
+
+    __device__ __forceinline__ Col column(int n) const { return {n}; }
+    __device__ __forceinline__ Out requant(uint32_t acc, Col c) const {
+        return requant_q16(acc, __ldg(bias + c.n), shift, leaky);
+    }
+};
+
+// One shift per output channel, int8 or int16 output: the 8-bit-weight
+// tiers (a per-layer shift arrives broadcast).
+template <class Out_>
+struct EpiChannel {
+    using Out = Out_;
+    struct Col {
+        int32_t bias;
+        int shift;
+    };
+    const int32_t* bias;   // (N,)
+    const int32_t* shift;  // (N,)
+    Out* out;              // (M, N)
+    int leaky;
+
+    __device__ __forceinline__ Col column(int n) const {
+        return {__ldg(bias + n), __ldg(shift + n)};
+    }
+    __device__ __forceinline__ Out requant(uint32_t acc, Col c) const {
+        return (Out)yq::requant<Range<Out>::lo, Range<Out>::hi>(acc, c.bias, c.shift, leaky);
+    }
+};
+
+// The operand schemes. Each fixes the type of A, the weight planes, the s32
+// accumulator sets, the epilogue, a STAGES-deep ring and the blocks per SM
+// asked of the compiler (MIN_BLOCKS; ops/q16.py's TcScheme mirrors these,
+// and yq_tc_config reports them). Several blocks stay on an SM (Q16 and
+// W8A16: three, by the registers of 3 x 128 threads and 3 x 68 or 52 KB of
+// shared memory; S8, whose one accumulator set needs fewer registers: four,
+// with a 3-stage ring of 51 KB), so where a block has few K steps (a large
+// M and a small K, the entry conv) one block's loads and epilogue overlap
+// the others' products. On an H100,
+// chip_smoke.py found 64x128 and 128x128 tiles (two or one blocks per SM)
+// slower for S8 and W8A16, and so was keeping two wgmma groups in flight
+// (PERF.md).
+struct Q16 {
+    using A = int16_t;
+    using Epi = EpiLayer;
+    static constexpr int ID = 0, PLANES = 2, SETS = 3, STAGES = 4, MIN_BLOCKS = 3;
+};
+struct W8A16 {
+    using A = int16_t;
+    using Epi = EpiChannel<int16_t>;
+    static constexpr int ID = 1, PLANES = 1, SETS = 2, STAGES = 4, MIN_BLOCKS = 3;
+};
+struct S8 {
+    using A = int8_t;
+    using Epi = EpiChannel<int8_t>;
+    static constexpr int ID = 2, PLANES = 1, SETS = 1, STAGES = 3, MIN_BLOCKS = 4;
+};
+
+template <class S>
+struct Tile {
+    static constexpr int AP = sizeof(typename S::A);         // A byte planes (fragments)
+    static constexpr int BK = A_ROW / AP;                    // k per K step
+    static constexpr int KC = BK / 32;                       // 32-k chunks per K step
+    static constexpr int B_STAGE = KC * S::PLANES * PLANE;   // bytes per B stage
+    static constexpr int B_CHUNKS = B_STAGE / 16 / THREADS;  // 16-byte copies per thread
+    static constexpr int SMEM = S::STAGES * (A_STAGE + B_STAGE);
+    static_assert(BM * A_ROW / 16 == 4 * THREADS, "each thread copies 4 A chunks per stage");
+    static_assert(B_CHUNKS * 16 * THREADS == B_STAGE, "threads cover a B stage");
+    static_assert(BM * C_LD * 4 <= SMEM, "the staged output tile fits the ring");
+    static_assert(KMAX % BK == 0, "a split's K is whole K steps");
+};
+
+// Host side: whether rows of `bytes` bytes at base x take 16-byte copies.
+inline int vec16(const void* x, long long bytes) {
+    return (bytes % 16 == 0 && (uintptr_t)x % 16 == 0) ? 1 : 0;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
     return (uint32_t)__cvta_generic_to_shared(p);
@@ -158,32 +255,41 @@ __device__ __forceinline__ void fence_proxy_async() {
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// The three partial sums of one output, recombined modulo 2^32.
-__device__ __forceinline__ uint32_t combine(int32_t hh, int32_t mid, int32_t ll) {
-    return ((uint32_t)hh << 16) + ((uint32_t)mid << 8) + (uint32_t)ll;
+// The sets of one output, recombined modulo 2^32.
+template <class S, int N>
+__device__ __forceinline__ uint32_t combine(const int32_t (&acc)[S::SETS][N], int i) {
+    if constexpr (S::SETS == 3) {   // Q16: hh, mid, ll
+        return ((uint32_t)acc[0][i] << 16) + ((uint32_t)acc[1][i] << 8) + (uint32_t)acc[2][i];
+    } else if constexpr (S::SETS == 2) {   // W8A16: xh*w, xl*w
+        return ((uint32_t)acc[0][i] << 8) + (uint32_t)acc[1][i];
+    } else {
+        return (uint32_t)acc[0][i];
+    }
 }
 
-// Eight int16 A values (one 16-byte chunk) as a scalar gather: v[e] is
-// value(k + e), or 0 where it lies past K.
-template <class F>
-__device__ __forceinline__ int4 gather8(int k, int K, F value) {
-    int16_t v[8];
+// Sixteen bytes of A values (16 / sizeof(T) of them) as a scalar gather:
+// value(k + e), or 0 where k + e lies past K.
+template <class T, class F>
+__device__ __forceinline__ int4 gather16(int k, int K, F value) {
+    using U = std::make_unsigned_t<T>;
+    constexpr int BITS = 8 * (int)sizeof(T);
+    uint32_t q[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = (k + e < K) ? value(k + e) : (int16_t)0;
-    int4 q;
-    q.x = (int)(uint16_t)v[0] | ((int)v[1] << 16);
-    q.y = (int)(uint16_t)v[2] | ((int)v[3] << 16);
-    q.z = (int)(uint16_t)v[4] | ((int)v[5] << 16);
-    q.w = (int)(uint16_t)v[6] | ((int)v[7] << 16);
-    return q;
+    for (int e = 0; e < 128 / BITS; ++e) {
+        const T v = (k + e < K) ? value(k + e) : (T)0;
+        q[e * BITS / 32] |= (uint32_t)(U)v << (e * BITS % 32);
+    }
+    return make_int4((int)q[0], (int)q[1], (int)q[2], (int)q[3]);
 }
 
-// A loaders. Each thread fills 4 chunks of 8 int16 per stage: rows
-// r0 + ROW_STEP j (j < 4) of the tile, columns k0 + 8 c8 .. +7. vec:
-// 16-byte copies (the row length is a multiple of 8 and the base 16-byte
-// aligned); otherwise each value is loaded on its own (ConvTc gathers a C
-// below 8, the entry conv, by kernel rows instead).
+// A loaders. Each thread fills 4 chunks of 16 bytes per stage: rows
+// r0 + ROW_STEP j (j < 4) of the tile, bytes 16 c8 .. 16 c8 + 15 of the row,
+// that is k0 + V c8 .. + V - 1 with V = 16 / sizeof(T) values per chunk. vec: 16-byte copies (the row length in bytes is a multiple of 16
+// and the base 16-byte aligned); otherwise each value is loaded on its own
+// (ConvTc gathers a C small enough that one K step holds all of 9C, the
+// entry conv, by kernel rows instead).
 struct MmTc {
+    using T = int16_t;
     struct Params {
         const int16_t* x;  // (M, K) row-major
         int K;
@@ -202,30 +308,35 @@ struct MmTc {
         }
     }
 
-    __device__ __forceinline__ void load(int16_t* sA, int k0) const {
+    __device__ __forceinline__ void load(uint8_t* sA, int k0) const {
         const int k = k0 + 8 * c8;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-            int16_t* dst = sA + (r0 + ROW_STEP * j) * A_LD + 8 * c8;
+            int16_t* dst = reinterpret_cast<int16_t*>(sA + (r0 + ROW_STEP * j) * A_LD) + 8 * c8;
             const bool ok = m[j] >= 0 && k < K;
             const int16_t* row = x + (long long)(ok ? m[j] : 0) * K;
             if (vec) {
                 cp_async16(dst, ok ? row + k : x, ok);
             } else {
                 *reinterpret_cast<int4*>(dst) =
-                    ok ? gather8(k, K, [&](int kk) { return row[kk]; }) : make_int4(0, 0, 0, 0);
+                    ok ? gather16<int16_t>(k, K, [&](int kk) { return row[kk]; })
+                       : make_int4(0, 0, 0, 0);
             }
         }
     }
 };
 
+template <class T_>
 struct ConvTc {
+    using T = T_;
+    static constexpr int V = 16 / (int)sizeof(T);        // values per chunk
+    static constexpr int BK = A_ROW / (int)sizeof(T);    // values per row and K step
     struct Params {
-        const int16_t* x;  // (B, H, W, C) row-major
+        const T* x;  // (B, H, W, C) row-major
         int H, W, C;
         int vec;
     };
-    const int16_t* x;
+    const T* x;
     int H, W, C, K, vec, r0, c8;
     int m[4], y[4], xw[4];  // each row's pixel and its (y, x); m = -1 past M
 
@@ -243,7 +354,7 @@ struct ConvTc {
     }
 
     // input value of row j at im2col column k, 0 in the SAME padding
-    __device__ __forceinline__ int16_t at(int j, int k) const {
+    __device__ __forceinline__ T at(int j, int k) const {
         const int tap = k / C, c = k - tap * C;
         const int dy = tap / 3 - 1, dx = tap % 3 - 1;
         const int iy = y[j] + dy, ix = xw[j] + dx;
@@ -251,10 +362,14 @@ struct ConvTc {
         return x[(long long)(m[j] + dy * W + dx) * C + c];
     }
 
-    __device__ __forceinline__ void load(int16_t* sA, int k0) const {
-        const int k = k0 + 8 * c8;
+    __device__ __forceinline__ T* row(uint8_t* sA, int j) const {
+        return reinterpret_cast<T*>(sA + (r0 + ROW_STEP * j) * A_LD);
+    }
+
+    __device__ __forceinline__ void load(uint8_t* sA, int k0) const {
+        const int k = k0 + V * c8;
         if (vec) {
-            // C % 8 == 0: the chunk's 8 values share one tap
+            // C % V == 0: the chunk's V values share one tap
             const int tap = k < K ? k / C : 0;
             const int c = k - tap * C;
             const int dy = tap / 3 - 1, dx = tap % 3 - 1;
@@ -262,27 +377,27 @@ struct ConvTc {
             for (int j = 0; j < 4; ++j) {
                 const int iy = y[j] + dy, ix = xw[j] + dx;
                 const bool ok = m[j] >= 0 && k < K && iy >= 0 && iy < H && ix >= 0 && ix < W;
-                const int16_t* src = ok ? x + (long long)(m[j] + dy * W + dx) * C + c : x;
-                cp_async16(sA + (r0 + ROW_STEP * j) * A_LD + 8 * c8, src, ok);
+                const T* src = ok ? x + (long long)(m[j] + dy * W + dx) * C + c : x;
+                cp_async16(row(sA, j) + V * c8, src, ok);
             }
             return;
         }
-        if (C < 8) {
-            // K = 9C < BK: one K step. Row j's window is three runs of 3C
-            // values, one per kernel row dy (k = 3C dy + C dx + c, the
-            // pixels (y+dy-1, x-1 .. x+1) in order), then zeros up to BK.
-            // The thread with c8 = dy < 3 writes run dy of its 4 rows, the
-            // one with c8 = 3 the zeros; C = 3 (the entry conv) costs 9
-            // loads per run, not a division per value.
+        if (9 * C <= BK) {
+            // one K step: row j's window is three runs of 3C values, one per
+            // kernel row dy (k = 3C dy + C dx + c, the pixels (y+dy-1, x-1 ..
+            // x+1) in order), then zeros up to BK. The thread with c8 = dy < 3
+            // writes run dy of its 4 rows, the one with c8 = 3 the zeros;
+            // C = 3 (the entry conv) costs 9 loads per run, not a division
+            // per value.
             if (c8 > 3) return;
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
-                int16_t* row = sA + (r0 + ROW_STEP * j) * A_LD;
+                T* dst = row(sA, j);
                 if (c8 == 3) {
                     int kk = K;
-                    for (; kk & 7; ++kk) row[kk] = 0;
-                    for (; kk < BK; kk += 8)
-                        *reinterpret_cast<int4*>(row + kk) = make_int4(0, 0, 0, 0);
+                    for (; kk % V; ++kk) dst[kk] = 0;
+                    for (; kk < BK; kk += V)
+                        *reinterpret_cast<int4*>(dst + kk) = make_int4(0, 0, 0, 0);
                     continue;
                 }
                 const int iy = y[j] + c8 - 1;
@@ -290,39 +405,50 @@ struct ConvTc {
                 for (int dx = 0; dx < 3; ++dx) {
                     const int ix = xw[j] + dx - 1;
                     const bool ok = row_ok && ix >= 0 && ix < W;
-                    const int16_t* src = x + (long long)(m[j] + (c8 - 1) * W + dx - 1) * C;
-                    int16_t* dst = row + (3 * c8 + dx) * C;
-                    for (int c = 0; c < C; ++c) dst[c] = ok ? src[c] : (int16_t)0;
+                    const T* src = x + (long long)(m[j] + (c8 - 1) * W + dx - 1) * C;
+                    T* run = dst + (3 * c8 + dx) * C;
+                    for (int c = 0; c < C; ++c) run[c] = ok ? src[c] : (T)0;
                 }
             }
             return;
         }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-            *reinterpret_cast<int4*>(sA + (r0 + ROW_STEP * j) * A_LD + 8 * c8) =
-                m[j] >= 0 ? gather8(k, K, [&](int kk) { return at(j, kk); })
+            *reinterpret_cast<int4*>(row(sA, j) + V * c8) =
+                m[j] >= 0 ? gather16<T>(k, K, [&](int kk) { return at(j, kk); })
                           : make_int4(0, 0, 0, 0);
         }
     }
 };
 
 // Requantize the eight sums of out[m, n .. n+7] (columns past N dropped)
-// and store them, as one 16-byte store where the row allows.
-__device__ __forceinline__ void store8(int16_t* out, const int32_t* __restrict__ bias,
-                                       long long m, int n, int N, const uint32_t acc[8],
-                                       int shift, int leaky) {
-    int16_t v[8];
+// and store them, as one 16-byte (int16) or 8-byte (int8) store where the
+// row allows.
+template <class Epi>
+__device__ __forceinline__ void store8(const Epi& ep, long long m, int n, int N,
+                                       const uint32_t acc[8], const typename Epi::Col col[8]) {
+    using Out = typename Epi::Out;
+    using U = std::make_unsigned_t<Out>;
+    Out v[8];
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
-        v[e] = n + e < N ? requant_q16(acc[e], __ldg(bias + n + e), shift, leaky) : (int16_t)0;
-    int16_t* dst = out + m * N + n;
+    for (int e = 0; e < 8; ++e) v[e] = n + e < N ? ep.requant(acc[e], col[e]) : (Out)0;
+    Out* dst = ep.out + m * N + n;
     if ((N & 7) == 0) {
-        int4 q;
-        q.x = (int)(uint16_t)v[0] | ((int)v[1] << 16);
-        q.y = (int)(uint16_t)v[2] | ((int)v[3] << 16);
-        q.z = (int)(uint16_t)v[4] | ((int)v[5] << 16);
-        q.w = (int)(uint16_t)v[6] | ((int)v[7] << 16);
-        *reinterpret_cast<int4*>(dst) = q;
+        if constexpr (sizeof(Out) == 2) {
+            uint4 q;
+            q.x = (uint32_t)(U)v[0] | ((uint32_t)(U)v[1] << 16);
+            q.y = (uint32_t)(U)v[2] | ((uint32_t)(U)v[3] << 16);
+            q.z = (uint32_t)(U)v[4] | ((uint32_t)(U)v[5] << 16);
+            q.w = (uint32_t)(U)v[6] | ((uint32_t)(U)v[7] << 16);
+            *reinterpret_cast<uint4*>(dst) = q;
+        } else {
+            uint2 q;
+            q.x = (uint32_t)(U)v[0] | ((uint32_t)(U)v[1] << 8) | ((uint32_t)(U)v[2] << 16) |
+                  ((uint32_t)(U)v[3] << 24);
+            q.y = (uint32_t)(U)v[4] | ((uint32_t)(U)v[5] << 8) | ((uint32_t)(U)v[6] << 16) |
+                  ((uint32_t)(U)v[7] << 24);
+            *reinterpret_cast<uint2*>(dst) = q;
+        }
     } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e)
@@ -330,20 +456,23 @@ __device__ __forceinline__ void store8(int16_t* out, const int32_t* __restrict__
     }
 }
 
-// wp: the packed planes, one 2 * PLANE-byte block (high plane, then low)
-// per BN columns and 32 k, indexed (n / BN) * (Kp / 32) + k / 32, with K
-// padded to whole BK steps (Kp) and N to whole BN tiles, with zeros.
+// wp: the packed planes, per BN columns and 32 k one block of PLANES planes
+// of PLANE bytes, indexed (n / BN) * (Kp / 32) + k / 32, with K padded to
+// whole K steps (Kp) and N to whole BN tiles, with zeros.
 // ws (used when gridDim.z > 1): M*N uint32 sums, then one counter per
 // output tile, all zero at launch.
-template <class Loader>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+template <class S, class Loader>
+__global__ void __launch_bounds__(THREADS, S::MIN_BLOCKS)
 igemm_tc_kernel(const typename Loader::Params p, const uint8_t* __restrict__ wp,
-                const int32_t* __restrict__ bias, int16_t* __restrict__ out,
-                uint32_t* __restrict__ ws, long long M, int N, int K, int shift, int leaky,
+                const typename S::Epi e, uint32_t* __restrict__ ws, long long M, int N, int K,
                 int ktiles_per_split) {
+    using T = Tile<S>;
+    constexpr int STAGES = S::STAGES, BK = T::BK, KC = T::KC;
+    static_assert(std::is_same<typename Loader::T, typename S::A>::value,
+                  "the loader gives the scheme's A type");
     extern __shared__ __align__(128) uint8_t smem[];
-    int16_t* sA = reinterpret_cast<int16_t*>(smem);
-    uint8_t* sB = smem + STAGES * A_STAGE * 2;
+    uint8_t* sA = smem;
+    uint8_t* sB = smem + STAGES * A_STAGE;
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const long long m0 = (long long)blockIdx.x * BM;
@@ -352,25 +481,27 @@ igemm_tc_kernel(const typename Loader::Params p, const uint8_t* __restrict__ wp,
     const int kt0 = blockIdx.z * ktiles_per_split;
     const int nk = min(ktiles, kt0 + ktiles_per_split) - kt0;
     const Loader ld(p, m0, M, tid);
-    // this column tile's planes; a stage (BK k) is 2 * BK / 32 planes,
-    // contiguous in wp and in shared memory
-    const uint8_t* wcol = wp + (long long)blockIdx.y * (ktiles * BK / 32) * 2 * PLANE;
+    // this column tile's planes; a stage (BK k) is B_STAGE bytes, contiguous
+    // in wp and in shared memory
+    const uint8_t* wcol = wp + (long long)blockIdx.y * ktiles * T::B_STAGE;
 
     auto load_stage = [&](int s, int kt) {
         ld.load(sA + s * A_STAGE, kt * BK);
-        const uint8_t* src = wcol + (long long)kt * B_STAGE;
+        const uint8_t* src = wcol + (long long)kt * T::B_STAGE;
 #pragma unroll
-        for (int j = 0; j < B_CHUNKS; ++j) {
+        for (int j = 0; j < T::B_CHUNKS; ++j) {
             const int c = tid + j * THREADS;   // 16-byte chunk of the stage
-            cp_async16(sB + s * B_STAGE + c * 16, src + c * 16, true);
+            cp_async16(sB + s * T::B_STAGE + c * 16, src + c * 16, true);
         }
     };
 
-    // warp w owns output rows 16w .. 16w+15: accumulator 4j + r of a set
-    // is row 16w + g + 8 (r >> 1), column 8j + 2t + (r & 1)
-    int32_t hh[32], md[32], ll[32];
+    // warp w owns output rows 16w .. 16w+15: accumulator 4j + r of a set is
+    // row 16w + g + 8 (r >> 1), column 8j + 2t + (r & 1)
+    int32_t acc[S::SETS][32];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) hh[i] = md[i] = ll[i] = 0;
+    for (int s = 0; s < S::SETS; ++s)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[s][i] = 0;
 
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
@@ -379,9 +510,9 @@ igemm_tc_kernel(const typename Loader::Params p, const uint8_t* __restrict__ wp,
     }
 
     // ldmatrix x4: lanes 8q .. 8q+7 address matrix q's rows; matrices 0-3
-    // are (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15),
-    // (rows 8-15, k 8-15) of a 16x16 int16 block
-    const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8, lcol = (lane >> 4) * 8;
+    // are (rows 0-7, bytes 0-15), (rows 8-15, bytes 0-15), (rows 0-7, bytes
+    // 16-31), (rows 8-15, bytes 16-31) of a 16-row x 32-byte block
+    const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8, lcol = (lane >> 4) * 16;
 
     for (int t = 0; t < nk; ++t) {
         cp_async_wait<STAGES - 2>();
@@ -392,47 +523,77 @@ igemm_tc_kernel(const typename Loader::Params p, const uint8_t* __restrict__ wp,
         if (t + STAGES - 1 < nk) load_stage((t + STAGES - 1) % STAGES, kt0 + t + STAGES - 1);
         cp_async_commit();
 
-        const int16_t* a = sA + (t % STAGES) * A_STAGE + (16 * warp + lrow) * A_LD + lcol;
-        const uint8_t* b = sB + (t % STAGES) * B_STAGE;
+        const uint8_t* a = sA + (t % STAGES) * A_STAGE + (16 * warp + lrow) * A_LD + lcol;
+        const uint8_t* b = sB + (t % STAGES) * T::B_STAGE;
+        // the B planes of chunk kc
+        auto bplane = [&](int kc, int plane) {
+            return b_desc(b + (kc * S::PLANES + plane) * PLANE);
+        };
         // rows g and g+8, fragment k 4t..4t+3 and 16+4t..16+4t+3, of each
-        // 32-k chunk: the high and the low bytes
-        uint32_t ah[BK / 32][4], al[BK / 32][4];
+        // 32-k chunk: for int16 A the high bytes in fa[0] and the low bytes
+        // in fa[1]
+        uint32_t fa[T::AP][KC][4];
 #pragma unroll
-        for (int kc = 0; kc < BK / 32; ++kc) {
-            uint32_t r[4], q[4];
-            ldmatrix_x4(r, a + kc * 32);
-            ldmatrix_x4(q, a + kc * 32 + 16);
-            ah[kc][0] = __byte_perm(r[0], r[2], 0x7531);
-            ah[kc][1] = __byte_perm(r[1], r[3], 0x7531);
-            ah[kc][2] = __byte_perm(q[0], q[2], 0x7531);
-            ah[kc][3] = __byte_perm(q[1], q[3], 0x7531);
-            al[kc][0] = __byte_perm(r[0], r[2], 0x6420);
-            al[kc][1] = __byte_perm(r[1], r[3], 0x6420);
-            al[kc][2] = __byte_perm(q[0], q[2], 0x6420);
-            al[kc][3] = __byte_perm(q[1], q[3], 0x6420);
+        for (int kc = 0; kc < KC; ++kc) {
+            if constexpr (T::AP == 2) {
+                // a 32-k chunk of int16 is 64 bytes: split its bytes
+                uint32_t r[4], q[4];
+                ldmatrix_x4(r, a + kc * 64);
+                ldmatrix_x4(q, a + kc * 64 + 32);
+                fa[0][kc][0] = __byte_perm(r[0], r[2], 0x7531);
+                fa[0][kc][1] = __byte_perm(r[1], r[3], 0x7531);
+                fa[0][kc][2] = __byte_perm(q[0], q[2], 0x7531);
+                fa[0][kc][3] = __byte_perm(q[1], q[3], 0x7531);
+                fa[1][kc][0] = __byte_perm(r[0], r[2], 0x6420);
+                fa[1][kc][1] = __byte_perm(r[1], r[3], 0x6420);
+                fa[1][kc][2] = __byte_perm(q[0], q[2], 0x6420);
+                fa[1][kc][3] = __byte_perm(q[1], q[3], 0x6420);
+            } else {
+                // a 32-k chunk of int8 (32 bytes) is the fragment as it is
+                ldmatrix_x4(fa[0][kc], a + kc * 32);
+            }
         }
         wgmma_fence();
 #pragma unroll
-        for (int kc = 0; kc < BK / 32; ++kc) {
-            const uint64_t bh = b_desc(b + kc * 2 * PLANE), bl = b_desc(b + kc * 2 * PLANE + PLANE);
-            wgmma_ss(hh, ah[kc], bh);
-            wgmma_su(md, ah[kc], bl);
-            wgmma_us(md, al[kc], bh);
-            wgmma_uu(ll, al[kc], bl);
+        for (int kc = 0; kc < KC; ++kc) {
+            if constexpr (S::SETS == 3) {   // Q16: hh, mid, ll
+                const uint64_t bh = bplane(kc, 0), bl = bplane(kc, 1);
+                wgmma_ss(acc[0], fa[0][kc], bh);
+                wgmma_su(acc[1], fa[0][kc], bl);
+                wgmma_us(acc[1], fa[1][kc], bh);
+                wgmma_uu(acc[2], fa[1][kc], bl);
+            } else if constexpr (S::SETS == 2) {   // W8A16: xh*w, xl*w
+                const uint64_t bw = bplane(kc, 0);
+                wgmma_ss(acc[0], fa[0][kc], bw);
+                wgmma_us(acc[1], fa[1][kc], bw);
+            } else {   // S8
+                wgmma_ss(acc[0], fa[0][kc], bplane(kc, 0));
+            }
         }
         wgmma_commit();
         wgmma_wait_all();
 #pragma unroll
-        for (int kc = 0; kc < BK / 32; ++kc)
+        for (int p = 0; p < T::AP; ++p)
 #pragma unroll
-            for (int i = 0; i < 4; ++i) fence_operand(ah[kc][i]), fence_operand(al[kc][i]);
+            for (int kc = 0; kc < KC; ++kc)
 #pragma unroll
-        for (int i = 0; i < 32; ++i) fence_operand(hh[i]), fence_operand(md[i]), fence_operand(ll[i]);
+                for (int i = 0; i < 4; ++i) fence_operand(fa[p][kc][i]);
+#pragma unroll
+        for (int s = 0; s < S::SETS; ++s)
+#pragma unroll
+            for (int i = 0; i < 32; ++i) fence_operand(acc[s][i]);
     }
     cp_async_wait<0>();
     __syncthreads();
 
+    // each thread's 8 output columns are the same in every pass below: read
+    // their bias and shift once
     const int g = lane >> 2, t4 = lane & 3;
+    const int c = (tid % (BN / 8)) * 8;
+    typename S::Epi::Col col[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+        col[j] = n0 + c + j < N ? e.column(n0 + c + j) : typename S::Epi::Col{};
     if (gridDim.z == 1) {
         uint32_t* sC = reinterpret_cast<uint32_t*>(smem);
 #pragma unroll
@@ -441,19 +602,18 @@ igemm_tc_kernel(const typename Loader::Params p, const uint8_t* __restrict__ wp,
             for (int h = 0; h < 2; ++h) {
                 const int row = 16 * warp + g + 8 * h, col = 8 * j + 2 * t4, i = 4 * j + 2 * h;
                 *reinterpret_cast<uint2*>(sC + row * C_LD + col) =
-                    make_uint2(combine(hh[i], md[i], ll[i]),
-                               combine(hh[i + 1], md[i + 1], ll[i + 1]));
+                    make_uint2(combine<S>(acc, i), combine<S>(acc, i + 1));
             }
         __syncthreads();
 #pragma unroll
         for (int j = 0; j < BM * BN / 8 / THREADS; ++j) {
-            const int i = tid + j * THREADS, r = i / (BN / 8), c = (i % (BN / 8)) * 8;
+            const int r = (tid + j * THREADS) / (BN / 8);
             const long long m = m0 + r;
             if (m >= M || n0 + c >= N) continue;
             const uint4 lo = *reinterpret_cast<const uint4*>(sC + r * C_LD + c);
             const uint4 hi = *reinterpret_cast<const uint4*>(sC + r * C_LD + c + 4);
-            const uint32_t acc[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-            store8(out, bias, m, n0 + c, N, acc, shift, leaky);
+            const uint32_t sums[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+            store8(e, m, n0 + c, N, sums, col);
         }
         return;
     }
@@ -463,7 +623,7 @@ igemm_tc_kernel(const typename Loader::Params p, const uint8_t* __restrict__ wp,
     for (int i = 0; i < 32; ++i) {
         const long long m = m0 + 16 * warp + g + 8 * ((i & 3) >> 1);
         const int n = n0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
-        if (m < M && n < N) atomicAdd(ws + m * N + n, combine(hh[i], md[i], ll[i]));
+        if (m < M && n < N) atomicAdd(ws + m * N + n, combine<S>(acc, i));
     }
     __threadfence();
     __syncthreads();
@@ -478,14 +638,14 @@ igemm_tc_kernel(const typename Loader::Params p, const uint8_t* __restrict__ wp,
     // the last block of the tile: every split's sums are in the workspace
 #pragma unroll
     for (int j = 0; j < BM * BN / 8 / THREADS; ++j) {
-        const int i = tid + j * THREADS, r = i / (BN / 8), c = (i % (BN / 8)) * 8;
+        const int r = (tid + j * THREADS) / (BN / 8);
         const long long m = m0 + r;
         const int n = n0 + c;
         if (m >= M || n >= N) continue;
-        uint32_t acc[8];
+        uint32_t sums[8];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[e] = n + e < N ? __ldcg(ws + m * N + n + e) : 0u;
-        store8(out, bias, m, n, N, acc, shift, leaky);
+        for (int i = 0; i < 8; ++i) sums[i] = n + i < N ? __ldcg(ws + m * N + n + i) : 0u;
+        store8(e, m, n, N, sums, col);
     }
 }
 
@@ -494,31 +654,46 @@ igemm_tc_kernel(const typename Loader::Params p, const uint8_t* __restrict__ wp,
 // tc_split), at most KMAX / BK. With more than one split, ws holds M*N +
 // (output tiles) uint32 and is zeroed here first; it may be null
 // otherwise. Returns cudaGetLastError() after the launch.
-template <class Loader>
+template <class S, class Loader>
 inline cudaError_t launch_igemm_tc(const typename Loader::Params& p, const void* wp,
-                                   const void* bias, void* out, void* ws, long long M, int N,
-                                   int K, int shift, int leaky, int ktiles_per_split,
-                                   void* stream) {
+                                   const typename S::Epi& e, void* ws, long long M, int N,
+                                   int K, int ktiles_per_split, void* stream) {
+    using T = Tile<S>;
     static const cudaError_t attr = cudaFuncSetAttribute(
-        igemm_tc_kernel<Loader>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+        igemm_tc_kernel<S, Loader>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
     if (attr != cudaSuccess) return attr;
     if (M <= 0 || N <= 0) return cudaGetLastError();
-    if (ktiles_per_split < 1 || ktiles_per_split > KMAX / BK) return cudaErrorInvalidValue;
-    const int ktiles = (K + BK - 1) / BK;
+    if (ktiles_per_split < 1 || ktiles_per_split > KMAX / T::BK) return cudaErrorInvalidValue;
+    const int ktiles = (K + T::BK - 1) / T::BK;
     const int splits = (ktiles + ktiles_per_split - 1) / ktiles_per_split;
     if (splits > 1 && ws == nullptr) return cudaErrorInvalidValue;
-    const int ntiles = (N + BN - 1) / BN;
-    const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)ntiles, (unsigned)splits);
+    const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN),
+                    (unsigned)splits);
     if (splits > 1) {
         const size_t words = (size_t)M * N + (size_t)grid.x * grid.y;
         const cudaError_t err =
             cudaMemsetAsync(ws, 0, words * sizeof(uint32_t), (cudaStream_t)stream);
         if (err != cudaSuccess) return err;
     }
-    igemm_tc_kernel<Loader><<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
-        p, (const uint8_t*)wp, (const int32_t*)bias, (int16_t*)out, (uint32_t*)ws, M, N, K,
-        shift, leaky, ktiles_per_split);
+    igemm_tc_kernel<S, Loader><<<grid, THREADS, T::SMEM, (cudaStream_t)stream>>>(
+        p, (const uint8_t*)wp, e, (uint32_t*)ws, M, N, K, ktiles_per_split);
     return cudaGetLastError();
+}
+
+// Scheme s's tile, as the wrappers must know it: what = 0 BM, 1 BN, 2 BK,
+// 3 dynamic shared memory bytes per block, 4 blocks per SM asked of the
+// compiler, 5 planes, 6 KMAX; -1 for anything else.
+template <class S>
+inline int config(int what) {
+    using T = Tile<S>;
+    const int v[] = {BM, BN, T::BK, T::SMEM, S::MIN_BLOCKS, S::PLANES, KMAX};
+    return what >= 0 && what < 7 ? v[what] : -1;
+}
+inline int config(int scheme, int what) {
+    return scheme == Q16::ID     ? config<Q16>(what)
+           : scheme == W8A16::ID ? config<W8A16>(what)
+           : scheme == S8::ID    ? config<S8>(what)
+                                 : -1;
 }
 
 }  // namespace tc

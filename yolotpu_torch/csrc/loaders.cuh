@@ -2,15 +2,14 @@
 //
 //   MmLoader<T>    A is the (M, K) activation matrix itself (1x1 convs)
 //   ConvLoader<T>  A is the implicit im2col of a SAME 3x3/s1 window over NHWC
-//                  activations: M = B*H*W output pixels, K = 9*C taps x
-//                  channels, tap-major (the HWIO weight order); the matrix
-//                  is never stored, each value is gathered while the tile
-//                  loads, with SAME padding read as zeros
-//   ConvLoader<T, true>  the same gather with the output pixels visited
-//                  window-major, for a conv followed by a 2x2/s2 pool (H and
-//                  W even): row m = 4*((b*H/2 + ho)*W/2 + wo) + q is pixel
-//                  (2*ho + q/2, 2*wo + q%2), so rows 4i..4i+3 are the four
-//                  members of pool window i
+//                  activations, K = 9*C taps x channels, tap-major (the HWIO
+//                  weight order), with the output pixels visited window-major
+//                  for a conv followed by a 2x2/s2 pool (H and W even): row
+//                  m = 4*((b*H/2 + ho)*W/2 + wo) + q is pixel (2*ho + q/2,
+//                  2*wo + q%2), so rows 4i..4i+3 are the four members of pool
+//                  window i; the matrix is never stored, each value is
+//                  gathered while the tile loads, with SAME padding read as
+//                  zeros (the 3x3 convs without a pool run on igemm_tc.cuh)
 //
 // Eight consecutive values are one vector load (16 bytes of int16, 8 bytes
 // of int8) when the row length (K, or C for the conv) is a multiple of 8 and
@@ -106,7 +105,7 @@ struct ConvParams {
     int vec;  // vec_ok<T>(x, C)
 };
 
-template <class T, bool WINDOWS = false>
+template <class T>
 struct ConvLoader {
     using Params = ConvParams<T>;
     const T* img;  // this row's image
@@ -117,23 +116,15 @@ struct ConvLoader {
         : H(p.H), W(p.W), C(p.C), K(9 * p.C), vec(p.vec), ok(m < M) {
         const long long hw = (long long)p.H * p.W;
         const long long mm = m < M ? m : 0;
-        if constexpr (WINDOWS) {
-            const int wo = p.W / 2;
-            const long long win = mm >> 2;  // the pool window of row mm
-            const int q = (int)(mm & 3);    // its member, 2 * dy + dx
-            const long long b = win / (hw / 4);
-            const int r = (int)(win - b * (hw / 4));
-            const int ho = r / wo;
-            y = 2 * ho + (q >> 1);
-            xw = 2 * (r - ho * wo) + (q & 1);
-            img = p.x + b * hw * p.C;
-        } else {
-            const long long b = mm / hw;
-            const int r = (int)(mm - b * hw);
-            y = r / p.W;
-            xw = r - y * p.W;
-            img = p.x + b * hw * p.C;
-        }
+        const int wo = p.W / 2;
+        const long long win = mm >> 2;  // the pool window of row mm
+        const int q = (int)(mm & 3);    // its member, 2 * dy + dx
+        const long long b = win / (hw / 4);
+        const int r = (int)(win - b * (hw / 4));
+        const int ho = r / wo;
+        y = 2 * ho + (q >> 1);
+        xw = 2 * (r - ho * wo) + (q & 1);
+        img = p.x + b * hw * p.C;
     }
 
     __device__ __forceinline__ int32_t at(int k) const {

@@ -19,7 +19,6 @@
 // registers, and writes each output once as 16-byte stores; for the 13x13
 // layers at b=1, whose few output tiles cannot fill 132 SMs, it splits K.
 #include "igemm_tc.cuh"
-#include "loaders.cuh"
 
 // x (M, K) int16, wp the packed weight planes (ops/q16.py: pack_q16),
 // bias (N,) int32 -> out (M, N) int16, all contiguous on the current
@@ -28,10 +27,12 @@
 extern "C" int yq16_mm(const void* x, const void* wp, const void* bias, void* out, void* ws,
                        int M, int K, int N, int shift, int leaky, int ktiles_per_split,
                        void* stream) {
-    const yq::tc::MmTc::Params p{(const int16_t*)x, K, yq::vec_ok<int16_t>(x, K)};
-    return (int)yq::tc::launch_igemm_tc<yq::tc::MmTc>(p, wp, bias, out, ws, M, N, K, shift,
-                                                      leaky, ktiles_per_split, stream);
+    const yq::tc::MmTc::Params p{(const int16_t*)x, K, yq::tc::vec16(x, 2LL * K)};
+    const yq::tc::EpiLayer e{(const int32_t*)bias, (int16_t*)out, shift, leaky};
+    return (int)yq::tc::launch_igemm_tc<yq::tc::Q16, yq::tc::MmTc>(p, wp, e, ws, M, N, K,
+                                                                   ktiles_per_split, stream);
 }
 
-// The dynamic shared memory of one block of the tensor-core body, in bytes.
-extern "C" int yq16_tc_smem_bytes() { return yq::tc::SMEM; }
+// The tile of the tensor-core body's operand scheme `scheme` (0 Q16, 1
+// W8A16, 2 S8): see yq::tc::config for `what`.
+extern "C" int yq_tc_config(int scheme, int what) { return yq::tc::config(scheme, what); }

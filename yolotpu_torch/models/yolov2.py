@@ -182,8 +182,9 @@ class YoloV2Q(nn.Module):
     The int8 and w8a16 kernels take one shift per output channel; a
     per-layer shift is broadcast to that vector here, once.
 
-    On the card the int16 tier's mm and conv3 weights are also packed for
-    the tensor cores here, once (buffers ``p{idx}``, ``q16.pack_q16``).
+    On the card the weights of the convs that run on the tensor cores (the
+    int16 tier's mm and conv3, the other tiers' conv3) are also packed here,
+    once (buffers ``p{idx}``, by ``packers``).
 
     ``overrides`` ({conv idx: TPU engine kind}, the ``YOLO2_Q16_PLAN``
     lever) is taken by the int16 tier only, as ``yolotpu`` plans only its
@@ -196,6 +197,11 @@ class YoloV2Q(nn.Module):
                "w8a16": (q8.mm_w8a16, q8.conv3x3_w8a16)}
     # precision -> the conv fused with the 2x2/s2 pool after it
     pooled = {"int16": q16.conv3x3_pool_q16}
+    # precision -> engine kind -> what packs that kind's weights for the
+    # tensor cores, on the card (the kernels' planes= operand)
+    packers = {"int16": {"mm": q16.pack_q16, "conv3": q16.pack_q16},
+               "int8": {"conv3": q8.pack_conv3x3_s8},
+               "w8a16": {"conv3": q8.pack_conv3x3_w8a16}}
 
     def __init__(self, spec: NetworkSpec, qtables: QTables, params: dict,
                  device: torch.device | str = "cuda", precision: str = "int16",
@@ -237,9 +243,9 @@ class YoloV2Q(nn.Module):
             w = q16.prep_weights(pw["w"].to(device))
             self.register_buffer(f"w{l.idx}", w)
             self.register_buffer(f"b{l.idx}", b)
-            if (torch.device(device).type != "cpu" and precision == "int16"
-                    and self.route[l.idx][0] in ("mm", "conv3")):
-                self.register_buffer(f"p{l.idx}", q16.pack_q16(w))
+            pack = self.packers[precision].get(self.route[l.idx][0])
+            if torch.device(device).type != "cpu" and pack is not None:
+                self.register_buffer(f"p{l.idx}", pack(w))
         self._head_q = self.plan.output_q + (8 if precision == "int8" else 0)
 
     def _conv(self, l: ConvSpec, x: torch.Tensor) -> torch.Tensor:

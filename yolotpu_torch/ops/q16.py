@@ -31,7 +31,10 @@ recombined modulo 2^32. On the card they take the weights also as packed
 planes (``pack_q16``, once at model build): the high (s8) and low (u8)
 bytes, padded to the kernel's tile in K and N and laid out as its B
 fragments. ``mm_split_sum`` computes the sums from those planes the way the
-kernel does, so the CPU tests hold the layout. conv3x3_pool_q16 reads HWIO
+kernel does, so the CPU tests hold the layout. The tensor-core body serves
+``ops.q8``'s 3x3 convs too, in other operand schemes: ``TcScheme`` mirrors
+each scheme's tile, and ``arrange_planes``, ``tc_sum``, ``tc_split`` and
+``_tc_launch`` take the scheme. conv3x3_pool_q16 reads HWIO
 int16 as a (taps*C, N) row-major matrix on the CUDA cores. The bias is the
 (N,) int32 pre-shifted bias.
 """
@@ -39,6 +42,7 @@ int16 as a (taps*C, N) row-major matrix on the CUDA cores. The bias is the
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -72,11 +76,63 @@ def prep_weights(w_hwio: torch.Tensor) -> torch.Tensor:
     return w.contiguous()
 
 
-# The tensor-core body's tile (csrc/igemm_tc.cuh: BM, BN, BK, KMAX,
-# MIN_BLOCKS): the planes are padded to TC_BK in K and TC_BN in N, one s32
-# partial sum covers at most TC_KMAX values of k, and TC_RESIDENT blocks
-# stay resident on an SM.
-TC_BM, TC_BN, TC_BK, TC_KMAX, TC_RESIDENT = 64, 64, 64, 32768, 3
+@dataclass(frozen=True, eq=False)   # one object per scheme: hashed by identity
+class TcScheme:
+    """One operand scheme of the tensor-core body (``csrc/igemm_tc.cuh``),
+    as its C struct fixes it: ``id`` (its number in ``yq_tc_config``), the
+    bytes of one A value, the weight planes, the blocks resident on an SM
+    (every scheme's block is a TC_BM x TC_BN output tile); then what tc_split
+    models: the blocks per SM whose K steps a wave overlaps (``wave``, at
+    most ``resident``) and the cost of splitting K (in K steps), both set
+    from chip_smoke.py's split sweep; and the function that packs its
+    planes. A K step is 128 bytes of A per row, ``bk`` values of k; the
+    planes hold their k in fragment order (FRAG_K) where A is int16 and in
+    natural order where it is int8."""
+    name: str
+    id: int
+    a_bytes: int
+    planes: int
+    resident: int
+    wave: int
+    split_cost: int
+    pack: str
+
+    @property
+    def bk(self) -> int:
+        return 128 // self.a_bytes
+
+    @property
+    def frag(self) -> bool:
+        return self.a_bytes == 2
+
+    def planes_shape(self, k: int, n: int) -> tuple[int, ...]:
+        """The packed planes of a (K, N) weight: (Np/64 column tiles, Kp/32
+        chunks, planes, 8 column groups g, 2 k halves h, 8 columns r, 16 k
+        bytes e), K padded to ``bk`` and N to TC_BN."""
+        return (_round_up(n, TC_BN) // 64, _round_up(k, self.bk) // 32,
+                self.planes, 8, 2, 8, 16)
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+# What splitting K adds to a block's time, in K steps: the workspace's
+# memset, the atomic adds and the last block's pass over its tile. Set from
+# chip_smoke.py's split sweep (every split of K at every yolov2 416 shape
+# at batch 1 and 8, NVIDIA H100 80GB HBM3): any value from 15 to 26 picks,
+# at each shape, a split at most 6% slower than the fastest one measured
+# there, and 20 is the middle of that range.
+TC_SPLIT_COST = 20
+
+# The tensor-core body's output tile (csrc/igemm_tc.cuh: BM, BN) and the k
+# of one s32 partial sum (KMAX), and the int16 tier's scheme (Q16: three s32
+# sums of the high and low bytes) with its K step and resident blocks: its
+# planes are padded to TC_BK in K and TC_BN in N.
+TC_BM, TC_BN, TC_KMAX = 64, 64, 32768
+TC_Q16 = TcScheme("q16", 0, a_bytes=2, planes=2, resident=3, wave=3,
+                  split_cost=TC_SPLIT_COST, pack="pack_q16")
+TC_BK, TC_RESIDENT = TC_Q16.bk, TC_Q16.resident
 # Fragment position p = 16h + 4t + i of a 32-k chunk (h < 2, lane t < 4,
 # byte i < 4) holds k = FRAG_K[p]: ldmatrix gives lane t the int16 pairs
 # (2t, 2t+1) and (8+2t, 9+2t), and their high or low bytes make one 8-bit
@@ -85,114 +141,124 @@ FRAG_K = tuple(16 * (p // 16) + 2 * (p % 16 // 4) + p % 2 + 8 * (p % 4 // 2)
                for p in range(32))
 
 
-def _round_up(v: int, m: int) -> int:
-    return -(-v // m) * m
-
-
 def planes_shape(k: int, n: int) -> tuple[int, ...]:
-    """The packed planes of a (K, N) weight: (Np/64 column tiles, Kp/32
-    chunks, 2 planes, 8 column groups g, 2 k halves h, 8 columns r, 16 k
-    bytes e)."""
-    return (_round_up(n, TC_BN) // 64, _round_up(k, TC_BK) // 32, 2, 8, 2, 8, 16)
+    """pack_q16's planes of a (K, N) weight: TC_Q16.planes_shape."""
+    return TC_Q16.planes_shape(k, n)
+
+
+def arrange_planes(byte_planes: list[torch.Tensor],
+                   scheme: TcScheme) -> torch.Tensor:
+    """Byte planes of a (K, N) weight, uint8 (K, N) each, -> the tensor-core
+    kernels' B operand, uint8 ``scheme.planes_shape(K, N)`` on their device:
+    K padded to ``scheme.bk`` and N to TC_BN with zeros; for each
+    64-column tile nb and 32-k chunk kc the planes in turn, each in the
+    shared-memory layout of the wgmma B descriptor: byte (g, h, r, e) of
+    plane j holds plane j's byte of column 64 nb + 8 g + r at
+    k = 32 kc + order[16 h + e], order FRAG_K or (for int8 A) 0 .. 31."""
+    k, n = byte_planes[0].shape
+    nb, kc = scheme.planes_shape(k, n)[:2]
+    dev = byte_planes[0].device
+    order = torch.tensor(FRAG_K if scheme.frag else range(32), device=dev)
+
+    def arrange(plane: torch.Tensor) -> torch.Tensor:
+        wp = torch.zeros((kc * 32, nb * 64), dtype=torch.uint8, device=dev)
+        wp[:k, :n] = plane
+        # (kc, h, e, nb, g, r) -> (nb, kc, g, h, r, e)
+        p = wp.view(kc, 32, nb * 64)[:, order].view(kc, 2, 16, nb, 8, 8)
+        return p.permute(3, 0, 4, 1, 5, 2)
+
+    return torch.stack([arrange(p) for p in byte_planes], dim=2).contiguous()
 
 
 def pack_q16(w: torch.Tensor) -> torch.Tensor:
     """int16 weights, (C, N) or HWIO (3, 3, C, N), read as (K, N) -> the
-    tensor-core kernels' B operand, uint8 ``planes_shape(K, N)`` on w's
-    device: K padded to TC_BK and N to TC_BN with zeros, each value split
-    into its high byte (s8, w >> 8) and low byte (u8, w & 255); for each
-    64-column tile nb and 32-k chunk kc, the high plane, then the low, in
-    the shared-memory layout of the wgmma B descriptor: byte (g, h, r, e)
-    holds column 64 nb + 8 g + r at k = 32 kc + FRAG_K[16 h + e]."""
+    Q16 kernels' B operand (``arrange_planes``, uint8 ``planes_shape(K,
+    N)`` on w's device): each value split into its high byte (s8, w >> 8),
+    plane 0, and its low byte (u8, w & 255), plane 1, in FRAG_K order."""
     wk = w.reshape(-1, w.shape[-1])
-    k, n = wk.shape
-    nb, kc = planes_shape(k, n)[:2]
-    wp = torch.zeros((kc * 32, nb * 64), dtype=torch.int16, device=w.device)
-    wp[:k, :n] = wk
-    order = torch.tensor(FRAG_K, device=w.device)
-
-    def arrange(plane: torch.Tensor) -> torch.Tensor:
-        # (kc, h, e, nb, g, r) -> (nb, kc, g, h, r, e)
-        p = plane.view(kc, 32, nb * 64)[:, order].view(kc, 2, 16, nb, 8, 8)
-        return p.permute(3, 0, 4, 1, 5, 2)
-
-    hi = (wp >> 8).to(torch.int8).view(torch.uint8)
-    lo = (wp & 255).to(torch.uint8)
-    return torch.stack([arrange(hi), arrange(lo)], dim=2).contiguous()
+    hi = (wk >> 8).to(torch.int8).view(torch.uint8)
+    lo = (wk & 255).to(torch.uint8)
+    return arrange_planes([hi, lo], TC_Q16)
 
 
-def unpack_planes(planes: torch.Tensor, k: int, n: int):
-    """The high (s8) and low (u8) planes of pack_q16's output as int64 (Kp,
-    Np) matrices, rows in fragment order: row 32 kc + p holds k =
-    32 kc + FRAG_K[p], as the kernel's A fragments take it."""
-    nb, kc = planes_shape(k, n)[:2]
+def plane_matrix(planes: torch.Tensor, j: int,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """Plane j of packed planes, its bytes read as ``dtype`` (torch.int8 or
+    torch.uint8), as an int64 (Kp, Np) matrix in the planes' k order: row
+    32 kc + p holds k = 32 kc + order[p], as the kernel's A fragments take
+    it."""
+    nb, kc = planes.shape[:2]
+    q = planes[:, :, j].contiguous().view(dtype).to(torch.int64)
+    # (nb, kc, g, h, r, e) -> (kc, h, e, nb, g, r)
+    return q.permute(1, 3, 5, 0, 2, 4).reshape(kc * 32, nb * 64)
 
-    def plane(j: int, dtype: torch.dtype) -> torch.Tensor:
-        q = planes[:, :, j].contiguous().view(dtype).to(torch.int64)
-        # (nb, kc, g, h, r, e) -> (kc, h, e, nb, g, r)
-        return q.permute(1, 3, 5, 0, 2, 4).reshape(kc * 32, nb * 64)
 
-    return plane(0, torch.int8), plane(1, torch.uint8)
+def tc_sum(x: torch.Tensor, planes: torch.Tensor, k: int, n: int,
+           scheme: TcScheme) -> torch.Tensor:
+    """x (M, K) (int16 A, or int8 for an S8 scheme) and ``scheme``'s packed
+    planes of a (K, N) weight -> the (M, N) int32 sums modulo 2^32,
+    computed as the tensor-core kernel of that scheme computes them: x in
+    the planes' k order, split into its high (s8, << 8) and low (u8) bytes
+    where it is int16, the weight's high (s8, << 8) and low (u8) planes for
+    Q16 or its one s8 plane; the products of equal shift summed into one s32
+    set (Q16: << 16, << 8, << 0; W8A16: << 8, << 0; S8: one) over at most
+    TC_KMAX values of k, each set required to fit s32 (OverflowError
+    otherwise), recombined modulo 2^32 and summed over the chunks modulo
+    2^32. For tests: it holds the packing layout and each scheme's
+    exactness on the CPU."""
+    ws = ([(plane_matrix(planes, 0, torch.int8), 8),
+           (plane_matrix(planes, 1, torch.uint8), 0)] if scheme.planes == 2
+          else [(plane_matrix(planes, 0, torch.int8), 0)])
+    kp = ws[0][0].shape[0]
+    xk = torch.zeros((x.shape[0], kp), dtype=torch.int64)
+    xk[:, :k] = x.to(torch.int64)
+    if scheme.frag:
+        xk = xk.view(-1, kp // 32, 32)[:, :, list(FRAG_K)].reshape(-1, kp)
+    xs = [(xk >> 8, 8), (xk & 255, 0)] if scheme.a_bytes == 2 else [(xk, 0)]
+    acc = torch.zeros((x.shape[0], ws[0][0].shape[1]), dtype=torch.int64)
+
+    def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int64)
+
+    for c0 in range(0, kp, TC_KMAX):
+        c = slice(c0, c0 + TC_KMAX)
+        sets: dict[int, torch.Tensor] = {}
+        for a, sa in xs:
+            for b, sb in ws:
+                sets[sa + sb] = sets.get(sa + sb, 0) + dot(a[:, c], b[c])
+        for sh, s in sets.items():
+            if s.numel() and int(s.abs().max()) >= 2 ** 31:
+                raise OverflowError(f"the partial sum << {sh} leaves s32")
+            acc = (acc + (s << sh)) & 0xFFFFFFFF
+    return wrap32(acc[:, :n])
 
 
 def mm_split_sum(x: torch.Tensor, planes: torch.Tensor, k: int,
                  n: int) -> torch.Tensor:
     """x (M, K) int16 and pack_q16's planes of a (K, N) weight -> the (M, N)
-    int32 sums modulo 2^32, computed as the tensor-core kernels compute
-    them: x split into its high (s8) and low (u8) bytes, both operands in
-    fragment order, three partial sums over at most TC_KMAX values of k
-    each (high x high; high x low + low x high; low x low), each required to
-    fit s32, recombined as (hh << 16) + (mid << 8) + ll modulo 2^32 and
-    summed over the chunks modulo 2^32. For tests: it holds the packing
-    layout and the split's exactness on the CPU."""
-    wh, wl = unpack_planes(planes, k, n)
-    kp = wh.shape[0]
-    xp = torch.zeros((x.shape[0], kp), dtype=torch.int64)
-    xp[:, :k] = x.to(torch.int64)
-    xk = xp.view(-1, kp // 32, 32)[:, :, list(FRAG_K)].reshape(-1, kp)
-    xh, xl = xk >> 8, xk & 255
-    acc = torch.zeros((x.shape[0], wh.shape[1]), dtype=torch.int64)
-
-    def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        s = (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int64)
-        if s.numel() and int(s.abs().max()) >= 2 ** 31:
-            raise OverflowError("a partial sum leaves s32")
-        return s
-
-    for c0 in range(0, kp, TC_KMAX):
-        c = slice(c0, c0 + TC_KMAX)
-        hh = dot(xh[:, c], wh[c])
-        mid = dot(xh[:, c], wl[c]) + dot(xl[:, c], wh[c])
-        if mid.numel() and int(mid.abs().max()) >= 2 ** 31:
-            raise OverflowError("the middle partial sum leaves s32")
-        acc = (acc + (hh << 16) + (mid << 8) + dot(xl[:, c], wl[c])) & 0xFFFFFFFF
-    return wrap32(acc[:, :n])
-
-
-# What splitting K adds to a block's time, in K steps (TC_BK each): the
-# workspace's memset, the atomic adds and the last block's pass over its
-# tile. Set from chip_smoke.py's split sweep (every split of K at every
-# yolov2 416 shape at batch 1 and 8, NVIDIA H100 80GB HBM3): any value from
-# 15 to 26 picks, at each shape, a split at most 6% slower than the fastest
-# one measured there, and 20 is the middle of that range.
-TC_SPLIT_COST = 20
+    int32 sums modulo 2^32 as the Q16 kernels compute them (``tc_sum``:
+    three s32 partial sums, high x high, high x low + low x high, low x
+    low)."""
+    return tc_sum(x, planes, k, n, TC_Q16)
 
 
 @functools.lru_cache(maxsize=4096)
-def tc_split(m: int, n: int, k: int, sms: int) -> int:
-    """The K steps (of TC_BK) per split for an (M, K) @ (K, N) on the
+def tc_split(m: int, n: int, k: int, sms: int,
+             scheme: TcScheme = TC_Q16) -> int:
+    """The K steps (of ``scheme.bk``) per split for an (M, K) @ (K, N) on the
     tensor-core body with ``sms`` SMs: of the split counts from
-    ceil(K / TC_KMAX) up, the one whose waves of resident blocks times a
-    block's time is least, a block's time being its K steps, plus
-    TC_SPLIT_COST where K is split; the fewest splits on a tie."""
+    ceil(K / TC_KMAX) up, the one whose waves (of ``scheme.wave`` blocks per
+    SM) times a block's time is least, a block's time being its K steps,
+    plus the scheme's split cost where K is split; the fewest splits on a
+    tie."""
     tiles = -(-m // TC_BM) * -(-n // TC_BN)
-    ktiles = -(-k // TC_BK)
+    ktiles = -(-k // scheme.bk)
     best, best_cost = None, None
     for s in range(-(-k // TC_KMAX), ktiles + 1):
         kps = -(-ktiles // s)
         splits = -(-ktiles // kps)
-        waves = -(-tiles * splits // (sms * TC_RESIDENT))
-        cost = waves * (kps + (TC_SPLIT_COST if splits > 1 else 0))
+        waves = -(-tiles * splits // (sms * scheme.wave))
+        cost = waves * (kps + (scheme.split_cost if splits > 1 else 0))
         if best_cost is None or cost < best_cost:
             best, best_cost = kps, cost
     return best
@@ -304,13 +370,18 @@ def _rows_fit(name: str, m: int) -> None:
         raise ValueError(f"{name}: M={m} does not fit the kernel's int")
 
 
-def _check_planes(name: str, planes, k: int, n: int,
-                  device: torch.device) -> None:
+@functools.lru_cache(maxsize=4096)
+def _planes_shape(scheme: TcScheme, k: int, n: int) -> tuple[int, ...]:
+    return scheme.planes_shape(k, n)
+
+
+def _check_planes(name: str, planes, k: int, n: int, device: torch.device,
+                  scheme: TcScheme = TC_Q16) -> None:
     if planes is None:
         raise TypeError(f"{name}: on the card the kernel takes the weights "
-                        "also as packed planes (planes=pack_q16(w), made once "
-                        "at model build)")
-    want = planes_shape(k, n)
+                        f"also as packed planes (planes={scheme.pack}(w), "
+                        "made once at model build)")
+    want = _planes_shape(scheme, k, n)   # the wrappers' host time counts
     if (planes.dtype != torch.uint8 or tuple(planes.shape) != want
             or planes.device != device or not planes.is_contiguous()):
         raise ValueError(f"{name}: planes {planes.dtype} "
@@ -324,19 +395,20 @@ def _sm_count(index: int) -> int:
 
 
 def _tc_launch(name: str, fn: str, out: torch.Tensor, m: int, n: int, k: int,
-               operands: tuple, shape: tuple, shift: int,
-               leaky: bool) -> torch.Tensor:
-    """Launch a tensor-core kernel with its split of K and, where it splits,
-    the workspace the kernel zeroes (M*N sums and one counter per output
-    tile)."""
-    kps = tc_split(m, n, k, _sm_count(out.device.index or 0))
+               pointers: tuple, ints: tuple, scheme: TcScheme = TC_Q16,
+               counts: dict = LAUNCHES) -> torch.Tensor:
+    """Launch a tensor-core kernel of ``scheme``: C entry point ``fn`` takes
+    ``pointers``, the output, the workspace, ``ints``, the K steps per split
+    and the stream. Where tc_split splits K, the workspace the kernel zeroes
+    (M*N sums and one counter per output tile) is allocated here."""
+    kps = tc_split(m, n, k, _sm_count(out.device.index or 0), scheme)
     ws = None
-    if -(-k // TC_BK) > kps:   # split: M*N sums and a counter per tile
+    if -(-k // scheme.bk) > kps:   # split: M*N sums and a counter per tile
         ws = torch.empty(m * n + -(-m // TC_BM) * -(-n // TC_BN),
                          dtype=torch.int32, device=out.device)
-    return _launch(name, fn, out, *operands, out.data_ptr(),
-                   None if ws is None else ws.data_ptr(), *shape, int(shift),
-                   int(leaky), kps)
+    return _launch(name, fn, out, *pointers, out.data_ptr(),
+                   None if ws is None else ws.data_ptr(), *ints, kps,
+                   counts=counts)
 
 
 def mm_q16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, shift: int,
@@ -352,7 +424,7 @@ def mm_q16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, shift: int,
     out = torch.empty((m, n), dtype=torch.int16, device=x.device)
     return _tc_launch("mm_q16", "yq16_mm", out, m, n, k,
                       (x.data_ptr(), planes.data_ptr(), bias.data_ptr()),
-                      (m, k, n), shift, leaky)
+                      (m, k, n, int(shift), int(leaky)))
 
 
 def conv3x3_q16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -372,7 +444,7 @@ def conv3x3_q16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     out = torch.empty((b, h, wd, n), dtype=torch.int16, device=x.device)
     return _tc_launch("conv3x3_q16", "yq16_conv3x3", out, b * h * wd, n, 9 * c,
                       (x.data_ptr(), planes.data_ptr(), bias.data_ptr()),
-                      (b, h, wd, c, n), shift, leaky)
+                      (b, h, wd, c, n, int(shift), int(leaky)))
 
 
 def conv3x3_pool_q16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
