@@ -49,7 +49,7 @@ and in two plan slices of the int16 tier, in four phases:
    against conv3x3_q16 then the pool, and summed over P1's fused convs;
    then, for each tier's tensor-core convs at batch 1 and 8, the device
    time (CUDA graph replays) of every split of K beside the one
-   ``q16.tc_split`` picks.
+   ``tc.split`` picks.
 
 Any failed check raises, so the exit code is not 0. The line before the
 last is a JSON record of the kernels; the last is
@@ -78,7 +78,7 @@ from yolotpu_torch.image import letterbox_image  # noqa: E402
 from yolotpu_torch.models import engine_plan, zoo  # noqa: E402
 from yolotpu_torch.models.yolov2 import YoloV2Q  # noqa: E402
 from yolotpu_torch.names import names_for  # noqa: E402
-from yolotpu_torch.ops import _build, convops, pool, q8, q16  # noqa: E402
+from yolotpu_torch.ops import _build, convops, pool, q8, q16, tc  # noqa: E402
 from yolotpu_torch.quant import (calibrate_activations,  # noqa: E402
                                  calibrate_activations_int8, quantize_weights,
                                  quantize_weights_int8, quantize_weights_w8a16)
@@ -125,11 +125,11 @@ WRAP_BLOCK8 = 1024   # 1024 products (-32768)*(-128) = 2^32
 POOL_CONVS = (0, 2, 6, 10, 16)   # the yolov2 convs a 2x2/s2 pool follows
 # the kernels on the 8-bit tensor cores, which take their weights also as
 # packed planes: kernel -> (its operand scheme, what packs its planes)
-TC_KERNELS = {"mm_q16": (q16.TC_Q16, q16.pack_q16),
-              "conv3x3_q16": (q16.TC_Q16, q16.pack_q16),
-              "conv3x3_w8a16": (q8.TC_W8A16, q8.pack_conv3x3_w8a16),
-              "conv3x3_s8": (q8.TC_S8, q8.pack_conv3x3_s8),
-              "conv3x3_int8": (q8.TC_S8, q8.pack_conv3x3_s8)}
+TC_KERNELS = {"mm_q16": (tc.Q16, q16.pack_q16),
+              "conv3x3_q16": (tc.Q16, q16.pack_q16),
+              "conv3x3_w8a16": (tc.W8A16, q8.pack_conv3x3_w8a16),
+              "conv3x3_s8": (tc.S8, q8.pack_conv3x3_s8),
+              "conv3x3_int8": (tc.S8, q8.pack_conv3x3_s8)}
 # each scheme's tensor-core instantiations, known by the scheme's and the
 # loader's part of their mangled names
 TC_INSTANCES = {"mm_q16": ("3Q16", "4MmTc"), "conv3x3_q16": ("3Q16", "ConvTcIs"),
@@ -518,10 +518,10 @@ def phase_card() -> str:
     for fn, (n, mma, ops) in sorted(sass.items()):
         say(f"[card]   SASS {fn}: {n} instructions, {mma} tensor-core MMA "
             f"{ops}")
-    tc = {fn for fn in sass if "igemm_tc_kernel" in fn}
-    if len(tc) != len(TC_INSTANCES) or any(
-            "GMMA" not in sass[fn][2] for fn in tc) or any(
-            sass[fn][1] for fn in sass if fn not in tc):
+    tc_fns = {fn for fn in sass if "igemm_tc_kernel" in fn}
+    if len(tc_fns) != len(TC_INSTANCES) or any(
+            "GMMA" not in sass[fn][2] for fn in tc_fns) or any(
+            sass[fn][1] for fn in sass if fn not in tc_fns):
         raise AssertionError(f"warpgroup MMA (wgmma: *GMMA in SASS) must be in "
                              f"the {len(TC_INSTANCES)} yq::tc kernels, and no "
                              "tensor-core MMA elsewhere")
@@ -531,13 +531,14 @@ def phase_card() -> str:
         scheme = TC_KERNELS[name][0]
         bm, bn, bk, smem, blocks, planes, kmax = (cfg(scheme.id, i)
                                                   for i in range(7))
-        if (bm, bn, bk, blocks, planes, kmax) != (
-                q16.TC_BM, q16.TC_BN, scheme.bk, scheme.resident,
-                scheme.planes, q16.TC_KMAX):
+        if (bm, bn, bk, planes, kmax) != (tc.BM, tc.BN, scheme.bk,
+                                          scheme.planes, tc.KMAX) \
+                or scheme.wave > blocks:
             raise AssertionError(
                 f"{name}: the kernel's tile (BM {bm}, BN {bn}, BK {bk}, "
                 f"{blocks} blocks per SM, {planes} planes, KMAX {kmax}) is not "
-                f"the wrappers' {scheme}")
+                f"the wrappers' {scheme}, or holds fewer blocks per SM than "
+                "tc.split counts in a wave")
         fns = [fn for fn in regs if "igemm_tc_kernel" in fn
                and scheme_part in fn and loader_part in fn]
         if len(fns) != 1:
@@ -545,7 +546,7 @@ def phase_card() -> str:
         say(f"[card] {name} on the 8-bit tensor cores, scheme "
             f"{scheme.name.upper()}: {bm}x{bn} tiles, K steps of {bk}, "
             f"{planes} weight plane(s), {smem} bytes of dynamic shared memory "
-            f"per block, {blocks} blocks per SM ({scheme.wave} in tc_split's "
+            f"per block, {blocks} blocks per SM ({scheme.wave} in tc.split's "
             f"waves), {regs[fns[0]]} registers")
     return smi
 
@@ -580,15 +581,15 @@ def phase_kernels(check: KernelCheck, dev: torch.device) -> None:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     say("[kernels] mm_q16 and conv3x3_q16 also at batch 1 and 8, the main "
         "path's batches, at all 23 shapes: K split over blocks as the "
-        "wrapper chooses for each (q16.tc_split), full-range operands")
+        "wrapper chooses for each (tc.split), full-range operands")
     for l in spec.conv_layers():
         mm = engine_plan.select_engine(l) == "mm"
         for bsz in (1, 8):
             xshape = (bsz * l.h * l.w, l.c) if mm else (bsz, l.h, l.w, l.c)
             wshape = (l.c, l.n) if mm else (3, 3, l.c, l.n)
             m, k = bsz * l.h * l.w, l.c * l.size * l.size
-            kps = q16.tc_split(m, l.n, k, sms)
-            splits = -(-(-(-k // q16.TC_BK)) // kps)
+            kps = tc.split(m, l.n, k, sms, tc.Q16)
+            splits = -(-(-(-k // tc.Q16.bk)) // kps)
             x, w, b = on(rng.integers(-32768, 32768, xshape).astype(np.int16),
                          rng.integers(-32768, 32768, wshape).astype(np.int16),
                          small_bias(rng, l.n))
@@ -597,9 +598,9 @@ def phase_kernels(check: KernelCheck, dev: torch.device) -> None:
                           "splits", (x, w, b, FULL_SHIFT, l.activation == "leaky"),
                           wraps=True)
             say(f"  conv{l.idx} b={bsz} {l.h}x{l.w}x{l.c}->{l.n}: equal, K "
-                f"{k} in {splits} splits of {kps * q16.TC_BK}")
+                f"{k} in {splits} splits of {kps * tc.Q16.bk}")
 
-    say(f"[kernels] K beyond one s32 partial sum ({q16.TC_KMAX}): every "
+    say(f"[kernels] K beyond one s32 partial sum ({tc.KMAX}): every "
         "operand -32513 (high byte -128, low byte 255), where an unchunked "
         "middle sum leaves s32")
     for leaky in (False, True):
@@ -684,7 +685,7 @@ def phase_kernels8(check: KernelCheck, dev: torch.device) -> None:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     say("[kernels] conv3x3_s8 and conv3x3_w8a16 also at batch 1 and 8, the "
         "main path's batches, at the 15 3x3 shapes: K split over blocks as "
-        "the wrapper chooses for each (q16.tc_split), full-range operands")
+        "the wrapper chooses for each (tc.split), full-range operands")
     for l in spec.conv_layers():
         if engine_plan.select_engine(l) == "mm":
             continue
@@ -694,7 +695,7 @@ def phase_kernels8(check: KernelCheck, dev: torch.device) -> None:
             for name, xdtype, out in (("conv3x3_s8", np.int8, torch.int8),
                                       ("conv3x3_w8a16", np.int16, torch.int16)):
                 scheme = TC_KERNELS[name][0]
-                kps = q16.tc_split(m, l.n, k, sms, scheme)
+                kps = tc.split(m, l.n, k, sms, scheme)
                 splits = -(-(-(-k // scheme.bk)) // kps)
                 x, w, b, s = on(*full_operands8(rng, xshape, wshape, xdtype, out))
                 check.compare(name, f"conv{l.idx} b={bsz} {l.c}->{l.n} K in "
@@ -704,7 +705,7 @@ def phase_kernels8(check: KernelCheck, dev: torch.device) -> None:
                     f"equal, K {k} in {splits} splits of {kps * scheme.bk}")
 
     say(f"[kernels] conv3x3_s8 and conv3x3_w8a16 with K beyond one split "
-        f"({q16.TC_KMAX} values of k), operands at their extremes: x = w = "
+        f"({tc.KMAX} values of k), operands at their extremes: x = w = "
         "-128 (s8; at C=14608 the exact sum leaves int32, and an unsplit s32 "
         "sum would too), x = -32513 (high byte -128, low byte 255) and w = "
         "-128 (w8a16; at C=7400 an unsplit low-byte sum leaves s32)")
@@ -1389,14 +1390,14 @@ def split_steps(k: int, bk: int) -> list[int]:
     split), largest first, each once."""
     kt = -(-k // bk)
     steps: list[int] = []
-    for s in range(-(-k // q16.TC_KMAX), min(SPLIT_SWEEP, kt) + 1):
+    for s in range(-(-k // tc.KMAX), min(SPLIT_SWEEP, kt) + 1):
         if -(-kt // s) not in steps:
             steps.append(-(-kt // s))
     return steps
 
 
 def phase_split(model: YoloV2Q, dev: torch.device) -> None:
-    """q16.tc_split's split of K against every other split (split_steps),
+    """tc.split's split of K against every other split (split_steps),
     for each conv of one tier's model that runs on the tensor cores (the
     convs with packed planes), at batch 1 and 8, on random full-range
     inputs and the model's weights (``model._conv``): each conv's device
@@ -1405,13 +1406,13 @@ def phase_split(model: YoloV2Q, dev: torch.device) -> None:
     fastest split is flagged."""
     rng = np.random.default_rng(4)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    choose = q16.tc_split
+    choose = tc.split
     tier = model.precision
     act = torch.int8 if tier == "int8" else torch.int16
     lim = torch.iinfo(act)
     convs = [l for l in model.spec.conv_layers() if hasattr(model, f"p{l.idx}")]
     tag = f"[split {tier}]"
-    say(f"{tag} tc_split against every split of K (1 to {SPLIT_SWEEP} "
+    say(f"{tag} tc.split against every split of K (1 to {SPLIT_SWEEP} "
         f"splits) of the {len(convs)} tensor-core convs, device ms per call "
         "from CUDA graph replays")
     try:
@@ -1430,9 +1431,9 @@ def phase_split(model: YoloV2Q, dev: torch.device) -> None:
                 ms = {}
                 for kps in split_steps(k, scheme.bk) + [chosen]:
                     if kps not in ms:
-                        q16.tc_split = lambda *a, kps=kps: kps   # noqa: E731
+                        tc.split = lambda *a, kps=kps: kps   # noqa: E731
                         ms[kps] = graph_ms(fn)
-                q16.tc_split = choose
+                tc.split = choose
                 kt = -(-k // scheme.bk)
                 best = min(ms, key=ms.get)
                 tot["chosen"] += ms[chosen]
@@ -1444,16 +1445,16 @@ def phase_split(model: YoloV2Q, dev: torch.device) -> None:
                 say(f"{tag} b={bsz} conv{l.idx} {l.h}x{l.w}x{l.c}->{l.n} "
                     f"{name} M={m} K={k} ({kt} steps), ms by splits: "
                     + ", ".join(f"{-(-kt // v)}: {t:.4f}" for v, t in ms.items())
-                    + f"; tc_split {-(-kt // chosen)} ({ms[chosen]:.4f}), "
+                    + f"; tc.split {-(-kt // chosen)} ({ms[chosen]:.4f}), "
                     f"fastest {-(-kt // best)} ({ms[best]:.4f}), chosen/fastest "
                     f"{ms[chosen] / ms[best]:.3f}")
-            say(f"{tag} b={bsz} per forward ({len(convs)} convs): tc_split's "
+            say(f"{tag} b={bsz} per forward ({len(convs)} convs): tc.split's "
                 f"splits {tot['chosen']:.4f} ms, the fastest split of each conv "
                 f"{tot['fastest']:.4f} ms, unsplit {tot['unsplit']:.4f} ms; "
                 f"{near} convs within 5% of their fastest; more than 10% "
                 f"slower: {', '.join(far) or 'none'}")
     finally:
-        q16.tc_split = choose
+        tc.split = choose
 
 
 def main() -> int:

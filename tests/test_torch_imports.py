@@ -113,8 +113,8 @@ def test_kernel_launch_raises_without_nvcc(monkeypatch, tmp_path):
         out = torch.empty((4, 3), dtype=torch.int16)
         before = dict(q16.LAUNCHES)
         with pytest.raises(RuntimeError, match="nvcc not found"):
-            q16._launch("mm_q16", "yq16_mm", out, 0, 0, 0, 0, None, 4, 8, 3,
-                        0, 0, 1)
+            _build.launch("mm_q16", "yq16_mm", out, 0, 0, 0, 0, None, 4, 8,
+                          3, 0, 0, 1, counts=q16.LAUNCHES)
         assert q16.LAUNCHES == before
     finally:
         _build.load_library.cache_clear()

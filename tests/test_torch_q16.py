@@ -14,8 +14,9 @@ that wrap to small values. The shift, leaky and weight-encoding extremes
 are those of tests/test_q16_kernels.py. The kernels themselves run only on
 the card: chip_smoke.py holds them to these plain versions there.
 
-The tensor-core kernels' arithmetic is held here through ``mm_split_sum``,
-which sums from the packed weight planes (``pack_q16``) and the split
+The tensor-core kernels' arithmetic is held here through ``tc.emulate``
+(scheme Q16), which sums from the packed weight planes (``pack_q16``) and
+the split
 activations as the kernels do: equal to the exact sums modulo 2^32
 (``acc32(mm_sum64)``) and to XLA's int32 dot and conv, at operands at
 -32768, -32513 and 32767, ragged K, N=425, and K=33000, where an unchunked
@@ -31,7 +32,7 @@ import torch
 from yolotpu.ops import convops as jconv
 from yolotpu.ops import pallas_q16 as pq16
 from yolotpu.ops import pool as jpool
-from yolotpu_torch.ops import convops, pool, q16
+from yolotpu_torch.ops import convops, pool, q16, tc
 
 
 def _span(shift, k):
@@ -243,7 +244,7 @@ def _split_case(rng, m, k, n, values=None):
 def test_split_sum_equals_exact_and_xla(m, k, n, values):
     x, w = _split_case(np.random.default_rng(k), m, k, n, values)
     tx, tw = torch.from_numpy(x), torch.from_numpy(w)
-    got = q16.mm_split_sum(tx, q16.pack_q16(tw), k, n)
+    got = tc.emulate(tx, q16.pack_q16(tw), k, n, tc.Q16)
     assert got.dtype == torch.int32
     assert torch.equal(got, q16.acc32(q16.mm_sum64(tx, tw)))
     # the int32 dot of yolotpu's convops.conv_int16 1x1 path
@@ -254,8 +255,8 @@ def test_split_sum_equals_exact_and_xla(m, k, n, values):
 
 def test_split_sum_requant_equals_pallas():
     x, w, bias = _operands(np.random.default_rng(6), (64, 300), (300, 70), 7)
-    sums = q16.mm_split_sum(torch.from_numpy(x),
-                            q16.pack_q16(torch.from_numpy(w)), 300, 70)
+    sums = tc.emulate(torch.from_numpy(x),
+                      q16.pack_q16(torch.from_numpy(w)), 300, 70, tc.Q16)
     got = convops.requant32(sums, torch.from_numpy(bias), 7, True)
     want = pq16.matmul_q16_requant(jnp.asarray(x),
                                    pq16.prep_matmul_weights(w, bias), 7, True,
@@ -265,20 +266,20 @@ def test_split_sum_requant_equals_pallas():
 
 def test_split_sum_chunks_a_long_k():
     """K = 33000 at -32513 (high byte -128, low byte 255): the middle sum
-    over all of K is -65280 * 33000 < -2^31, so it is cut at TC_KMAX."""
+    over all of K is -65280 * 33000 < -2^31, so it is cut at tc.KMAX."""
     k, n = 33000, 8
     x = np.full((3, k), -32513, np.int16)
     w = np.full((k, n), -32513, np.int16)
-    assert (-128 * 255 * 2) * k < -2 ** 31 <= (-128 * 255 * 2) * q16.TC_KMAX
+    assert (-128 * 255 * 2) * k < -2 ** 31 <= (-128 * 255 * 2) * tc.KMAX
     tx, tw = torch.from_numpy(x), torch.from_numpy(w)
-    got = q16.mm_split_sum(tx, q16.pack_q16(tw), k, n)
+    got = tc.emulate(tx, q16.pack_q16(tw), k, n, tc.Q16)
     assert torch.equal(got, q16.acc32(q16.mm_sum64(tx, tw)))
     want = jnp.dot(jnp.asarray(x), jnp.asarray(w),
                    preferred_element_type=jnp.int32)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     # the kernel cuts the same K into at least two splits
-    kps = q16.tc_split(3, n, k, 132)
-    assert -(-k // (kps * q16.TC_BK)) >= 2 and kps * q16.TC_BK <= q16.TC_KMAX
+    kps = tc.split(3, n, k, 132, tc.Q16)
+    assert -(-k // (kps * tc.Q16.bk)) >= 2 and kps * tc.Q16.bk <= tc.KMAX
 
 
 @pytest.mark.parametrize("b,h,w_,c,n", [(2, 7, 5, 3, 40), (1, 6, 6, 40, 70)])
@@ -287,7 +288,8 @@ def test_split_sum_of_im2col_equals_conv(b, h, w_, c, n):
     x = rng.integers(-32768, 32768, (b, h, w_, c)).astype(np.int16)
     w = rng.integers(-32768, 32768, (3, 3, c, n)).astype(np.int16)
     tx, tw = torch.from_numpy(x), torch.from_numpy(w)
-    got = q16.mm_split_sum(q16.im2col3x3(tx), q16.pack_q16(tw), 9 * c, n)
+    got = tc.emulate(q16.im2col3x3(tx), q16.pack_q16(tw), 9 * c, n,
+                     tc.Q16)
     assert torch.equal(got.reshape(b, h, w_, n),
                        q16.acc32(q16.conv3x3_sum64(tx, tw)))
     want = lax.conv_general_dilated(
@@ -305,15 +307,15 @@ def test_pack_q16_layout():
     k, n = 70, 100
     w = np.random.default_rng(9).integers(-32768, 32768, (k, n)).astype(np.int16)
     planes = q16.pack_q16(torch.from_numpy(w)).numpy()
-    assert planes.shape == q16.planes_shape(k, n) == (2, 4, 2, 8, 2, 8, 16)
-    assert sorted(q16.FRAG_K[:16]) == list(range(16))
-    assert sorted(q16.FRAG_K[16:]) == list(range(16, 32))
+    assert planes.shape == tc.Q16.planes_shape(k, n) == (2, 4, 2, 8, 2, 8, 16)
+    assert sorted(tc.FRAG_K[:16]) == list(range(16))
+    assert sorted(tc.FRAG_K[16:]) == list(range(16, 32))
     wp = np.zeros((128, 128), np.int64)
     wp[:k, :n] = w
     rng = np.random.default_rng(10)
     for _ in range(300):
         nb, kc, g, h, r, e = (int(rng.integers(0, d)) for d in (2, 4, 8, 2, 8, 16))
-        v = wp[32 * kc + q16.FRAG_K[16 * h + e], 64 * nb + 8 * g + r]
+        v = wp[32 * kc + tc.FRAG_K[16 * h + e], 64 * nb + 8 * g + r]
         assert planes[nb, kc, 0, g, h, r, e] == (v >> 8) & 255
         assert planes[nb, kc, 1, g, h, r, e] == v & 255
 
@@ -330,10 +332,10 @@ def test_pack_q16_layout():
     (8 * 104 * 104, 128, 576, 1),
     (200, 72, 33000, None)])    # more than one s32 partial sum
 def test_tc_split(m, n, k, want):
-    kps = q16.tc_split(m, n, k, 132)
-    ktiles = -(-k // q16.TC_BK)
+    kps = tc.split(m, n, k, 132, tc.Q16)
+    ktiles = -(-k // tc.Q16.bk)
     splits = -(-ktiles // kps)
-    assert 1 <= kps and kps * q16.TC_BK <= q16.TC_KMAX
+    assert 1 <= kps and kps * tc.Q16.bk <= tc.KMAX
     if want is None:
         assert splits >= 2
     else:
@@ -342,11 +344,13 @@ def test_tc_split(m, n, k, want):
 
 def test_planes_are_checked():
     with pytest.raises(TypeError, match="pack_q16"):
-        q16._check_planes("mm_q16", None, 64, 64, torch.device("cpu"))
+        tc.check_planes("mm_q16", None, 64, 64, torch.device("cpu"),
+                        tc.Q16)
     good = q16.pack_q16(torch.zeros((64, 64), dtype=torch.int16))
-    q16._check_planes("mm_q16", good, 64, 64, torch.device("cpu"))
+    tc.check_planes("mm_q16", good, 64, 64, torch.device("cpu"), tc.Q16)
     with pytest.raises(ValueError, match="planes"):
-        q16._check_planes("mm_q16", good, 128, 64, torch.device("cpu"))
+        tc.check_planes("mm_q16", good, 128, 64, torch.device("cpu"),
+                        tc.Q16)
     with pytest.raises(ValueError, match="planes"):
-        q16._check_planes("mm_q16", good.view(torch.int8), 64, 64,
-                          torch.device("cpu"))
+        tc.check_planes("mm_q16", good.view(torch.int8), 64, 64,
+                        torch.device("cpu"), tc.Q16)

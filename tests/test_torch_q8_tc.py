@@ -4,8 +4,8 @@ conv3x3_w8a16 on the W8A16 scheme of csrc/igemm_tc.cuh) against the JAX
 package, on the CPU.
 
 The kernels run only on the card (chip_smoke.py holds them to their plain
-versions there). What they compute is held here through ``q8.mm_s8_tc_sum``
-and ``q8.mm_w8a16_tc_sum``, which sum from the packed weight planes
+versions there). What they compute is held here through ``tc.emulate``,
+which sums from the packed weight planes
 (``q8.pack_w8``) and the activations split as the kernels split them, with
 every s32 partial sum checked: equal to the exact sums modulo 2^32
 (``acc32(mm_sum64)``), to XLA's int32 dot and conv, and, through the
@@ -22,10 +22,9 @@ import torch
 
 from yolotpu.ops import convops as jconv
 from yolotpu.ops import pallas_q16 as pq16
-from yolotpu_torch.ops import convops, q8, q16
+from yolotpu_torch.ops import convops, q8, q16, tc
 
-SCHEMES = {"s8": (q8.TC_S8, np.int8, q8.mm_s8_tc_sum),
-           "w8a16": (q8.TC_W8A16, np.int16, q8.mm_w8a16_tc_sum)}
+SCHEMES = {"s8": (tc.S8, np.int8), "w8a16": (tc.W8A16, np.int16)}
 TARGET = {np.int8: 2**5, np.int16: 2**13}   # output spread the shifts aim at
 
 
@@ -62,7 +61,7 @@ def test_pack_w8_layout(scheme):
     assert planes.shape == sch.planes_shape(k, n) == (2, kp // 32, 1, 8, 2, 8,
                                                       16)
     assert planes.dtype == np.uint8
-    order = q16.FRAG_K if scheme == "w8a16" else tuple(range(32))
+    order = tc.FRAG_K if scheme == "w8a16" else tuple(range(32))
     wp = np.zeros((kp, 128), np.int64)
     wp[:k, :n] = w
     for nb in range(2):
@@ -74,7 +73,7 @@ def test_pack_w8_layout(scheme):
                     np.testing.assert_array_equal(
                         planes[nb, kc, 0, g, h], want.astype(np.int8).view(np.uint8))
     # the padding is zeros
-    full = q16.plane_matrix(_t(planes), 0, torch.int8).numpy()
+    full = tc.plane_matrix(_t(planes), 0, torch.int8).numpy()
     assert not full[[i for i in range(kp) if 32 * (i // 32) + order[i % 32] >= k]].any()
     assert not full[:, n:].any()
 
@@ -87,14 +86,14 @@ def test_pack_w8_layout(scheme):
     (9, 27, 32, None),          # the entry conv's K
 ])
 def test_tc_sum_equals_exact_and_xla(scheme, m, k, n, xvalues):
-    sch, xdtype, tc_sum = SCHEMES[scheme]
+    sch, xdtype = SCHEMES[scheme]
     rng = np.random.default_rng(k + n)
     xv = ({np.int8: (-128, 127), np.int16: (-32768, -32513, 32767)}[xdtype]
           if xvalues else None)
     x = _draw(rng, (m, k), xdtype, xv)
     w = _draw(rng, (k, n), np.int8, (-128, 127) if xvalues else None)
     tx, tw = _t(x), _t(w)
-    got = tc_sum(tx, q8.pack_w8(tw, sch), k, n)
+    got = tc.emulate(tx, q8.pack_w8(tw, sch), k, n, sch)
     assert got.dtype == torch.int32
     assert torch.equal(got, q16.acc32(q16.mm_sum64(tx, tw)))
     want = jnp.dot(jnp.asarray(x), jnp.asarray(w),
@@ -105,13 +104,13 @@ def test_tc_sum_equals_exact_and_xla(scheme, m, k, n, xvalues):
 @pytest.mark.parametrize("scheme", SCHEMES)
 @pytest.mark.parametrize("b,h,w_,c,n", [(2, 7, 5, 3, 40), (1, 6, 6, 40, 70)])
 def test_tc_sum_of_im2col_equals_conv(scheme, b, h, w_, c, n):
-    sch, xdtype, tc_sum = SCHEMES[scheme]
+    sch, xdtype = SCHEMES[scheme]
     rng = np.random.default_rng(c)
     x = _draw(rng, (b, h, w_, c), xdtype)
     w = _draw(rng, (3, 3, c, n), np.int8)
     tx, tw = _t(x), _t(w)
-    got = tc_sum(q16.im2col3x3(tx), q8.pack_w8(tw, sch), 9 * c,
-                 n).reshape(b, h, w_, n)
+    got = tc.emulate(q16.im2col3x3(tx), q8.pack_w8(tw, sch), 9 * c, n,
+                     sch).reshape(b, h, w_, n)
     assert torch.equal(got, q16.acc32(q16.conv3x3_sum64(tx, tw)))
     # XLA's conv takes one dtype: int16 x int8 through int32, whose products
     # (|x*w| <= 2^22) and sums here stay exact
@@ -130,7 +129,7 @@ def test_tc_sum_requant_equals_pallas(scheme, vector, leaky):
     """The emulated sums through the per-channel requant == the Pallas
     kernel the scheme replaces (K7 conv3x3_s8_wi, K6 conv3x3_w8a16_wi), with
     a shift per column or one for the layer."""
-    sch, xdtype, tc_sum = SCHEMES[scheme]
+    sch, xdtype = SCHEMES[scheme]
     rng = np.random.default_rng(31 + vector)
     c, n = 32, 64
     xm = int(np.iinfo(xdtype).max)
@@ -143,8 +142,8 @@ def test_tc_sum_requant_equals_pallas(scheme, vector, leaky):
          else np.full(n, base)).astype(np.int32)
     bias = rng.integers(-TARGET[xdtype] // 2, TARGET[xdtype] // 2,
                         n).astype(np.int32)
-    sums = tc_sum(q16.im2col3x3(_t(x)), q8.pack_w8(_t(w), sch), 9 * c,
-                  n).reshape(2, 8, 8, n)
+    sums = tc.emulate(q16.im2col3x3(_t(x)), q8.pack_w8(_t(w), sch), 9 * c,
+                      n, sch).reshape(2, 8, 8, n)
     lo, hi = np.iinfo(xdtype).min, np.iinfo(xdtype).max
     got = convops.requant32(sums, _t(bias), _t(s), leaky, lo, hi).numpy()
     wp = pq16.prep_conv_weights_w8(w, bias, s if vector else int(s[0]))
@@ -195,8 +194,8 @@ def test_w8a16_tc_sum_wraps_like_xla(shift):
     c = x.shape[-1]
     x, w = x.reshape(bsz, h, wd, c), w.reshape(3, 3, c, n)
     s = np.full(n, shift, np.int32)
-    sums = q8.mm_w8a16_tc_sum(q16.im2col3x3(_t(x)), q8.pack_conv3x3_w8a16(_t(w)),
-                              9 * c, n).reshape(bsz, h, wd, n)
+    sums = tc.emulate(q16.im2col3x3(_t(x)), q8.pack_conv3x3_w8a16(_t(w)),
+                      9 * c, n, tc.W8A16).reshape(bsz, h, wd, n)
     got = convops.requant32(sums, _t(b), _t(s), False).numpy().astype(np.int16)
     want = np.asarray(jconv.conv_w8a16(
         jnp.asarray(x), jnp.asarray(w),
@@ -214,16 +213,16 @@ def test_w8a16_tc_sum_wraps_like_xla(shift):
     ("w8a16", 7400, -32513),     # K = 66,600: an unchunked low sum leaves s32
 ])
 def test_tc_sum_chunks_a_long_k(scheme, c, xv):
-    """K beyond one split (TC_KMAX values of k) with operands at their
-    extremes: every s32 partial sum stays inside s32 (tc_sum raises
+    """K beyond one split (tc.KMAX values of k) with operands at their
+    extremes: every s32 partial sum stays inside s32 (tc.emulate raises
     otherwise), and the sums equal the exact ones modulo 2^32 and XLA's;
-    tc_split cuts the same K into splits of at most TC_KMAX."""
-    sch, xdtype, tc_sum = SCHEMES[scheme]
+    tc.split cuts the same K into splits of at most tc.KMAX."""
+    sch, xdtype = SCHEMES[scheme]
     k, n = 9 * c, 8
     x = np.full((2, k), xv, xdtype)
     w = np.full((k, n), -128, np.int8)
     tx, tw = _t(x), _t(w)
-    got = tc_sum(tx, q8.pack_w8(tw, sch), k, n)
+    got = tc.emulate(tx, q8.pack_w8(tw, sch), k, n, sch)
     assert torch.equal(got, q16.acc32(q16.mm_sum64(tx, tw)))
     want = jnp.dot(jnp.asarray(x), jnp.asarray(w),
                    preferred_element_type=jnp.int32)
@@ -231,23 +230,23 @@ def test_tc_sum_chunks_a_long_k(scheme, c, xv):
     if scheme == "w8a16" and k > 65793:
         # the low bytes (255) times -128 over all of K would leave s32
         assert 255 * -128 * k < -2**31
-    kps = q16.tc_split(2, n, k, 132, sch)
-    assert -(-k // (kps * sch.bk)) >= 2 and kps * sch.bk <= q16.TC_KMAX
+    kps = tc.split(2, n, k, 132, sch)
+    assert -(-k // (kps * sch.bk)) >= 2 and kps * sch.bk <= tc.KMAX
 
 
 def test_tc_sum_raises_when_a_partial_leaves_s32():
     """The emulator checks each s32 set: a plane layout whose chunks were
-    longer than TC_KMAX would fail here, not pass silently."""
+    longer than tc.KMAX would fail here, not pass silently."""
     k = 66600
     x = _t(np.full((1, k), -32513, np.int16))
     planes = q8.pack_conv3x3_w8a16(_t(np.full((k, 8), -128, np.int8)))
-    kmax = q16.TC_KMAX
+    kmax = tc.KMAX
     try:
-        q16.TC_KMAX = 1 << 20   # one chunk: the low sum is 255 * -128 * K
+        tc.KMAX = 1 << 20   # one chunk: the low sum is 255 * -128 * K
         with pytest.raises(OverflowError):
-            q8.mm_w8a16_tc_sum(x, planes, k, 8)
+            tc.emulate(x, planes, k, 8, tc.W8A16)
     finally:
-        q16.TC_KMAX = kmax
+        tc.KMAX = kmax
 
 
 @pytest.mark.parametrize("name", ["conv3x3_s8", "conv3x3_w8a16",
@@ -256,15 +255,15 @@ def test_planes_required_on_card_ignored_by_plain(name):
     """On the card each wrapper raises without planes= (naming the packer)
     or with planes of the wrong shape; the plain versions and the CPU path
     take planes= and do not read them."""
-    sch = q8.TC_W8A16 if name == "conv3x3_w8a16" else q8.TC_S8
+    sch = tc.W8A16 if name == "conv3x3_w8a16" else tc.S8
     with pytest.raises(TypeError, match=sch.pack):
-        q16._check_planes(name, None, 9 * 16, 8, torch.device("cpu"), sch)
+        tc.check_planes(name, None, 9 * 16, 8, torch.device("cpu"), sch)
     good = q8.pack_w8(torch.zeros((3, 3, 16, 8), dtype=torch.int8), sch)
-    q16._check_planes(name, good, 9 * 16, 8, torch.device("cpu"), sch)
-    other = q8.TC_S8 if sch is q8.TC_W8A16 else q8.TC_W8A16
+    tc.check_planes(name, good, 9 * 16, 8, torch.device("cpu"), sch)
+    other = tc.S8 if sch is tc.W8A16 else tc.W8A16
     wrong = q8.pack_w8(torch.zeros((3, 3, 16, 8), dtype=torch.int8), other)
     with pytest.raises(ValueError, match="planes"):
-        q16._check_planes(name, wrong, 9 * 16, 8, torch.device("cpu"), sch)
+        tc.check_planes(name, wrong, 9 * 16, 8, torch.device("cpu"), sch)
 
     rng = np.random.default_rng(3)
     xdtype = np.int16 if name == "conv3x3_w8a16" else np.int8
@@ -300,8 +299,8 @@ def test_model_packs_the_conv3_weights(tier, packer):
     w = rng.integers(-128, 128, (3, 3, l.c, l.n)).astype(np.int8)
     xdtype = np.int8 if tier == "int8" else np.int16
     x = _draw(rng, (1, 6, 6, l.c), xdtype)
-    sch = q8.TC_S8 if tier == "int8" else q8.TC_W8A16
-    sums = q16.tc_sum(q16.im2col3x3(_t(x)), packer(_t(w)), 9 * l.c, l.n, sch)
+    sch = tc.S8 if tier == "int8" else tc.W8A16
+    sums = tc.emulate(q16.im2col3x3(_t(x)), packer(_t(w)), 9 * l.c, l.n, sch)
     assert torch.equal(sums.reshape(1, 6, 6, l.n),
                        q16.acc32(q16.conv3x3_sum64(_t(x), _t(w))))
 
@@ -322,7 +321,6 @@ def test_model_packs_the_conv3_weights(tier, packer):
 ])
 def test_tc_split_8bit(scheme, m, n, k, want):
     sch = SCHEMES[scheme][0]
-    kps = q16.tc_split(m, n, k, 132, sch)
+    kps = tc.split(m, n, k, 132, sch)
     ktiles = -(-k // sch.bk)
-    assert -(-ktiles // kps) == want and kps * sch.bk <= q16.TC_KMAX
-    assert sch.wave <= sch.resident
+    assert -(-ktiles // kps) == want and kps * sch.bk <= tc.KMAX

@@ -48,9 +48,9 @@
 // weights absorb this permutation: they are laid out as the descriptor reads
 // them (8x16-byte core matrices, no swizzle), in the permuted order for
 // int16 A and in natural order for int8 A, split into their high (s8) and
-// low (u8) planes for Q16, once, at model build (ops/q16.py: pack_q16 and
-// FRAG_K, the permutation; ops/q8.py: pack_w8), so a B stage is one
-// contiguous copy.
+// low (u8) planes for Q16, once, at model build (ops/tc.py: FRAG_K, the
+// permutation, and arrange_planes; ops/q16.py: pack_q16; ops/q8.py:
+// pack_w8), so a B stage is one contiguous copy.
 //
 // Small M. Where the output tiles are too few to fill the card, the grid's
 // z dimension cuts K into splits of ktiles_per_split K steps; each block
@@ -129,8 +129,8 @@ struct EpiChannel {
 
 // The operand schemes. Each fixes the type of A, the weight planes, the s32
 // accumulator sets, the epilogue, a STAGES-deep ring and the blocks per SM
-// asked of the compiler (MIN_BLOCKS; ops/q16.py's TcScheme mirrors these,
-// and yq_tc_config reports them). Several blocks stay on an SM (Q16 and
+// asked of the compiler (MIN_BLOCKS; yq_tc_config reports them, and
+// ops/tc.py's Scheme holds what the wrappers need of them). Several blocks stay on an SM (Q16 and
 // W8A16: three, by the registers of 3 x 128 threads and 3 x 68 or 52 KB of
 // shared memory; S8, whose one accumulator set needs fewer registers: four,
 // with a 3-stage ring of 51 KB), so where a block has few K steps (a large
@@ -650,8 +650,8 @@ igemm_tc_kernel(const typename Loader::Params p, const uint8_t* __restrict__ wp,
 }
 
 // Launch on `stream`: one block per BM x BN output tile and split; the
-// K steps of a split, ktiles_per_split, come from the wrapper (ops/q16.py:
-// tc_split), at most KMAX / BK. With more than one split, ws holds M*N +
+// K steps of a split, ktiles_per_split, come from the wrapper (ops/tc.py:
+// split), at most KMAX / BK. With more than one split, ws holds M*N +
 // (output tiles) uint32 and is zeroed here first; it may be null
 // otherwise. Returns cudaGetLastError() after the launch.
 template <class S, class Loader>

@@ -6,7 +6,8 @@ are linked into one shared library with a plain C interface, at first use.
 The library lands in ``build/yolotpu_torch/<hash>/`` at the root of the
 checkout, keyed by a hash of the sources and the command, so a changed source
 builds anew and an unchanged one loads at once. Nothing here runs at import:
-the CPU tests import this module on machines with no ``nvcc``.
+the CPU tests import this module on machines with no ``nvcc``. ``launch``
+calls an entry point and counts the launch.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import tempfile
 import time
 from dataclasses import dataclass
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC.parent.parent / "build" / "yolotpu_torch"
@@ -133,3 +136,23 @@ def load_library() -> KernelLibrary:
         fn.restype = ctypes.c_int
     log = log_path.read_text() if log_path.exists() else ""
     return KernelLibrary(cdll=cdll, path=out, build_seconds=seconds, log=log)
+
+
+def check_rows(name: str, m: int) -> None:
+    """Raise unless M (the output rows) fits the entry points' C int."""
+    if m >= 1 << 31:
+        raise ValueError(f"{name}: M={m} does not fit the kernel's int")
+
+
+def launch(name: str, fn: str, out: torch.Tensor, *args,
+           counts: dict) -> torch.Tensor:
+    """Call C entry point ``fn`` with ``args`` and the current stream of
+    ``out``'s device, raise on a CUDA error, and count one launch of
+    ``name`` in ``counts``."""
+    lib = load_library()
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    rc = getattr(lib.cdll, fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+    counts[name] += 1
+    return out

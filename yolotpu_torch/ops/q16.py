@@ -27,27 +27,21 @@ int64 and wrapping to int32 gives the wraparound int32 sum.
 mm_q16 and conv3x3_q16 run on the 8-bit tensor cores (``csrc/igemm_tc.cuh``):
 each int16 is cut into a signed high and an unsigned low byte, and the
 three s32 partial sums (high x high, the two mixed products, low x low) are
-recombined modulo 2^32. On the card they take the weights also as packed
-planes (``pack_q16``, once at model build): the high (s8) and low (u8)
-bytes, padded to the kernel's tile in K and N and laid out as its B
-fragments. ``mm_split_sum`` computes the sums from those planes the way the
-kernel does, so the CPU tests hold the layout. The tensor-core body serves
-``ops.q8``'s 3x3 convs too, in other operand schemes: ``TcScheme`` mirrors
-each scheme's tile, and ``arrange_planes``, ``tc_sum``, ``tc_split`` and
-``_tc_launch`` take the scheme. conv3x3_pool_q16 reads HWIO
-int16 as a (taps*C, N) row-major matrix on the CUDA cores. The bias is the
-(N,) int32 pre-shifted bias.
+recombined modulo 2^32 (``ops.tc``, scheme ``tc.Q16``). On the card they
+take the weights also as packed planes (``pack_q16``, once at model build):
+the high (s8) and low (u8) bytes, padded to the kernel's tile in K and N
+and laid out as its B fragments. ``tc.emulate`` computes the sums from
+those planes the way the kernel does, so the CPU tests hold the layout.
+conv3x3_pool_q16 reads HWIO int16 as a (taps*C, N) row-major matrix on the
+CUDA cores. The bias is the (N,) int32 pre-shifted bias.
 """
 
 from __future__ import annotations
 
-import functools
-from dataclasses import dataclass
-
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, tc
 from .convops import requant32, wrap32
 
 LAUNCHES = {"mm_q16": 0, "conv3x3_q16": 0, "conv3x3_pool_q16": 0}
@@ -76,192 +70,15 @@ def prep_weights(w_hwio: torch.Tensor) -> torch.Tensor:
     return w.contiguous()
 
 
-@dataclass(frozen=True, eq=False)   # one object per scheme: hashed by identity
-class TcScheme:
-    """One operand scheme of the tensor-core body (``csrc/igemm_tc.cuh``),
-    as its C struct fixes it: ``id`` (its number in ``yq_tc_config``), the
-    bytes of one A value, the weight planes, the blocks resident on an SM
-    (every scheme's block is a TC_BM x TC_BN output tile); then what tc_split
-    models: the blocks per SM whose K steps a wave overlaps (``wave``, at
-    most ``resident``) and the cost of splitting K (in K steps), both set
-    from chip_smoke.py's split sweep; and the function that packs its
-    planes. A K step is 128 bytes of A per row, ``bk`` values of k; the
-    planes hold their k in fragment order (FRAG_K) where A is int16 and in
-    natural order where it is int8."""
-    name: str
-    id: int
-    a_bytes: int
-    planes: int
-    resident: int
-    wave: int
-    split_cost: int
-    pack: str
-
-    @property
-    def bk(self) -> int:
-        return 128 // self.a_bytes
-
-    @property
-    def frag(self) -> bool:
-        return self.a_bytes == 2
-
-    def planes_shape(self, k: int, n: int) -> tuple[int, ...]:
-        """The packed planes of a (K, N) weight: (Np/64 column tiles, Kp/32
-        chunks, planes, 8 column groups g, 2 k halves h, 8 columns r, 16 k
-        bytes e), K padded to ``bk`` and N to TC_BN."""
-        return (_round_up(n, TC_BN) // 64, _round_up(k, self.bk) // 32,
-                self.planes, 8, 2, 8, 16)
-
-
-def _round_up(v: int, m: int) -> int:
-    return -(-v // m) * m
-
-
-# What splitting K adds to a block's time, in K steps: the workspace's
-# memset, the atomic adds and the last block's pass over its tile. Set from
-# chip_smoke.py's split sweep (every split of K at every yolov2 416 shape
-# at batch 1 and 8, NVIDIA H100 80GB HBM3): any value from 15 to 26 picks,
-# at each shape, a split at most 6% slower than the fastest one measured
-# there, and 20 is the middle of that range.
-TC_SPLIT_COST = 20
-
-# The tensor-core body's output tile (csrc/igemm_tc.cuh: BM, BN) and the k
-# of one s32 partial sum (KMAX), and the int16 tier's scheme (Q16: three s32
-# sums of the high and low bytes) with its K step and resident blocks: its
-# planes are padded to TC_BK in K and TC_BN in N.
-TC_BM, TC_BN, TC_KMAX = 64, 64, 32768
-TC_Q16 = TcScheme("q16", 0, a_bytes=2, planes=2, resident=3, wave=3,
-                  split_cost=TC_SPLIT_COST, pack="pack_q16")
-TC_BK, TC_RESIDENT = TC_Q16.bk, TC_Q16.resident
-# Fragment position p = 16h + 4t + i of a 32-k chunk (h < 2, lane t < 4,
-# byte i < 4) holds k = FRAG_K[p]: ldmatrix gives lane t the int16 pairs
-# (2t, 2t+1) and (8+2t, 9+2t), and their high or low bytes make one 8-bit
-# A fragment register; the B operand holds its k in the same order.
-FRAG_K = tuple(16 * (p // 16) + 2 * (p % 16 // 4) + p % 2 + 8 * (p % 4 // 2)
-               for p in range(32))
-
-
-def planes_shape(k: int, n: int) -> tuple[int, ...]:
-    """pack_q16's planes of a (K, N) weight: TC_Q16.planes_shape."""
-    return TC_Q16.planes_shape(k, n)
-
-
-def arrange_planes(byte_planes: list[torch.Tensor],
-                   scheme: TcScheme) -> torch.Tensor:
-    """Byte planes of a (K, N) weight, uint8 (K, N) each, -> the tensor-core
-    kernels' B operand, uint8 ``scheme.planes_shape(K, N)`` on their device:
-    K padded to ``scheme.bk`` and N to TC_BN with zeros; for each
-    64-column tile nb and 32-k chunk kc the planes in turn, each in the
-    shared-memory layout of the wgmma B descriptor: byte (g, h, r, e) of
-    plane j holds plane j's byte of column 64 nb + 8 g + r at
-    k = 32 kc + order[16 h + e], order FRAG_K or (for int8 A) 0 .. 31."""
-    k, n = byte_planes[0].shape
-    nb, kc = scheme.planes_shape(k, n)[:2]
-    dev = byte_planes[0].device
-    order = torch.tensor(FRAG_K if scheme.frag else range(32), device=dev)
-
-    def arrange(plane: torch.Tensor) -> torch.Tensor:
-        wp = torch.zeros((kc * 32, nb * 64), dtype=torch.uint8, device=dev)
-        wp[:k, :n] = plane
-        # (kc, h, e, nb, g, r) -> (nb, kc, g, h, r, e)
-        p = wp.view(kc, 32, nb * 64)[:, order].view(kc, 2, 16, nb, 8, 8)
-        return p.permute(3, 0, 4, 1, 5, 2)
-
-    return torch.stack([arrange(p) for p in byte_planes], dim=2).contiguous()
-
-
 def pack_q16(w: torch.Tensor) -> torch.Tensor:
     """int16 weights, (C, N) or HWIO (3, 3, C, N), read as (K, N) -> the
-    Q16 kernels' B operand (``arrange_planes``, uint8 ``planes_shape(K,
-    N)`` on w's device): each value split into its high byte (s8, w >> 8),
+    Q16 kernels' B operand (``tc.arrange_planes``, uint8
+    ``tc.Q16.planes_shape(K, N)`` on w's device): each value split into its high byte (s8, w >> 8),
     plane 0, and its low byte (u8, w & 255), plane 1, in FRAG_K order."""
     wk = w.reshape(-1, w.shape[-1])
     hi = (wk >> 8).to(torch.int8).view(torch.uint8)
     lo = (wk & 255).to(torch.uint8)
-    return arrange_planes([hi, lo], TC_Q16)
-
-
-def plane_matrix(planes: torch.Tensor, j: int,
-                 dtype: torch.dtype) -> torch.Tensor:
-    """Plane j of packed planes, its bytes read as ``dtype`` (torch.int8 or
-    torch.uint8), as an int64 (Kp, Np) matrix in the planes' k order: row
-    32 kc + p holds k = 32 kc + order[p], as the kernel's A fragments take
-    it."""
-    nb, kc = planes.shape[:2]
-    q = planes[:, :, j].contiguous().view(dtype).to(torch.int64)
-    # (nb, kc, g, h, r, e) -> (kc, h, e, nb, g, r)
-    return q.permute(1, 3, 5, 0, 2, 4).reshape(kc * 32, nb * 64)
-
-
-def tc_sum(x: torch.Tensor, planes: torch.Tensor, k: int, n: int,
-           scheme: TcScheme) -> torch.Tensor:
-    """x (M, K) (int16 A, or int8 for an S8 scheme) and ``scheme``'s packed
-    planes of a (K, N) weight -> the (M, N) int32 sums modulo 2^32,
-    computed as the tensor-core kernel of that scheme computes them: x in
-    the planes' k order, split into its high (s8, << 8) and low (u8) bytes
-    where it is int16, the weight's high (s8, << 8) and low (u8) planes for
-    Q16 or its one s8 plane; the products of equal shift summed into one s32
-    set (Q16: << 16, << 8, << 0; W8A16: << 8, << 0; S8: one) over at most
-    TC_KMAX values of k, each set required to fit s32 (OverflowError
-    otherwise), recombined modulo 2^32 and summed over the chunks modulo
-    2^32. For tests: it holds the packing layout and each scheme's
-    exactness on the CPU."""
-    ws = ([(plane_matrix(planes, 0, torch.int8), 8),
-           (plane_matrix(planes, 1, torch.uint8), 0)] if scheme.planes == 2
-          else [(plane_matrix(planes, 0, torch.int8), 0)])
-    kp = ws[0][0].shape[0]
-    xk = torch.zeros((x.shape[0], kp), dtype=torch.int64)
-    xk[:, :k] = x.to(torch.int64)
-    if scheme.frag:
-        xk = xk.view(-1, kp // 32, 32)[:, :, list(FRAG_K)].reshape(-1, kp)
-    xs = [(xk >> 8, 8), (xk & 255, 0)] if scheme.a_bytes == 2 else [(xk, 0)]
-    acc = torch.zeros((x.shape[0], ws[0][0].shape[1]), dtype=torch.int64)
-
-    def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int64)
-
-    for c0 in range(0, kp, TC_KMAX):
-        c = slice(c0, c0 + TC_KMAX)
-        sets: dict[int, torch.Tensor] = {}
-        for a, sa in xs:
-            for b, sb in ws:
-                sets[sa + sb] = sets.get(sa + sb, 0) + dot(a[:, c], b[c])
-        for sh, s in sets.items():
-            if s.numel() and int(s.abs().max()) >= 2 ** 31:
-                raise OverflowError(f"the partial sum << {sh} leaves s32")
-            acc = (acc + (s << sh)) & 0xFFFFFFFF
-    return wrap32(acc[:, :n])
-
-
-def mm_split_sum(x: torch.Tensor, planes: torch.Tensor, k: int,
-                 n: int) -> torch.Tensor:
-    """x (M, K) int16 and pack_q16's planes of a (K, N) weight -> the (M, N)
-    int32 sums modulo 2^32 as the Q16 kernels compute them (``tc_sum``:
-    three s32 partial sums, high x high, high x low + low x high, low x
-    low)."""
-    return tc_sum(x, planes, k, n, TC_Q16)
-
-
-@functools.lru_cache(maxsize=4096)
-def tc_split(m: int, n: int, k: int, sms: int,
-             scheme: TcScheme = TC_Q16) -> int:
-    """The K steps (of ``scheme.bk``) per split for an (M, K) @ (K, N) on the
-    tensor-core body with ``sms`` SMs: of the split counts from
-    ceil(K / TC_KMAX) up, the one whose waves (of ``scheme.wave`` blocks per
-    SM) times a block's time is least, a block's time being its K steps,
-    plus the scheme's split cost where K is split; the fewest splits on a
-    tie."""
-    tiles = -(-m // TC_BM) * -(-n // TC_BN)
-    ktiles = -(-k // scheme.bk)
-    best, best_cost = None, None
-    for s in range(-(-k // TC_KMAX), ktiles + 1):
-        kps = -(-ktiles // s)
-        splits = -(-ktiles // kps)
-        waves = -(-tiles * splits // (sms * scheme.wave))
-        cost = waves * (kps + (scheme.split_cost if splits > 1 else 0))
-        if best_cost is None or cost < best_cost:
-            best, best_cost = kps, cost
-    return best
+    return tc.arrange_planes([hi, lo], tc.Q16)
 
 
 def acc32(accf: torch.Tensor) -> torch.Tensor:
@@ -332,9 +149,13 @@ def conv3x3_pool_q16_plain(x: torch.Tensor, w: torch.Tensor,
     return v.to(torch.int16)
 
 
-def _check(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-           x_ndim: int, w_shape_ok: bool, x_dtype: torch.dtype = torch.int16,
-           w_dtype: torch.dtype = torch.int16) -> None:
+def check_operands(name: str, x: torch.Tensor, w: torch.Tensor,
+                   bias: torch.Tensor, x_ndim: int, w_shape_ok: bool,
+                   x_dtype: torch.dtype = torch.int16,
+                   w_dtype: torch.dtype = torch.int16) -> None:
+    """Raise unless x, w and bias have the dtypes, ranks and shapes a
+    wrapper takes (``w_shape_ok``: w fits x) and lie on one device, the CPU
+    or a card, contiguous on a card."""
     if x.dtype != x_dtype or w.dtype != w_dtype or bias.dtype != torch.int32:
         raise TypeError(f"{name}: want {x_dtype} x, {w_dtype} w, int32 bias; "
                         f"got {x.dtype}, {w.dtype}, {bias.dtype}")
@@ -352,79 +173,21 @@ def _check(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"{name}: the kernel needs contiguous operands")
 
 
-def _launch(name: str, fn: str, out: torch.Tensor, *args,
-            counts: dict = LAUNCHES) -> torch.Tensor:
-    """Call C entry point ``fn`` on the current stream, raise on a CUDA
-    error, and count one launch of ``name`` in ``counts``."""
-    lib = _build.load_library()
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    rc = getattr(lib.cdll, fn)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
-    counts[name] += 1
-    return out
-
-
-def _rows_fit(name: str, m: int) -> None:
-    if m >= 1 << 31:
-        raise ValueError(f"{name}: M={m} does not fit the kernel's int")
-
-
-@functools.lru_cache(maxsize=4096)
-def _planes_shape(scheme: TcScheme, k: int, n: int) -> tuple[int, ...]:
-    return scheme.planes_shape(k, n)
-
-
-def _check_planes(name: str, planes, k: int, n: int, device: torch.device,
-                  scheme: TcScheme = TC_Q16) -> None:
-    if planes is None:
-        raise TypeError(f"{name}: on the card the kernel takes the weights "
-                        f"also as packed planes (planes={scheme.pack}(w), "
-                        "made once at model build)")
-    want = _planes_shape(scheme, k, n)   # the wrappers' host time counts
-    if (planes.dtype != torch.uint8 or tuple(planes.shape) != want
-            or planes.device != device or not planes.is_contiguous()):
-        raise ValueError(f"{name}: planes {planes.dtype} "
-                         f"{tuple(planes.shape)} on {planes.device}; want "
-                         f"contiguous uint8 {want} on {device}")
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _tc_launch(name: str, fn: str, out: torch.Tensor, m: int, n: int, k: int,
-               pointers: tuple, ints: tuple, scheme: TcScheme = TC_Q16,
-               counts: dict = LAUNCHES) -> torch.Tensor:
-    """Launch a tensor-core kernel of ``scheme``: C entry point ``fn`` takes
-    ``pointers``, the output, the workspace, ``ints``, the K steps per split
-    and the stream. Where tc_split splits K, the workspace the kernel zeroes
-    (M*N sums and one counter per output tile) is allocated here."""
-    kps = tc_split(m, n, k, _sm_count(out.device.index or 0), scheme)
-    ws = None
-    if -(-k // scheme.bk) > kps:   # split: M*N sums and a counter per tile
-        ws = torch.empty(m * n + -(-m // TC_BM) * -(-n // TC_BN),
-                         dtype=torch.int32, device=out.device)
-    return _launch(name, fn, out, *pointers, out.data_ptr(),
-                   None if ws is None else ws.data_ptr(), *ints, kps,
-                   counts=counts)
-
-
 def mm_q16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, shift: int,
            leaky: bool, planes: torch.Tensor | None = None) -> torch.Tensor:
     """x (M, K) int16 @ w (K, N) int16, fused requant -> (M, N) int16. On
     the card ``planes`` (pack_q16(w)) is the kernel's weight operand."""
-    _check("mm_q16", x, w, bias, 2, w.ndim == 2 and w.shape[0] == x.shape[-1])
+    check_operands("mm_q16", x, w, bias, 2,
+                   w.ndim == 2 and w.shape[0] == x.shape[-1])
     if x.device.type == "cpu":
         return mm_q16_plain(x, w, bias, shift, leaky)
     (m, k), n = x.shape, w.shape[1]
-    _rows_fit("mm_q16", m)
-    _check_planes("mm_q16", planes, k, n, x.device)
+    _build.check_rows("mm_q16", m)
+    tc.check_planes("mm_q16", planes, k, n, x.device, tc.Q16)
     out = torch.empty((m, n), dtype=torch.int16, device=x.device)
-    return _tc_launch("mm_q16", "yq16_mm", out, m, n, k,
-                      (x.data_ptr(), planes.data_ptr(), bias.data_ptr()),
-                      (m, k, n, int(shift), int(leaky)))
+    return tc.launch("mm_q16", "yq16_mm", out, m, n, k,
+                     (x.data_ptr(), planes.data_ptr(), bias.data_ptr()),
+                     (m, k, n, int(shift), int(leaky)), tc.Q16, LAUNCHES)
 
 
 def conv3x3_q16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -433,18 +196,19 @@ def conv3x3_q16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     """x (B, H, W, C) int16, w (3, 3, C, N) int16 -> SAME 3x3/s1 conv with
     fused requant, (B, H, W, N) int16. On the card ``planes``
     (pack_q16(w)) is the kernel's weight operand."""
-    _check("conv3x3_q16", x, w, bias, 4,
-           w.ndim == 4 and w.shape[:3] == (3, 3, x.shape[-1]))
+    check_operands("conv3x3_q16", x, w, bias, 4,
+                   w.ndim == 4 and w.shape[:3] == (3, 3, x.shape[-1]))
     if x.device.type == "cpu":
         return conv3x3_q16_plain(x, w, bias, shift, leaky)
     b, h, wd, c = x.shape
     n = w.shape[-1]
-    _rows_fit("conv3x3_q16", b * h * wd)
-    _check_planes("conv3x3_q16", planes, 9 * c, n, x.device)
+    _build.check_rows("conv3x3_q16", b * h * wd)
+    tc.check_planes("conv3x3_q16", planes, 9 * c, n, x.device, tc.Q16)
     out = torch.empty((b, h, wd, n), dtype=torch.int16, device=x.device)
-    return _tc_launch("conv3x3_q16", "yq16_conv3x3", out, b * h * wd, n, 9 * c,
-                      (x.data_ptr(), planes.data_ptr(), bias.data_ptr()),
-                      (b, h, wd, c, n, int(shift), int(leaky)))
+    return tc.launch("conv3x3_q16", "yq16_conv3x3", out, b * h * wd, n, 9 * c,
+                     (x.data_ptr(), planes.data_ptr(), bias.data_ptr()),
+                     (b, h, wd, c, n, int(shift), int(leaky)), tc.Q16,
+                     LAUNCHES)
 
 
 def conv3x3_pool_q16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -453,8 +217,8 @@ def conv3x3_pool_q16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     3x3/s1 conv with fused requant and the darknet 2x2/s2 maxpool after it,
     the max taken in ``order`` (one of POOL_ORDERS): (B, H/2, W/2, N)
     int16."""
-    _check("conv3x3_pool_q16", x, w, bias, 4,
-           w.ndim == 4 and w.shape[:3] == (3, 3, x.shape[-1]))
+    check_operands("conv3x3_pool_q16", x, w, bias, 4,
+                   w.ndim == 4 and w.shape[:3] == (3, 3, x.shape[-1]))
     b, h, wd, c = x.shape
     if h % 2 or wd % 2 or order not in POOL_ORDERS:
         raise ValueError(f"conv3x3_pool_q16: want even H and W and an order "
@@ -464,7 +228,8 @@ def conv3x3_pool_q16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     n = w.shape[-1]
     out = torch.empty((b, h // 2, wd // 2, n), dtype=torch.int16,
                       device=x.device)
-    return _launch("conv3x3_pool_q16", "yq16_conv3x3_pool", out, x.data_ptr(),
-                   w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                   b, h, wd, c, n, int(shift), int(leaky),
-                   POOL_ORDERS.index(order))
+    return _build.launch("conv3x3_pool_q16", "yq16_conv3x3_pool", out,
+                         x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                         out.data_ptr(), b, h, wd, c, n, int(shift),
+                         int(leaky), POOL_ORDERS.index(order),
+                         counts=LAUNCHES)

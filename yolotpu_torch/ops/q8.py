@@ -22,18 +22,18 @@ an (N,) shift vector and the output type's range):
 The kernels' shift is always an (N,) int32 tensor: a per-layer shift is
 broadcast once, when the model is built.
 
-The three 3x3 convs run on the 8-bit tensor cores (``csrc/igemm_tc.cuh``,
-the body of ``q16``'s tensor-core kernels) in two operand schemes:
-``TC_S8`` (int8 x int8, one s32 sum) and ``TC_W8A16`` (each int16
-activation cut into an s8 high and a u8 low byte against the int8 weight,
-two s32 sums recombined as (high << 8) + low modulo 2^32; the TPU's low
-plane carried a -128 offset and a ``cw``/``nconst`` column constant, which
-do not carry over). On the card they take the weights also as one packed
-s8 plane (``pack_conv3x3_s8``, ``pack_conv3x3_w8a16``, made once at model
-build), and ``mm_s8_tc_sum`` / ``mm_w8a16_tc_sum`` compute the sums from
-those planes the way the kernels do, so the CPU tests hold the layout. The
-1x1 kernels multiply int8 or int16 by int8 on the CUDA cores
-(``csrc/igemm.cuh``).
+The three 3x3 convs run on the 8-bit tensor cores (``csrc/igemm_tc.cuh``
+and ``ops.tc``, the body they share with ``q16``'s tensor-core kernels) in
+two operand schemes: ``tc.S8`` (int8 x int8, one s32 sum) and
+``tc.W8A16`` (each int16 activation cut into an s8 high and a u8 low byte
+against the int8 weight, two s32 sums recombined as (high << 8) + low
+modulo 2^32; the TPU's low plane carried a -128 offset and a
+``cw``/``nconst`` column constant, which do not carry over). On the card
+they take the weights also as one packed s8 plane (``pack_conv3x3_s8``,
+``pack_conv3x3_w8a16``, made once at model build), and ``tc.emulate``
+computes the sums from those planes the way the kernels do, so the CPU
+tests hold the layout. The 1x1 kernels multiply int8 or int16 by int8 on
+the CUDA cores (``csrc/igemm.cuh``).
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
 launches the hand-written kernel (``csrc/``, built by ``_build``) or raises.
@@ -49,7 +49,7 @@ from __future__ import annotations
 
 import torch
 
-from . import q16
+from . import _build, q16, tc
 from .convops import requant32
 
 LAUNCHES = {"mm_s8": 0, "mm_w8a16": 0, "conv3x3_s8": 0, "conv3x3_w8a16": 0,
@@ -109,56 +109,25 @@ def conv3x3_int8_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return conv3x3_s8_plain(x, w, bias, _broadcast(shift_out, w), leaky)
 
 
-# The tensor-core schemes of the 3x3 convs (csrc/igemm_tc.cuh: W8A16, S8):
-# int16 or int8 A against one s8 weight plane; W8A16 three blocks on an SM,
-# S8 four. tc_split keeps its one split cost for both. For S8 it
-# counts two blocks per SM in a wave: chip_smoke.py's split sweep (NVIDIA
-# H100 80GB HBM3) found the 13x13 convs at batch 1 fastest at 4-5 splits,
-# where more blocks than two per SM gave no shorter wave, and with three or
-# four per SM in its waves tc_split chose 8-11 splits, up to 1.28x slower.
-TC_W8A16 = q16.TcScheme("w8a16", 1, a_bytes=2, planes=1, resident=3, wave=3,
-                        split_cost=q16.TC_SPLIT_COST, pack="pack_conv3x3_w8a16")
-TC_S8 = q16.TcScheme("s8", 2, a_bytes=1, planes=1, resident=4, wave=2,
-                     split_cost=q16.TC_SPLIT_COST, pack="pack_conv3x3_s8")
-
-
-def pack_w8(w: torch.Tensor, scheme: q16.TcScheme) -> torch.Tensor:
+def pack_w8(w: torch.Tensor, scheme: tc.Scheme) -> torch.Tensor:
     """int8 weights, (C, N) or HWIO (3, 3, C, N), read as (K, N) -> the
-    ``scheme`` kernel's B operand, one s8 plane (``q16.arrange_planes``,
+    ``scheme`` kernel's B operand, one s8 plane (``tc.arrange_planes``,
     uint8 ``scheme.planes_shape(K, N)`` on w's device: K padded to 128 for
-    TC_S8 and to 64 for TC_W8A16, N to 64, with zeros), in
-    natural k order for TC_S8 and in FRAG_K order for TC_W8A16, whose A
-    fragments come from int16 activations."""
-    return q16.arrange_planes([w.reshape(-1, w.shape[-1]).view(torch.uint8)],
-                              scheme)
+    tc.S8 and to 64 for tc.W8A16, N to 64, with zeros), in natural k order
+    for tc.S8 and in FRAG_K order for tc.W8A16, whose A fragments come from
+    int16 activations."""
+    return tc.arrange_planes([w.reshape(-1, w.shape[-1]).view(torch.uint8)],
+                             scheme)
 
 
 def pack_conv3x3_s8(w: torch.Tensor) -> torch.Tensor:
     """conv3x3_s8's (and conv3x3_int8's) planes of w (3, 3, C, N) int8."""
-    return pack_w8(w, TC_S8)
+    return pack_w8(w, tc.S8)
 
 
 def pack_conv3x3_w8a16(w: torch.Tensor) -> torch.Tensor:
     """conv3x3_w8a16's planes of w (3, 3, C, N) int8."""
-    return pack_w8(w, TC_W8A16)
-
-
-def mm_s8_tc_sum(x: torch.Tensor, planes: torch.Tensor, k: int,
-                 n: int) -> torch.Tensor:
-    """x (M, K) int8 and pack_w8(w, TC_S8) of a (K, N) weight -> the (M, N)
-    int32 sums as the S8 kernel computes them (``q16.tc_sum``: one s32 sum
-    over at most TC_KMAX values of k, OverflowError if it leaves s32)."""
-    return q16.tc_sum(x, planes, k, n, TC_S8)
-
-
-def mm_w8a16_tc_sum(x: torch.Tensor, planes: torch.Tensor, k: int,
-                    n: int) -> torch.Tensor:
-    """x (M, K) int16 and pack_w8(w, TC_W8A16) of a (K, N) weight -> the
-    (M, N) int32 sums modulo 2^32 as the W8A16 kernel computes them
-    (``q16.tc_sum``: x in FRAG_K order split into its s8 high and u8 low
-    bytes, two s32 sums over at most TC_KMAX values of k, OverflowError if
-    one leaves s32, recombined as (high << 8) + low modulo 2^32)."""
-    return q16.tc_sum(x, planes, k, n, TC_W8A16)
+    return pack_w8(w, tc.W8A16)
 
 
 def _check(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -166,8 +135,8 @@ def _check(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     """x_ndim 2: a matmul, w (K, N); 4: a 3x3 conv, w (3, 3, C, N)."""
     w_ok = (w.ndim == 2 and w.shape[0] == x.shape[-1] if x_ndim == 2 else
             w.ndim == 4 and w.shape[:3] == (3, 3, x.shape[-1]))
-    q16._check(name, x, w, bias, x_ndim, w_ok, x_dtype=x_dtype,
-               w_dtype=torch.int8)
+    q16.check_operands(name, x, w, bias, x_ndim, w_ok, x_dtype=x_dtype,
+                       w_dtype=torch.int8)
     if shift.dtype != torch.int32 or shift.shape != bias.shape \
             or shift.device != x.device:
         raise ValueError(f"{name}: want an int32 shift of shape "
@@ -181,25 +150,25 @@ def _mm(name: str, fn: str, x: torch.Tensor, w: torch.Tensor,
         bias: torch.Tensor, shift: torch.Tensor, leaky: bool,
         out_dtype: torch.dtype, *flags: int) -> torch.Tensor:
     (m, k), n = x.shape, w.shape[1]
-    q16._rows_fit(name, m)
+    _build.check_rows(name, m)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    return q16._launch(name, fn, out, x.data_ptr(), w.data_ptr(),
-                       bias.data_ptr(), shift.data_ptr(), out.data_ptr(),
-                       m, k, n, int(leaky), *flags, counts=LAUNCHES)
+    return _build.launch(name, fn, out, x.data_ptr(), w.data_ptr(),
+                         bias.data_ptr(), shift.data_ptr(), out.data_ptr(),
+                         m, k, n, int(leaky), *flags, counts=LAUNCHES)
 
 
 def _conv3(name: str, fn: str, x: torch.Tensor, w: torch.Tensor,
            bias: torch.Tensor, shift: torch.Tensor, leaky: bool,
-           out_dtype: torch.dtype, planes, scheme: q16.TcScheme) -> torch.Tensor:
+           out_dtype: torch.dtype, planes, scheme: tc.Scheme) -> torch.Tensor:
     b, h, wd, c = x.shape
     n = w.shape[-1]
-    q16._rows_fit(name, b * h * wd)
-    q16._check_planes(name, planes, 9 * c, n, x.device, scheme)
+    _build.check_rows(name, b * h * wd)
+    tc.check_planes(name, planes, 9 * c, n, x.device, scheme)
     out = torch.empty((b, h, wd, n), dtype=out_dtype, device=x.device)
-    return q16._tc_launch(name, fn, out, b * h * wd, n, 9 * c,
-                          (x.data_ptr(), planes.data_ptr(), bias.data_ptr(),
-                           shift.data_ptr()),
-                          (b, h, wd, c, n, int(leaky)), scheme, counts=LAUNCHES)
+    return tc.launch(name, fn, out, b * h * wd, n, 9 * c,
+                     (x.data_ptr(), planes.data_ptr(), bias.data_ptr(),
+                      shift.data_ptr()),
+                     (b, h, wd, c, n, int(leaky)), scheme, LAUNCHES)
 
 
 def mm_s8(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -240,7 +209,7 @@ def conv3x3_s8(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     if x.device.type == "cpu":
         return conv3x3_s8_plain(x, w, bias, shift, leaky)
     return _conv3("conv3x3_s8", "yq8_conv3x3_s8", x, w, bias, shift, leaky,
-                  torch.int8, planes, TC_S8)
+                  torch.int8, planes, tc.S8)
 
 
 def conv3x3_int8(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -255,7 +224,7 @@ def conv3x3_int8(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     if x.device.type == "cpu":
         return conv3x3_s8_plain(x, w, bias, shift, leaky)
     return _conv3("conv3x3_int8", "yq8_conv3x3_s8", x, w, bias, shift, leaky,
-                  torch.int8, planes, TC_S8)
+                  torch.int8, planes, tc.S8)
 
 
 def conv3x3_w8a16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -268,4 +237,4 @@ def conv3x3_w8a16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     if x.device.type == "cpu":
         return conv3x3_w8a16_plain(x, w, bias, shift, leaky)
     return _conv3("conv3x3_w8a16", "yq8_conv3x3_w8a16", x, w, bias, shift,
-                  leaky, torch.int16, planes, TC_W8A16)
+                  leaky, torch.int16, planes, tc.W8A16)
