@@ -10,11 +10,12 @@ and in two plan slices of the int16 tier, in four phases:
 
 1. card: name and power limit, torch and CUDA versions, kernel build time,
    each kernel's registers and spills, the tensor-core MMA instructions of
-   each kernel (cuobjdump: the four tensor-core instantiations hold integer
+   each kernel (cuobjdump: the seven tensor-core instantiations hold integer
    wgmma, no other kernel any MMA), and the tile, shared memory and
    registers of each operand scheme of the tensor-core body (Q16: mm_q16,
-   conv3x3_q16; W8A16: conv3x3_w8a16; S8: conv3x3_s8, conv3x3_int8),
-   checked against the wrappers' copy of it;
+   conv3x3_q16; W8A16: mm_w8a16, conv3x3_w8a16; S8: mm_s8 with either
+   output, conv3x3_s8, conv3x3_int8), checked against the wrappers' copy of
+   it;
 2. kernels: each of the six conv kernels against its plain PyTorch version
    on the card at all 23 yolov2 conv shapes of its kind (batch 2) and at
    edge cases (shift extremes, per-channel shift vectors that mix them, sums
@@ -24,7 +25,8 @@ and in two plan slices of the int16 tier, in four phases:
    whose split of K over blocks differs from batch 2's, and with K beyond
    one split (33,000 to 131,472) and operands at their extremes, where an
    unsplit s32 partial sum would leave s32 (Q16 at K=33000, W8A16 at
-   66,600, S8 at 131,472, whose exact sums wrap); the
+   66,600, S8 at 131,472, whose exact sums wrap; the 1x1 and the 3x3
+   kernel of each scheme); the
    fused conv+pool kernel in each pool order at the five
    yolov2 shapes a 2x2/s2 pool follows and at edge cases (C=3 and 4,
    shifts, sums that wrap at shift 31, where the three orders must differ);
@@ -44,8 +46,9 @@ and in two plan slices of the int16 tier, in four phases:
 4. profile, per tier: each conv alone at batch 8 and 1 (CUDA events) beside
    its plain version, a library call and its bound, summed per kernel over
    one forward; the forward's device time by kernel against its time per
-   forward (torch.profiler, each kernel known by its full name), and the SM
-   clock and power draw sampled beside them; each fused conv+pool alone
+   forward (torch.profiler, each kernel known by its full name), the bytes
+   per second the 1x1 kernel moves on that device time, and the SM clock
+   and power draw sampled beside them; each fused conv+pool alone
    against conv3x3_q16 then the pool, and summed over P1's fused convs;
    then, for each tier's tensor-core convs at batch 1 and 8, the device
    time (CUDA graph replays) of every split of K beside the one
@@ -127,14 +130,21 @@ POOL_CONVS = (0, 2, 6, 10, 16)   # the yolov2 convs a 2x2/s2 pool follows
 # packed planes: kernel -> (its operand scheme, what packs its planes)
 TC_KERNELS = {"mm_q16": (tc.Q16, q16.pack_q16),
               "conv3x3_q16": (tc.Q16, q16.pack_q16),
-              "conv3x3_w8a16": (tc.W8A16, q8.pack_conv3x3_w8a16),
-              "conv3x3_s8": (tc.S8, q8.pack_conv3x3_s8),
-              "conv3x3_int8": (tc.S8, q8.pack_conv3x3_s8)}
-# each scheme's tensor-core instantiations, known by the scheme's and the
-# loader's part of their mangled names
-TC_INSTANCES = {"mm_q16": ("3Q16", "4MmTc"), "conv3x3_q16": ("3Q16", "ConvTcIs"),
-                "conv3x3_w8a16": ("5W8A16", "ConvTcIs"),
-                "conv3x3_s8": ("2S8", "ConvTcIa")}
+              "mm_w8a16": (tc.W8A16, q8.pack_w8a16),
+              "conv3x3_w8a16": (tc.W8A16, q8.pack_w8a16),
+              "mm_s8": (tc.S8, q8.pack_s8),
+              "conv3x3_s8": (tc.S8, q8.pack_s8),
+              "conv3x3_int8": (tc.S8, q8.pack_s8)}
+# the tensor-core instantiations: (kernel, what tells it from the others of
+# the kernel, the scheme's and the loader's part of its mangled name); the
+# int16 output of mm_s8 is a scheme struct of its own, S8Out16
+TC_INSTANCES = (("mm_q16", "", "3Q16", "MmTcIs"),
+                ("conv3x3_q16", "", "3Q16", "ConvTcIs"),
+                ("mm_w8a16", "", "5W8A16", "MmTcIs"),
+                ("conv3x3_w8a16", "", "5W8A16", "ConvTcIs"),
+                ("mm_s8", " (int8 output)", "2S8", "MmTcIa"),
+                ("mm_s8", " (int16 output)", "7S8Out16", "MmTcIa"),
+                ("conv3x3_s8", "", "2S8", "ConvTcIa"))
 INT8_KERNELS = ("mm_s8", "conv3x3_s8", "conv3x3_int8")   # int8 x int8
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): 8-bit tensor-core
 # multiply-adds per second (1,979 T int8 ops) and device memory bytes per
@@ -527,7 +537,7 @@ def phase_card() -> str:
                              "tensor-core MMA elsewhere")
     regs = ptxas_registers(lib.log)
     cfg = lib.cdll.yq_tc_config
-    for name, (scheme_part, loader_part) in TC_INSTANCES.items():
+    for name, which, scheme_part, loader_part in TC_INSTANCES:
         scheme = TC_KERNELS[name][0]
         bm, bn, bk, smem, blocks, planes, kmax = (cfg(scheme.id, i)
                                                   for i in range(7))
@@ -542,8 +552,8 @@ def phase_card() -> str:
         fns = [fn for fn in regs if "igemm_tc_kernel" in fn
                and scheme_part in fn and loader_part in fn]
         if len(fns) != 1:
-            raise AssertionError(f"{name}: ptxas reports {fns}")
-        say(f"[card] {name} on the 8-bit tensor cores, scheme "
+            raise AssertionError(f"{name}{which}: ptxas reports {fns}")
+        say(f"[card] {name}{which} on the 8-bit tensor cores, scheme "
             f"{scheme.name.upper()}: {bm}x{bn} tiles, K steps of {bk}, "
             f"{planes} weight plane(s), {smem} bytes of dynamic shared memory "
             f"per block, {blocks} blocks per SM ({scheme.wave} in tc.split's "
@@ -683,44 +693,58 @@ def phase_kernels8(check: KernelCheck, dev: torch.device) -> None:
                       (x, w, b, s, leaky), timed=True)
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    say("[kernels] conv3x3_s8 and conv3x3_w8a16 also at batch 1 and 8, the "
-        "main path's batches, at the 15 3x3 shapes: K split over blocks as "
-        "the wrapper chooses for each (tc.split), full-range operands")
+    say("[kernels] the four kernels also at batch 1 and 8, the main path's "
+        "batches, at all 23 shapes (the head conv through mm_s8's int16 "
+        "output): K split over blocks as the wrapper chooses for each "
+        "(tc.split), full-range operands")
     for l in spec.conv_layers():
-        if engine_plan.select_engine(l) == "mm":
-            continue
+        mm = engine_plan.select_engine(l) == "mm"
         for bsz in (1, 8):
-            xshape, wshape = (bsz, l.h, l.w, l.c), (3, 3, l.c, l.n)
-            m, k = bsz * l.h * l.w, 9 * l.c
-            for name, xdtype, out in (("conv3x3_s8", np.int8, torch.int8),
-                                      ("conv3x3_w8a16", np.int16, torch.int16)):
+            xshape = (bsz * l.h * l.w, l.c) if mm else (bsz, l.h, l.w, l.c)
+            wshape = (l.c, l.n) if mm else (3, 3, l.c, l.n)
+            m, k = bsz * l.h * l.w, l.c * l.size * l.size
+            for name, xdtype, out in (
+                    ("mm_s8" if mm else "conv3x3_s8", np.int8, torch.int8),
+                    ("mm_w8a16" if mm else "conv3x3_w8a16", np.int16,
+                     torch.int16)):
                 scheme = TC_KERNELS[name][0]
                 kps = tc.split(m, l.n, k, sms, scheme)
                 splits = -(-(-(-k // scheme.bk)) // kps)
                 x, w, b, s = on(*full_operands8(rng, xshape, wshape, xdtype, out))
+                kw = {}
+                if name == "mm_s8" and l.idx == head.idx:
+                    b, s = convops.head16(b, s)
+                    kw["out_dtype"] = torch.int16
                 check.compare(name, f"conv{l.idx} b={bsz} {l.c}->{l.n} K in "
                               f"{splits} splits", (x, w, b, s,
-                                                   l.activation == "leaky"))
-                say(f"  {name} conv{l.idx} b={bsz} {l.h}x{l.w}x{l.c}->{l.n}: "
-                    f"equal, K {k} in {splits} splits of {kps * scheme.bk}")
+                                                   l.activation == "leaky"), **kw)
+                say(f"  {name} conv{l.idx} b={bsz} {l.h}x{l.w}x{l.c}->{l.n}"
+                    f"{' head16' if kw else ''}: equal, K {k} in {splits} "
+                    f"splits of {kps * scheme.bk}")
 
-    say(f"[kernels] conv3x3_s8 and conv3x3_w8a16 with K beyond one split "
-        f"({tc.KMAX} values of k), operands at their extremes: x = w = "
-        "-128 (s8; at C=14608 the exact sum leaves int32, and an unsplit s32 "
-        "sum would too), x = -32513 (high byte -128, low byte 255) and w = "
-        "-128 (w8a16; at C=7400 an unsplit low-byte sum leaves s32)")
+    say(f"[kernels] K beyond one split ({tc.KMAX} values of k), operands at "
+        "their extremes, each scheme's 1x1 and 3x3 kernel: x = w = -128 (s8; "
+        "at K=131,472 the exact sum leaves int32, and an unsplit s32 sum "
+        "would too), x = -32513 (high byte -128, low byte 255) and w = -128 "
+        "(w8a16; at K=66,600 an unsplit low-byte sum leaves s32)")
     for leaky in (False, True):
-        for name, c, xv, shift, wraps in (
-                ("conv3x3_s8", 3700, -128, 23, False),
-                ("conv3x3_s8", 14608, -128, 25, True),
-                ("conv3x3_w8a16", 3700, -32513, 18, True),
-                ("conv3x3_w8a16", 7400, -32513, 18, True)):
-            xdtype = np.int8 if name == "conv3x3_s8" else np.int16
-            out = torch.int8 if name == "conv3x3_s8" else torch.int16
+        for scheme, c, xv, shift, wraps in (
+                ("s8", 3700, -128, 23, False),
+                ("s8", 14608, -128, 25, True),
+                ("w8a16", 3700, -32513, 18, True),
+                ("w8a16", 7400, -32513, 18, True)):
+            xdtype = np.int8 if scheme == "s8" else np.int16
+            out = torch.int8 if scheme == "s8" else torch.int16
             x = np.full((1, 4, 5, c), xv, xdtype)
             w = np.full((3, 3, c, 16), -128, np.int8)
             args = on(x, w, bias8(rng, 16, out), np.full(16, shift, np.int32))
-            check.compare(name, f"1x4x5x{c}->16 (K={9 * c}) x={xv} w=-128 "
+            check.compare(f"conv3x3_{scheme}", f"1x4x5x{c}->16 (K={9 * c}) "
+                          f"x={xv} w=-128 leaky={leaky}", args + (leaky,),
+                          wraps=wraps)
+            x = np.full((200, 9 * c), xv, xdtype)
+            w = np.full((9 * c, 72), -128, np.int8)
+            args = on(x, w, bias8(rng, 72, out), np.full(72, shift, np.int32))
+            check.compare(f"mm_{scheme}", f"200x{9 * c}->72 x={xv} w=-128 "
                           f"leaky={leaky}", args + (leaky,), wraps=wraps)
 
     say(f"[kernels] int8 and w8a16 edge cases, leaky on/off: shift vectors "
@@ -1138,7 +1162,8 @@ def kernel_names(dev: torch.device) -> dict[str, str]:
     c8, c16 = t((1, 4, 4, 16), i8), t((1, 4, 4, 16), i16)
     k8, k16 = t((3, 3, 16, 16), i8), t((3, 3, 16, 16), i16)
     p16, pk16 = q16.pack_q16(w16), q16.pack_q16(k16)
-    ps8, pw8 = q8.pack_conv3x3_s8(k8), q8.pack_conv3x3_w8a16(k8)
+    ps8, pw8 = q8.pack_s8(k8), q8.pack_w8a16(k8)
+    pm8, pmw8 = q8.pack_s8(w8), q8.pack_w8a16(w8)
     # the operands exist before the profiler starts: only the kernel runs
     # (at these shapes K is not split, so the tensor-core kernels launch
     # alone, with no workspace memset)
@@ -1146,9 +1171,9 @@ def kernel_names(dev: torch.device) -> dict[str, str]:
         ("mm_q16", lambda: q16.mm_q16(x16, w16, b, 3, True, planes=p16)),
         ("conv3x3_q16", lambda: q16.conv3x3_q16(c16, k16, b, 3, True,
                                                 planes=pk16)),
-        ("mm_s8", lambda: q8.mm_s8(x8, w8, b, s, True)),
-        ("mm_s8", lambda: q8.mm_s8(x8, w8, b, s, True, i16)),
-        ("mm_w8a16", lambda: q8.mm_w8a16(x16, w8, b, s, True)),
+        ("mm_s8", lambda: q8.mm_s8(x8, w8, b, s, True, planes=pm8)),
+        ("mm_s8", lambda: q8.mm_s8(x8, w8, b, s, True, i16, planes=pm8)),
+        ("mm_w8a16", lambda: q8.mm_w8a16(x16, w8, b, s, True, planes=pmw8)),
         ("conv3x3_s8", lambda: q8.conv3x3_s8(c8, k8, b, s, True,
                                              planes=ps8)),
         ("conv3x3_w8a16", lambda: q8.conv3x3_w8a16(c16, k8, b, s, True,
@@ -1174,8 +1199,8 @@ def kernel_names(dev: torch.device) -> dict[str, str]:
 
 
 def new_forward() -> dict:
-    return {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "library": set(),
-            "bound": [0.0, 0.0, 0.0]}
+    return {"ms": 0.0, "device_ms": None, "plain_ms": 0.0, "library_ms": 0.0,
+            "library": set(), "bound": [0.0, 0.0, 0.0], "bytes": 0}
 
 
 def phase_profile(model: YoloV2Q, plain: YoloV2Q, dev: torch.device,
@@ -1186,7 +1211,9 @@ def phase_profile(model: YoloV2Q, plain: YoloV2Q, dev: torch.device,
     the forward's device time by kernel (torch.profiler, kernels known by
     their full names) against its time per forward (CUDA events), and the
     SM clock and power sampled beside them. Returns, per kernel and batch,
-    those summed over one forward's convs."""
+    those summed over one forward's convs (ms: CUDA events around the
+    wrappers, which hold the host's time per launch where the device outruns
+    it; device_ms: the profiler's device time of the kernel per forward)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1231,6 +1258,7 @@ def phase_profile(model: YoloV2Q, plain: YoloV2Q, dev: torch.device,
                 f["plain_ms"] += p_ms
                 f["library_ms"] += l_ms
                 f["library"].add(what)
+                f["bytes"] += nbytes
                 add_bound(f["bound"], part)
                 group = ("entry 3x3 C=3" if l.c == 3 else f"{l.size}x{l.size}"
                          + (" 13x13" if l.size == 3 and l.h == 13 else ""))
@@ -1283,13 +1311,17 @@ def phase_profile(model: YoloV2Q, plain: YoloV2Q, dev: torch.device,
                       if v and k not in (mm, c3, "glue", "memset")}
             if others:
                 raise AssertionError(f"{tag} the {tier} forward ran {others}")
-            say(f"{tag} b={bsz} forward: {fwd_ms:.3f} ms (CUDA events), "
-                f"device busy {dev_ms:.3f} ms (profiler): {c3} "
-                f"{by[c3]:.3f}, {mm} {by[mm]:.3f}, split-K workspace memsets "
-                f"{by['memset']:.3f}, glue {by['glue']:.3f} (largest "
-                f"{glue_top[0]!r} {glue_top[1]:.3f}); convs "
-                f"{100 * (dev_ms - by['glue']) / dev_ms:.1f}% of device "
-                f"time, device idle {100 * max(0.0, 1 - dev_ms / fwd_ms):.1f}%")
+            for name in forward:
+                forward[name][bsz]["device_ms"] = by[name]
+            # the 1x1 convs are bound by their bytes: the rate they move
+            # them at, on the kernel's device time
+            f = forward[mm][bsz]
+            if by[mm]:
+                say(f"{tag} b={bsz} {mm}: {f['bytes'] / 1e6:.1f} MB per forward "
+                    f"(each operand and output once) in {by[mm]:.4f} ms of "
+                    f"device time, {f['bytes'] / by[mm] / 1e6:.0f} GB/s of "
+                    f"{PEAK_BYTES / 1e9:.0f}; bound {f['bound'][0]:.4f} ms, "
+                    f"{100 * f['bound'][0] / by[mm]:.1f}% of it")
     finally:
         sampler.terminate()
         samples = sampler.communicate(timeout=30)[0]
@@ -1499,7 +1531,8 @@ def main() -> int:
     say(f"[card] phases 1-4 took {time.perf_counter() - t0:.1f} s")
 
     def at(f: dict) -> dict:
-        return {"ms": f["ms"], "bound_ms": f["bound"][0],
+        return {"ms": f["ms"], "device_ms": f["device_ms"],
+                "bound_ms": f["bound"][0],
                 "bound_by": bound_by(f["bound"]), "plain_ms": f["plain_ms"],
                 "library_ms": f["library_ms"],
                 "library": " / ".join(sorted(f["library"]))}
@@ -1507,6 +1540,7 @@ def main() -> int:
     # ms, plain_ms, bound_ms and library_ms: summed over phase 2's timed
     # cases (the yolov2 416 shapes of the kernel's kind at batch 2);
     # per_forward: phase 4's sums over one forward's convs at batch 8 and 1
+    # (ms from CUDA events around the wrappers, device_ms from the profiler)
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": check.max_abs_err[name],
                 "ms": check.ms[name], "plain_ms": check.plain_ms[name],

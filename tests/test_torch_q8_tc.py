@@ -1,7 +1,8 @@
 """The arithmetic and the weight layout of the 8-bit tiers' tensor-core 3x3
 convs (yolotpu_torch.ops.q8: conv3x3_s8, conv3x3_int8 on the S8 scheme,
 conv3x3_w8a16 on the W8A16 scheme of csrc/igemm_tc.cuh) against the JAX
-package, on the CPU.
+package, on the CPU; test_torch_q8_mm_tc.py does the same for the 1x1
+convs, mm_s8 and mm_w8a16.
 
 The kernels run only on the card (chip_smoke.py holds them to their plain
 versions there). What they compute is held here through ``tc.emulate``,
@@ -194,7 +195,7 @@ def test_w8a16_tc_sum_wraps_like_xla(shift):
     c = x.shape[-1]
     x, w = x.reshape(bsz, h, wd, c), w.reshape(3, 3, c, n)
     s = np.full(n, shift, np.int32)
-    sums = tc.emulate(q16.im2col3x3(_t(x)), q8.pack_conv3x3_w8a16(_t(w)),
+    sums = tc.emulate(q16.im2col3x3(_t(x)), q8.pack_w8a16(_t(w)),
                       9 * c, n, tc.W8A16).reshape(bsz, h, wd, n)
     got = convops.requant32(sums, _t(b), _t(s), False).numpy().astype(np.int16)
     want = np.asarray(jconv.conv_w8a16(
@@ -239,7 +240,7 @@ def test_tc_sum_raises_when_a_partial_leaves_s32():
     longer than tc.KMAX would fail here, not pass silently."""
     k = 66600
     x = _t(np.full((1, k), -32513, np.int16))
-    planes = q8.pack_conv3x3_w8a16(_t(np.full((k, 8), -128, np.int8)))
+    planes = q8.pack_w8a16(_t(np.full((k, 8), -128, np.int8)))
     kmax = tc.KMAX
     try:
         tc.KMAX = 1 << 20   # one chunk: the low sum is 255 * -128 * K
@@ -250,25 +251,30 @@ def test_tc_sum_raises_when_a_partial_leaves_s32():
 
 
 @pytest.mark.parametrize("name", ["conv3x3_s8", "conv3x3_w8a16",
-                                  "conv3x3_int8"])
+                                  "conv3x3_int8", "mm_s8", "mm_w8a16"])
 def test_planes_required_on_card_ignored_by_plain(name):
-    """On the card each wrapper raises without planes= (naming the packer)
-    or with planes of the wrong shape; the plain versions and the CPU path
-    take planes= and do not read them."""
-    sch = tc.W8A16 if name == "conv3x3_w8a16" else tc.S8
-    with pytest.raises(TypeError, match=sch.pack):
-        tc.check_planes(name, None, 9 * 16, 8, torch.device("cpu"), sch)
-    good = q8.pack_w8(torch.zeros((3, 3, 16, 8), dtype=torch.int8), sch)
-    tc.check_planes(name, good, 9 * 16, 8, torch.device("cpu"), sch)
+    """On the card each wrapper raises without planes= (naming its scheme's
+    packer, a function of q8 that packs this kernel's weight) or with planes
+    of the wrong shape; the plain versions and the CPU path take planes= and
+    do not read them."""
+    sch = tc.W8A16 if name.endswith("w8a16") else tc.S8
+    mm = name.startswith("mm")
+    wshape = (16, 8) if mm else (3, 3, 16, 8)
+    k = 16 if mm else 9 * 16
+    assert sch.pack == {tc.S8: "pack_s8", tc.W8A16: "pack_w8a16"}[sch]
+    with pytest.raises(TypeError, match=f"planes={sch.pack}"):
+        tc.check_planes(name, None, k, 8, torch.device("cpu"), sch)
+    good = getattr(q8, sch.pack)(torch.zeros(wshape, dtype=torch.int8))
+    tc.check_planes(name, good, k, 8, torch.device("cpu"), sch)
     other = tc.S8 if sch is tc.W8A16 else tc.W8A16
     wrong = q8.pack_w8(torch.zeros((3, 3, 16, 8), dtype=torch.int8), other)
     with pytest.raises(ValueError, match="planes"):
-        tc.check_planes(name, wrong, 9 * 16, 8, torch.device("cpu"), sch)
+        tc.check_planes(name, wrong, k, 8, torch.device("cpu"), sch)
 
     rng = np.random.default_rng(3)
-    xdtype = np.int16 if name == "conv3x3_w8a16" else np.int8
-    x = _t(rng.integers(-9, 9, (1, 5, 4, 16)).astype(xdtype))
-    w = _t(rng.integers(-9, 9, (3, 3, 16, 8)).astype(np.int8))
+    xdtype = np.int16 if name.endswith("w8a16") else np.int8
+    x = _t(rng.integers(-9, 9, (20, 16) if mm else (1, 5, 4, 16)).astype(xdtype))
+    w = _t(rng.integers(-9, 9, wshape).astype(np.int8))
     b = torch.zeros(8, dtype=torch.int32)
     shift = 2 if name == "conv3x3_int8" else torch.full((8,), 2, dtype=torch.int32)
     plain = getattr(q8, name + "_plain")
@@ -279,20 +285,36 @@ def test_planes_required_on_card_ignored_by_plain(name):
     assert q8.LAUNCHES[name] == 0
 
 
-@pytest.mark.parametrize("tier,packer", [("int8", q8.pack_conv3x3_s8),
-                                         ("w8a16", q8.pack_conv3x3_w8a16)])
+@pytest.mark.parametrize("tier,packer", [("int8", q8.pack_s8),
+                                         ("w8a16", q8.pack_w8a16)])
 def test_model_packs_the_conv3_weights(tier, packer):
-    """YoloV2Q packs, on the card, the weights of every conv its 8-bit tier
-    routes to conv3 with that tier's packer, and of no 1x1 conv (those stay
-    on mm_s8 and mm_w8a16); the packed planes of the entry conv give its
-    sums."""
-    from yolotpu_torch.models import engine_plan, zoo
+    """YoloV2Q packs, off the CPU, the weights of every conv of its 8-bit
+    tier, 3x3 and 1x1, with that tier's packer (buffers p{idx} of the
+    planes' shape), and none on the CPU; the packed planes of the entry conv
+    give its sums."""
+    from yolotpu_torch.models import engine_plan, yolov2, zoo
     from yolotpu_torch.models.yolov2 import YoloV2Q
+    from yolotpu_torch.runtime.engine import load_or_synthesize
     spec = zoo.build("yolov2", width=64, height=64)
-    assert YoloV2Q.packers[tier] == {"conv3": packer}
+    assert YoloV2Q.packers[tier] == {"mm": packer, "conv3": packer}
     route = engine_plan.kernels(spec, engine_plan.plan(spec, None))
     assert {k for k, _ in route.values()} == {"mm", "conv3"}
     assert YoloV2Q.kernels[tier][1].__name__.startswith("conv3x3_")
+    store = load_or_synthesize(spec, None, precision=tier, seed=0)
+    params = (yolov2.params_int8 if tier == "int8"
+              else yolov2.params_w8a16)(spec, store, "cpu")
+    qtables = store.qtables8 if tier == "int8" else store.qtables_w8
+    sch = tc.S8 if tier == "int8" else tc.W8A16
+    on_cpu = YoloV2Q(spec, qtables, params, "cpu", tier)
+    off_cpu = YoloV2Q(spec, qtables, params, "meta", tier)
+    kinds = set()
+    for l in spec.conv_layers():
+        assert not hasattr(on_cpu, f"p{l.idx}")
+        planes = getattr(off_cpu, f"p{l.idx}")
+        assert planes.dtype == torch.uint8 and tuple(planes.shape) == \
+            sch.planes_shape(l.c * l.size * l.size, l.n)
+        kinds.add(route[l.idx][0])
+    assert kinds == {"mm", "conv3"}
     l = spec.conv_layers()[0]
     assert route[l.idx][0] == "conv3" and l.c == 3
     rng = np.random.default_rng(0)
@@ -304,6 +326,10 @@ def test_model_packs_the_conv3_weights(tier, packer):
     assert torch.equal(sums.reshape(1, 6, 6, l.n),
                        q16.acc32(q16.conv3x3_sum64(_t(x), _t(w))))
 
+
+# yolov2 416's 1x1 convs (5; 9; 13 and 15; 26; 19 and 21; 30): H*W, K, N
+MM_SHAPES = [(104 * 104, 128, 64), (52 * 52, 256, 128), (26 * 26, 512, 256),
+             (26 * 26, 512, 64), (13 * 13, 1024, 512), (13 * 13, 1024, 425)]
 
 # (scheme, M, N, K, splits): the 8-bit tiers' yolov2 416 3x3 shapes at batch 1
 # and 8 as chip_smoke.py's split sweep timed them on the card. S8's waves
@@ -318,6 +344,11 @@ def test_model_packs_the_conv3_weights(tier, packer):
     ("w8a16", 169, 1024, 9216, 8),
     ("w8a16", 676, 512, 2304, 4),
     ("w8a16", 2704, 256, 1152, 1),
+    # the eight 1x1 convs (six shapes) at batch 1 and 8: with 1 to 16 K steps
+    # the sweep found every one fastest unsplit, under both schemes, the
+    # 13x13 ones at batch 1 (21 to 24 output tiles) included
+    *((scheme, b * hw, n, k, 1) for scheme in ("s8", "w8a16") for b in (1, 8)
+      for hw, k, n in MM_SHAPES),
 ])
 def test_tc_split_8bit(scheme, m, n, k, want):
     sch = SCHEMES[scheme][0]

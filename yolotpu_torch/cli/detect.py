@@ -1,9 +1,11 @@
 """``yolov2_detect``-compatible detection CLI on PyTorch (integer tiers).
 
 The counterpart of ``yolotpu/cli/detect.py``, keeping its flag contract for
-the integer tiers (--model --cfg --input/positional --output --thresh --nms
---weights-dir --synthetic-weights --seed --net-size --precision) and adding
---device.
+the integer tiers (--model --cfg --names --input/positional --output
+--thresh --nms --hier --weights-dir --synthetic-weights --seed --net-size
+--precision -v/--verbose) and adding --device. --precision takes the integer
+tiers only and defaults to int16. --hier is accepted and unused, as in the
+JAX CLI; its --topk, --dump-layers, --backend and --compute are not taken.
 The default output prefix is ``results/<stem>_prediction``; region dumps
 follow YOLO2_DUMP_REGION[_RAW] / YOLO2_NO_DUMP as in the JAX CLI.
 
@@ -23,11 +25,13 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--cfg", default=None, help="darknet cfg path")
     ap.add_argument("--model", default="yolov2",
                     help="built-in model name (used when --cfg not given)")
+    ap.add_argument("--names", default=None, help="class names file")
     ap.add_argument("--input", default=None, help="input image")
     ap.add_argument("--output", default=None,
                     help="output file prefix without extension")
     ap.add_argument("--thresh", type=float, default=0.25)
     ap.add_argument("--nms", type=float, default=0.45)
+    ap.add_argument("--hier", type=float, default=0.5)
     ap.add_argument("--weights-dir", default="weights",
                     help="directory with the .bin artifact set")
     ap.add_argument("--synthetic-weights", action="store_true",
@@ -42,6 +46,7 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda runs the hand-written kernels; cpu their "
                          "plain PyTorch versions")
+    ap.add_argument("-v", "--verbose", type=int, default=None)
     ap.add_argument("positional", nargs="?", default=None,
                     help="input image (positional)")
     return ap
@@ -51,12 +56,14 @@ def main(argv: list[str] | None = None) -> int:
     from ..graph import NetworkSpec
     from ..image import load_image, save_image
     from ..models import zoo
-    from ..names import names_for
+    from ..names import load_names, names_for
     from ..runtime import logging as ylog
     from ..runtime.drawing import draw_detections
     from ..runtime.engine import Engine, load_or_synthesize
 
     args = build_argparser().parse_args(argv)
+    if args.verbose is not None:
+        ylog.set_level(args.verbose)
     input_path = args.input or args.positional
     if input_path is None:
         print("error: no input image (use --input or positional)", file=sys.stderr)
@@ -78,13 +85,15 @@ def main(argv: list[str] | None = None) -> int:
     dets, res = eng.detect(im, thresh=args.thresh, nms=args.nms)
     print(f"{os.path.basename(input_path)}: predicted in {res.seconds:.6f} seconds.")
 
-    names = (names_for(spec.region.classes)
+    names = (load_names(args.names) if args.names
+             else names_for(spec.region.classes)
              or [str(i) for i in range(spec.region.classes)])
     shown = 0
     for d in dets:
         for j in range(d.classes):
             if d.prob[j] > args.thresh:
-                print(f"{names[j]}: {100 * d.prob[j]:.0f}%")
+                print(f"{names[j] if j < len(names) else j}: "
+                      f"{100 * d.prob[j]:.0f}%")
                 shown += 1
 
     prefix = args.output

@@ -38,7 +38,7 @@ template <int ORDER>
 static cudaError_t launch(const void* x, const void* w, const void* bias, void* out, int B,
                           int H, int W, int C, int N, int shift, int leaky, void* stream) {
     const yq::ConvParams<int16_t> p{(const int16_t*)x, H, W, C, yq::vec_ok<int16_t>(x, C)};
-    const yq::EpiPoolQ16<ORDER> e{{(const int32_t*)bias, (int16_t*)out, shift, leaky}};
+    const yq::EpiPoolQ16<ORDER> e{(const int32_t*)bias, (int16_t*)out, shift, leaky};
     const long long M = (long long)B * H * W;
     return yq::launch_igemm<yq::ConvLoader<int16_t>>(p, w, e, M, N, 9 * C, stream);
 }

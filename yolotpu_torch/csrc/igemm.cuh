@@ -1,12 +1,12 @@
-// Tiled exact integer GEMM with a fused requant epilogue on the CUDA cores:
-// the body of mm_s8.cu, mm_w8a16.cu and conv3x3_pool_q16.cu (the other
-// kernels of csrc/ run on the tensor cores, igemm_tc.cuh). Each kernel is an
-// instantiation with its own A loader (loaders.cuh: activation matrix rows,
-// or the implicit im2col of a SAME 3x3 window, gathered while loading) and
-// its own epilogue (the weight type, the output type, one shift for the
-// layer or one per output channel):
+// Tiled exact integer GEMM on the CUDA cores with a fused requant and 2x2/s2
+// maxpool epilogue: the body of conv3x3_pool_q16.cu (the other kernels of
+// csrc/ run on the tensor cores, igemm_tc.cuh). Each kernel is an
+// instantiation with an A loader (loaders.cuh: the implicit im2col of a SAME
+// 3x3 window, gathered while loading, the pixels window-major) and an
+// epilogue (where the pool's max is taken):
 //
-//   out[m, n] = requant(sum_k A[m, k] * w[k, n]  (mod 2^32), bias[n], shift)
+//   acc[m, n] = sum_k A[m, k] * w[k, n]  (mod 2^32)
+//   out[i, n] = pool and requant of acc[4i .. 4i+3, n] with bias[n], shift
 //
 // A block computes a BM x BN output tile and walks K in BK steps. Operands go
 // from global memory to registers to shared memory as int32 (two buffers, so
@@ -21,14 +21,10 @@
 //   Loader(const Params&, long long m, long long M)  set up for output row m
 //   void load8(int k0, int32_t v[8]) const           A[m, k0 .. k0+7], 0 past
 //                                                    the row's end or M
-// The epilogue from an Epi:
-//   W, Out                                  weight and output element types
+// The epilogue from an Epi; rows 4i..4i+3 are one 2x2 pool window
+// (ConvLoader<T>) and give one output row:
+//   W                                       weight element type
 //   Col column(int n, int N) const          what column n needs, read once
-//   POOL                                    false: one output per row, by
-//   void store(long long i, uint32_t acc, Col) const   out[i] = requant(acc)
-//                                           true: rows 4i..4i+3 are one 2x2
-//                                           pool window (ConvLoader<T>)
-//                                           and give one output row, by
 //   void store4(long long i, const uint32_t a[4], Col) const
 #pragma once
 
@@ -119,38 +115,23 @@ igemm_kernel(const typename Loader::Params p,
         }
     }
 
-    // what a column needs (EpiVec: its bias and shift) is read once per
-    // thread, not once per output
     typename Epi::Col col[TN];
 #pragma unroll
     for (int j = 0; j < TN; ++j) col[j] = e.column(n0 + tn + j, N);
-    if constexpr (Epi::POOL) {
-        // m0 and tm are multiples of 4, so a thread's TM rows are TM/4 whole
-        // windows, pooled in registers; M = B*H*W is a multiple of 4, so a
-        // window lies wholly inside M or wholly past it
-        static_assert(TM % 4 == 0, "a thread's rows must be whole windows");
+    // m0 and tm are multiples of 4, so a thread's TM rows are TM/4 whole
+    // windows, pooled in registers; M = B*H*W is a multiple of 4, so a
+    // window lies wholly inside M or wholly past it
+    static_assert(TM % 4 == 0, "a thread's rows must be whole windows");
 #pragma unroll
-        for (int g = 0; g < TM / 4; ++g) {
-            const long long m = m0 + tm + 4 * g;
-            if (m >= M) break;
+    for (int g = 0; g < TM / 4; ++g) {
+        const long long m = m0 + tm + 4 * g;
+        if (m >= M) break;
 #pragma unroll
-            for (int j = 0; j < TN; ++j) {
-                const int n = n0 + tn + j;
-                const uint32_t a[4] = {acc[4 * g][j], acc[4 * g + 1][j], acc[4 * g + 2][j],
-                                       acc[4 * g + 3][j]};
-                if (n < N) e.store4((m / 4) * N + n, a, col[j]);
-            }
-        }
-    } else {
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-            const long long m = m0 + tm + i;
-            if (m >= M) break;
-#pragma unroll
-            for (int j = 0; j < TN; ++j) {
-                const int n = n0 + tn + j;
-                if (n < N) e.store(m * N + n, acc[i][j], col[j]);
-            }
+        for (int j = 0; j < TN; ++j) {
+            const int n = n0 + tn + j;
+            const uint32_t a[4] = {acc[4 * g][j], acc[4 * g + 1][j], acc[4 * g + 2][j],
+                                   acc[4 * g + 3][j]};
+            if (n < N) e.store4((m / 4) * N + n, a, col[j]);
         }
     }
 }
@@ -166,26 +147,6 @@ inline cudaError_t launch_igemm(const typename Loader::Params& p, const void* w,
     return cudaGetLastError();
 }
 
-// The int16-exact tier's epilogue: int16 weights and output, one shift for
-// the layer. The column carries only its index; bias[n] is read at the
-// store.
-struct EpiQ16 {
-    using W = int16_t;
-    using Out = int16_t;
-    static constexpr bool POOL = false;
-    struct Col {
-        int n;
-    };
-    const int32_t* bias;  // (N,)
-    int16_t* out;         // (M, N)
-    int shift, leaky;
-
-    __device__ __forceinline__ Col column(int n, int) const { return {n}; }
-    __device__ __forceinline__ void store(long long i, uint32_t acc, Col c) const {
-        out[i] = requant_q16(acc, bias[c.n], shift, leaky);
-    }
-};
-
 // Where a conv fused with the following 2x2/s2 maxpool takes the pool's
 // max, which is a different function once acc + 2^(shift-1) wraps: on the
 // four accumulators; on each horizontal pair's accumulators, then on the
@@ -198,12 +159,21 @@ __device__ __forceinline__ uint32_t max_s32(uint32_t a, uint32_t b) {
     return (int32_t)a > (int32_t)b ? a : b;
 }
 
-// EpiQ16 with the pool: out (M/4, N), a[q] the sums of window member
-// q = 2 * dy + dx.
+// The int16-exact tier's epilogue with the pool: int16 weights and output,
+// one shift for the layer, out (M/4, N), a[q] the sums of window member
+// q = 2 * dy + dx. The column carries only its index; bias[n] is read at
+// the store.
 template <int ORDER>
-struct EpiPoolQ16 : EpiQ16 {
-    static constexpr bool POOL = true;
+struct EpiPoolQ16 {
+    using W = int16_t;
+    struct Col {
+        int n;
+    };
+    const int32_t* bias;  // (N,)
+    int16_t* out;         // (M/4, N)
+    int shift, leaky;
 
+    __device__ __forceinline__ Col column(int n, int) const { return {n}; }
     __device__ __forceinline__ void store4(long long i, const uint32_t a[4], Col c) const {
         const int32_t b = bias[c.n];
         int16_t v;
@@ -223,30 +193,6 @@ struct EpiPoolQ16 : EpiQ16 {
             }
         }
         out[i] = v;
-    }
-};
-
-// The 8-bit-weight tiers' epilogue: int8 weights, an int8 or int16 output,
-// and one shift per output channel (a per-layer shift arrives broadcast).
-template <class Out_>
-struct EpiVec {
-    using W = int8_t;
-    using Out = Out_;
-    static constexpr bool POOL = false;
-    struct Col {
-        int32_t bias;
-        int shift;
-    };
-    const int32_t* bias;   // (N,)
-    const int32_t* shift;  // (N,)
-    Out* out;              // (M, N)
-    int leaky;
-
-    __device__ __forceinline__ Col column(int n, int N) const {
-        return n < N ? Col{bias[n], shift[n]} : Col{0, 0};
-    }
-    __device__ __forceinline__ void store(long long i, uint32_t acc, Col c) const {
-        out[i] = (Out)requant<Range<Out>::lo, Range<Out>::hi>(acc, c.bias, c.shift, leaky);
     }
 };
 

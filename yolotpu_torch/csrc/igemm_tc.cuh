@@ -1,5 +1,6 @@
 // Exact integer GEMM on the 8-bit tensor cores, with the fused requant: the
-// body of mm_q16.cu, conv3x3_q16.cu, conv3x3_w8a16.cu and conv3x3_s8.cu.
+// body of mm_q16.cu, conv3x3_q16.cu, mm_w8a16.cu, conv3x3_w8a16.cu, mm_s8.cu
+// and conv3x3_s8.cu.
 //
 //   out[m, n] = requant(sum_k A[m, k] * w[k, n]  (mod 2^32), bias[n], shift)
 //
@@ -154,6 +155,10 @@ struct S8 {
     using Epi = EpiChannel<int8_t>;
     static constexpr int ID = 2, PLANES = 1, SETS = 1, STAGES = 3, MIN_BLOCKS = 4;
 };
+// S8 with an int16 output: the int8 tier's conv that feeds the region head.
+struct S8Out16 : S8 {
+    using Epi = EpiChannel<int16_t>;
+};
 
 template <class S>
 struct Tile {
@@ -284,18 +289,23 @@ __device__ __forceinline__ int4 gather16(int k, int K, F value) {
 
 // A loaders. Each thread fills 4 chunks of 16 bytes per stage: rows
 // r0 + ROW_STEP j (j < 4) of the tile, bytes 16 c8 .. 16 c8 + 15 of the row,
-// that is k0 + V c8 .. + V - 1 with V = 16 / sizeof(T) values per chunk. vec: 16-byte copies (the row length in bytes is a multiple of 16
-// and the base 16-byte aligned); otherwise each value is loaded on its own
+// that is k0 + V c8 .. + V - 1 with V = 16 / sizeof(T) values per chunk.
+// MmTc<T>: the (M, K) activation rows of a 1x1 conv; ConvTc<T>: the implicit
+// im2col of a SAME 3x3 window. vec: 16-byte copies (the row length in bytes
+// is a multiple of 16 and the base 16-byte aligned); otherwise each value is
+// loaded on its own
 // (ConvTc gathers a C small enough that one K step holds all of 9C, the
 // entry conv, by kernel rows instead).
+template <class T_>
 struct MmTc {
-    using T = int16_t;
+    using T = T_;
+    static constexpr int V = 16 / (int)sizeof(T);  // values per chunk
     struct Params {
-        const int16_t* x;  // (M, K) row-major
+        const T* x;  // (M, K) row-major
         int K;
         int vec;
     };
-    const int16_t* x;
+    const T* x;
     int K, vec, r0, c8;
     int m[4];  // each row's m, -1 past M
 
@@ -309,17 +319,17 @@ struct MmTc {
     }
 
     __device__ __forceinline__ void load(uint8_t* sA, int k0) const {
-        const int k = k0 + 8 * c8;
+        const int k = k0 + V * c8;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-            int16_t* dst = reinterpret_cast<int16_t*>(sA + (r0 + ROW_STEP * j) * A_LD) + 8 * c8;
+            T* dst = reinterpret_cast<T*>(sA + (r0 + ROW_STEP * j) * A_LD) + V * c8;
             const bool ok = m[j] >= 0 && k < K;
-            const int16_t* row = x + (long long)(ok ? m[j] : 0) * K;
+            const T* row = x + (long long)(ok ? m[j] : 0) * K;
             if (vec) {
                 cp_async16(dst, ok ? row + k : x, ok);
             } else {
                 *reinterpret_cast<int4*>(dst) =
-                    ok ? gather16<int16_t>(k, K, [&](int kk) { return row[kk]; })
+                    ok ? gather16<T>(k, K, [&](int kk) { return row[kk]; })
                        : make_int4(0, 0, 0, 0);
             }
         }

@@ -1,6 +1,5 @@
-// The A-operand loaders of igemm.cuh, for int16 or int8 activations.
+// The A-operand loader of igemm.cuh, for int16 activations.
 //
-//   MmLoader<T>    A is the (M, K) activation matrix itself (1x1 convs)
 //   ConvLoader<T>  A is the implicit im2col of a SAME 3x3/s1 window over NHWC
 //                  activations, K = 9*C taps x channels, tap-major (the HWIO
 //                  weight order), with the output pixels visited window-major
@@ -11,10 +10,10 @@
 //                  gathered while the tile loads, with SAME padding read as
 //                  zeros (the 3x3 convs without a pool run on igemm_tc.cuh)
 //
-// Eight consecutive values are one vector load (16 bytes of int16, 8 bytes
-// of int8) when the row length (K, or C for the conv) is a multiple of 8 and
-// the base pointer is aligned to the load; otherwise, as for the C=3 entry
-// layer, each value is loaded on its own.
+// Eight consecutive values are one vector load (16 bytes of int16) when the
+// row length C is a multiple of 8 and the base pointer is aligned to the
+// load; otherwise, as for the C=3 entry layer, each value is loaded on its
+// own.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,24 +31,11 @@ __device__ __forceinline__ void unpack8(const int4 q, int32_t v[8]) {
     }
 }
 
-// Eight int8 lanes of an 8-byte load, sign-extended to int32.
-__device__ __forceinline__ void unpack8(const int2 q, int32_t v[8]) {
-    const int32_t w[2] = {q.x, q.y};
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) v[4 * j + b] = (int32_t)(int8_t)(w[j] >> (8 * b));
-}
-
 template <class T>
 struct Vec8;  // the type of one load of eight T
 template <>
 struct Vec8<int16_t> {
     using type = int4;
-};
-template <>
-struct Vec8<int8_t> {
-    using type = int2;
 };
 
 template <class T>
@@ -62,41 +48,6 @@ template <class T>
 inline int vec_ok(const void* x, int n) {
     return (n % 8 == 0 && ((uintptr_t)x % sizeof(typename Vec8<T>::type)) == 0) ? 1 : 0;
 }
-
-template <class T>
-struct MmParams {
-    const T* x;  // (M, K) row-major
-    int K;
-    int vec;  // vec_ok<T>(x, K)
-};
-
-template <class T>
-struct MmLoader {
-    using Params = MmParams<T>;
-    const T* row;
-    int K, vec;
-    bool ok;
-
-    __device__ MmLoader(const Params& p, long long m, long long M)
-        : row(p.x + (m < M ? m : 0) * p.K), K(p.K), vec(p.vec), ok(m < M) {}
-
-    __device__ __forceinline__ void load8(int k0, int32_t v[8]) const {
-        if (vec) {
-            if (ok && k0 < K) {
-                load8_vec(row + k0, v);
-            } else {
-#pragma unroll
-                for (int j = 0; j < 8; ++j) v[j] = 0;
-            }
-            return;
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            const int k = k0 + j;
-            v[j] = (ok && k < K) ? (int32_t)row[k] : 0;
-        }
-    }
-};
 
 template <class T>
 struct ConvParams {

@@ -27,10 +27,11 @@
 extern "C" int yq16_mm(const void* x, const void* wp, const void* bias, void* out, void* ws,
                        int M, int K, int N, int shift, int leaky, int ktiles_per_split,
                        void* stream) {
-    const yq::tc::MmTc::Params p{(const int16_t*)x, K, yq::tc::vec16(x, 2LL * K)};
+    using Loader = yq::tc::MmTc<int16_t>;
+    const Loader::Params p{(const int16_t*)x, K, yq::tc::vec16(x, 2LL * K)};
     const yq::tc::EpiLayer e{(const int32_t*)bias, (int16_t*)out, shift, leaky};
-    return (int)yq::tc::launch_igemm_tc<yq::tc::Q16, yq::tc::MmTc>(p, wp, e, ws, M, N, K,
-                                                                   ktiles_per_split, stream);
+    return (int)yq::tc::launch_igemm_tc<yq::tc::Q16, Loader>(p, wp, e, ws, M, N, K,
+                                                             ktiles_per_split, stream);
 }
 
 // The tile of the tensor-core body's operand scheme `scheme` (0 Q16, 1

@@ -10,30 +10,45 @@
 // to an (N,) vector, so one epilogue serves both. The TPU wrapper padded M
 // to its tile and asked K and N to be multiples of 128; this kernel masks
 // its ragged edges and takes every shape of the graph, the head's N=425
-// included, which the JAX model sent to XLA.
+// included, which the JAX model sent to XLA. The TPU kernel's s8 dot into
+// int32 reached the TPU's matrix unit; the same products reach Hopper's
+// integer wgmma here.
 //
-// What bounds it on an H100: the same 32-bit integer multiply-adds on the
-// CUDA cores as mm_q16.cu (64 per clock per SM), through the same tiled
-// body (igemm.cuh). |x*w| <= 2^14 and K <= 9*1280, so no sum can wrap; the
-// accumulator is uint32 all the same. The int8 operands halve the global
-// reads of the int16 tier and change nothing else. Four products per
-// instruction with __dp4a, or the s8 wgmma tensor cores, are later work.
-#include "igemm.cuh"
-#include "loaders.cuh"
+// What bounds it on an H100: bytes. An s8 x s8 product is one 8-bit
+// tensor-core product, and the eight 1x1 layers of yolov2 416 do 0.63 G MAC
+// per frame, 0.005 ms at b=8 on 989.5e12 8-bit MAC/s, while their int8
+// inputs and outputs and the weights, each moved once, take 0.013 ms at
+// 3.35 TB/s. With K of 128 to 1024 a block has only one to eight K steps, so
+// what it waits for is its own loads and its epilogue, not the products.
+// The design (the S8 scheme of igemm_tc.cuh, MmTc<int8_t>): the int8 rows go
+// to shared memory as they are, 128 values of k per K step, by 16-byte
+// cp.async where K % 16 == 0 (every 1x1 conv of yolov2) and byte by byte
+// otherwise; ldmatrix gives the wgmma A fragment with no byte permute; the
+// weights are one s8 plane in natural k order packed at model build
+// (ops/q8.py: pack_s8); one s32 accumulator set (exact for K <= 131072; a
+// block still sums at most 32768 values of k); four blocks per SM, so one
+// block's loads and stores overlap the others' products; split-K where the
+// output tiles cannot fill the card (the 13x13 layers at b=1); each
+// column's bias and shift read once, and the outputs leave as 8-byte (int8)
+// or 16-byte (int16) stores where N % 8 == 0 (N=425 stores by element).
+#include "igemm_tc.cuh"
 
-// x (M, K) int8, w (K, N) int8, bias and shift (N,) int32 -> out (M, N)
-// int8, or int16 when out16 != 0; all contiguous on the current device.
+// x (M, K) int8, wp the packed plane of w (K, N) int8 (ops/q8.py: pack_s8),
+// bias and shift (N,) int32 -> out (M, N) int8, or int16 when out16 != 0,
+// all contiguous on the current device; ws as launch_igemm_tc wants it.
 // Returns cudaGetLastError() after the launch.
-extern "C" int yq8_mm_s8(const void* x, const void* w, const void* bias,
-                         const void* shift, void* out, int M, int K, int N, int leaky,
-                         int out16, void* stream) {
-    const yq::MmParams<int8_t> p{(const int8_t*)x, K, yq::vec_ok<int8_t>(x, K)};
+extern "C" int yq8_mm_s8(const void* x, const void* wp, const void* bias, const void* shift,
+                         void* out, void* ws, int M, int K, int N, int leaky, int out16,
+                         int ktiles_per_split, void* stream) {
+    using namespace yq::tc;
+    using Loader = MmTc<int8_t>;
+    const Loader::Params p{(const int8_t*)x, K, vec16(x, K)};
+    const int32_t *b = (const int32_t*)bias, *s = (const int32_t*)shift;
     if (out16) {
-        const yq::EpiVec<int16_t> e{(const int32_t*)bias, (const int32_t*)shift,
-                                    (int16_t*)out, leaky};
-        return (int)yq::launch_igemm<yq::MmLoader<int8_t>>(p, w, e, M, N, K, stream);
+        const S8Out16::Epi e{b, s, (int16_t*)out, leaky};
+        return (int)launch_igemm_tc<S8Out16, Loader>(p, wp, e, ws, M, N, K, ktiles_per_split,
+                                                     stream);
     }
-    const yq::EpiVec<int8_t> e{(const int32_t*)bias, (const int32_t*)shift, (int8_t*)out,
-                               leaky};
-    return (int)yq::launch_igemm<yq::MmLoader<int8_t>>(p, w, e, M, N, K, stream);
+    const S8::Epi e{b, s, (int8_t*)out, leaky};
+    return (int)launch_igemm_tc<S8, Loader>(p, wp, e, ws, M, N, K, ktiles_per_split, stream);
 }

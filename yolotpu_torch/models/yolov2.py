@@ -182,9 +182,9 @@ class YoloV2Q(nn.Module):
     The int8 and w8a16 kernels take one shift per output channel; a
     per-layer shift is broadcast to that vector here, once.
 
-    On the card the weights of the convs that run on the tensor cores (the
-    int16 tier's mm and conv3, the other tiers' conv3) are also packed here,
-    once (buffers ``p{idx}``, by ``packers``).
+    On the card the weights of the convs that run on the tensor cores (every
+    tier's mm and conv3) are also packed here, once (buffers ``p{idx}``, by
+    ``packers``).
 
     ``overrides`` ({conv idx: TPU engine kind}, the ``YOLO2_Q16_PLAN``
     lever) is taken by the int16 tier only, as ``yolotpu`` plans only its
@@ -200,8 +200,8 @@ class YoloV2Q(nn.Module):
     # precision -> engine kind -> what packs that kind's weights for the
     # tensor cores, on the card (the kernels' planes= operand)
     packers = {"int16": {"mm": q16.pack_q16, "conv3": q16.pack_q16},
-               "int8": {"conv3": q8.pack_conv3x3_s8},
-               "w8a16": {"conv3": q8.pack_conv3x3_w8a16}}
+               "int8": {"mm": q8.pack_s8, "conv3": q8.pack_s8},
+               "w8a16": {"mm": q8.pack_w8a16, "conv3": q8.pack_w8a16}}
 
     def __init__(self, spec: NetworkSpec, qtables: QTables, params: dict,
                  device: torch.device | str = "cuda", precision: str = "int16",

@@ -116,3 +116,9 @@ VOC_NAMES = [
 
 def names_for(classes: int) -> list[str] | None:
     return {80: COCO_NAMES, 20: VOC_NAMES}.get(classes)
+
+
+def load_names(path: str) -> list[str]:
+    """One class name per line of ``path``."""
+    with open(path) as f:
+        return [l.rstrip("\n") for l in f]

@@ -1,5 +1,5 @@
 """The four conv kernels of the 8-bit-weight tiers: wrappers, plain
-versions, launch counts.
+versions, weight packing, launch counts.
 
 The counterpart of ``yolotpu/ops/pallas_matmul.py`` and of the w8 section of
 ``yolotpu/ops/pallas_q16.py``. Every kernel computes the exact sum modulo
@@ -22,18 +22,18 @@ an (N,) shift vector and the output type's range):
 The kernels' shift is always an (N,) int32 tensor: a per-layer shift is
 broadcast once, when the model is built.
 
-The three 3x3 convs run on the 8-bit tensor cores (``csrc/igemm_tc.cuh``
-and ``ops.tc``, the body they share with ``q16``'s tensor-core kernels) in
-two operand schemes: ``tc.S8`` (int8 x int8, one s32 sum) and
-``tc.W8A16`` (each int16 activation cut into an s8 high and a u8 low byte
-against the int8 weight, two s32 sums recombined as (high << 8) + low
-modulo 2^32; the TPU's low plane carried a -128 offset and a
-``cw``/``nconst`` column constant, which do not carry over). On the card
-they take the weights also as one packed s8 plane (``pack_conv3x3_s8``,
-``pack_conv3x3_w8a16``, made once at model build), and ``tc.emulate``
+All of them run on the 8-bit tensor cores (``csrc/igemm_tc.cuh`` and
+``ops.tc``, the body they share with ``q16``'s tensor-core kernels) in two
+operand schemes: ``tc.S8`` (mm_s8, conv3x3_s8, conv3x3_int8: int8 x int8,
+one s32 sum) and ``tc.W8A16`` (mm_w8a16, conv3x3_w8a16: each int16
+activation cut into an s8 high and a u8 low byte against the int8 weight,
+two s32 sums recombined as (high << 8) + low modulo 2^32; the TPU's low
+plane carried a -128 offset and a ``cw``/``nconst`` column constant, which
+do not carry over). On the card they take the weights also as one packed s8
+plane, ``planes=`` (``pack_s8`` or ``pack_w8a16``, by the kernel's scheme,
+of the (K, N) or HWIO weight, made once at model build), and ``tc.emulate``
 computes the sums from those planes the way the kernels do, so the CPU
-tests hold the layout. The 1x1 kernels multiply int8 or int16 by int8 on
-the CUDA cores (``csrc/igemm.cuh``).
+tests hold the layout.
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
 launches the hand-written kernel (``csrc/``, built by ``_build``) or raises.
@@ -73,20 +73,24 @@ def _requant(accf: torch.Tensor, bias: torch.Tensor, shift: torch.Tensor,
 
 def mm_s8_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                 shift: torch.Tensor, leaky: bool,
-                out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
+                out_dtype: torch.dtype = torch.int8,
+                planes=None) -> torch.Tensor:
+    """mm_s8 in float64; ``planes`` is taken, as the kernel takes it, and
+    not read: the plain version reads w."""
     return _requant(q16.mm_sum64(x, w), bias, shift, leaky, out_dtype)
 
 
 def mm_w8a16_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-                   shift: torch.Tensor, leaky: bool) -> torch.Tensor:
+                   shift: torch.Tensor, leaky: bool,
+                   planes=None) -> torch.Tensor:
+    """mm_w8a16 in float64; ``planes`` is taken and not read."""
     return _requant(q16.mm_sum64(x, w), bias, shift, leaky, torch.int16)
 
 
 def conv3x3_s8_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                      shift: torch.Tensor, leaky: bool,
                      planes=None) -> torch.Tensor:
-    """conv3x3_s8 in float64; ``planes`` is taken, as the kernel takes it,
-    and not read: the plain version reads w."""
+    """conv3x3_s8 in float64; ``planes`` is taken and not read."""
     return _requant(q16.conv3x3_sum64(x, w), bias, shift, leaky, torch.int8)
 
 
@@ -120,13 +124,15 @@ def pack_w8(w: torch.Tensor, scheme: tc.Scheme) -> torch.Tensor:
                              scheme)
 
 
-def pack_conv3x3_s8(w: torch.Tensor) -> torch.Tensor:
-    """conv3x3_s8's (and conv3x3_int8's) planes of w (3, 3, C, N) int8."""
+def pack_s8(w: torch.Tensor) -> torch.Tensor:
+    """The planes of w, (K, N) or (3, 3, C, N) int8, for the tc.S8 kernels:
+    mm_s8, conv3x3_s8 and conv3x3_int8."""
     return pack_w8(w, tc.S8)
 
 
-def pack_conv3x3_w8a16(w: torch.Tensor) -> torch.Tensor:
-    """conv3x3_w8a16's planes of w (3, 3, C, N) int8."""
+def pack_w8a16(w: torch.Tensor) -> torch.Tensor:
+    """The planes of w, (K, N) or (3, 3, C, N) int8, for the tc.W8A16
+    kernels: mm_w8a16 and conv3x3_w8a16."""
     return pack_w8(w, tc.W8A16)
 
 
@@ -146,57 +152,54 @@ def _check(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"{name}: the kernel needs a contiguous shift")
 
 
-def _mm(name: str, fn: str, x: torch.Tensor, w: torch.Tensor,
-        bias: torch.Tensor, shift: torch.Tensor, leaky: bool,
-        out_dtype: torch.dtype, *flags: int) -> torch.Tensor:
-    (m, k), n = x.shape, w.shape[1]
-    _build.check_rows(name, m)
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    return _build.launch(name, fn, out, x.data_ptr(), w.data_ptr(),
-                         bias.data_ptr(), shift.data_ptr(), out.data_ptr(),
-                         m, k, n, int(leaky), *flags, counts=LAUNCHES)
-
-
-def _conv3(name: str, fn: str, x: torch.Tensor, w: torch.Tensor,
-           bias: torch.Tensor, shift: torch.Tensor, leaky: bool,
-           out_dtype: torch.dtype, planes, scheme: tc.Scheme) -> torch.Tensor:
-    b, h, wd, c = x.shape
+def _launch(name: str, fn: str, x: torch.Tensor, w: torch.Tensor,
+            bias: torch.Tensor, shift: torch.Tensor, leaky: bool,
+            out_dtype: torch.dtype, planes, scheme: tc.Scheme,
+            *flags: int) -> torch.Tensor:
+    """Launch ``scheme``'s kernel ``fn`` on checked operands: x (M, K) against
+    w (K, N), or x NHWC against w (3, 3, C, N); the entry point's ints are
+    x's shape, N, leaky and ``flags``."""
     n = w.shape[-1]
-    _build.check_rows(name, b * h * wd)
-    tc.check_planes(name, planes, 9 * c, n, x.device, scheme)
-    out = torch.empty((b, h, wd, n), dtype=out_dtype, device=x.device)
-    return tc.launch(name, fn, out, b * h * wd, n, 9 * c,
+    m, k = x.numel() // x.shape[-1], w.numel() // n
+    _build.check_rows(name, m)
+    tc.check_planes(name, planes, k, n, x.device, scheme)
+    out = torch.empty((*x.shape[:-1], n), dtype=out_dtype, device=x.device)
+    return tc.launch(name, fn, out, m, n, k,
                      (x.data_ptr(), planes.data_ptr(), bias.data_ptr(),
                       shift.data_ptr()),
-                     (b, h, wd, c, n, int(leaky)), scheme, LAUNCHES)
+                     (*x.shape, n, int(leaky), *flags), scheme, LAUNCHES)
 
 
 def mm_s8(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
           shift: torch.Tensor, leaky: bool,
-          out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
+          out_dtype: torch.dtype = torch.int8,
+          planes: torch.Tensor | None = None) -> torch.Tensor:
     """x (M, K) int8 @ w (K, N) int8, fused per-channel requant -> (M, N)
-    int8, or int16 with ``out_dtype=torch.int16`` (the head16 conv)."""
+    int8, or int16 with ``out_dtype=torch.int16`` (the head16 conv). On the
+    card ``planes`` (pack_s8(w)) is the kernel's weight operand."""
     if out_dtype not in _RANGE:
         raise ValueError(f"mm_s8: out_dtype {out_dtype} (int8 or int16)")
     _check("mm_s8", x, w, bias, shift, torch.int8, 2)
     if x.device.type == "cpu":
         return mm_s8_plain(x, w, bias, shift, leaky, out_dtype)
     out16 = out_dtype == torch.int16
-    out = _mm("mm_s8", "yq8_mm_s8", x, w, bias, shift, leaky, out_dtype,
-              int(out16))
+    out = _launch("mm_s8", "yq8_mm_s8", x, w, bias, shift, leaky, out_dtype,
+                  planes, tc.S8, int(out16))
     INT16_OUT_LAUNCHES["mm_s8"] += out16
     return out
 
 
 def mm_w8a16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-             shift: torch.Tensor, leaky: bool) -> torch.Tensor:
+             shift: torch.Tensor, leaky: bool,
+             planes: torch.Tensor | None = None) -> torch.Tensor:
     """x (M, K) int16 @ w (K, N) int8, fused per-channel requant -> (M, N)
-    int16."""
+    int16. On the card ``planes`` (pack_w8a16(w)) is the kernel's weight
+    operand."""
     _check("mm_w8a16", x, w, bias, shift, torch.int16, 2)
     if x.device.type == "cpu":
         return mm_w8a16_plain(x, w, bias, shift, leaky)
-    return _mm("mm_w8a16", "yq8_mm_w8a16", x, w, bias, shift, leaky,
-               torch.int16)
+    return _launch("mm_w8a16", "yq8_mm_w8a16", x, w, bias, shift, leaky,
+                   torch.int16, planes, tc.W8A16)
 
 
 def conv3x3_s8(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -204,12 +207,12 @@ def conv3x3_s8(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                planes: torch.Tensor | None = None) -> torch.Tensor:
     """x (B, H, W, C) int8, w (3, 3, C, N) int8 -> SAME 3x3/s1 conv with the
     fused per-channel requant, (B, H, W, N) int8. On the card ``planes``
-    (pack_conv3x3_s8(w)) is the kernel's weight operand."""
+    (pack_s8(w)) is the kernel's weight operand."""
     _check("conv3x3_s8", x, w, bias, shift, torch.int8, 4)
     if x.device.type == "cpu":
         return conv3x3_s8_plain(x, w, bias, shift, leaky)
-    return _conv3("conv3x3_s8", "yq8_conv3x3_s8", x, w, bias, shift, leaky,
-                  torch.int8, planes, tc.S8)
+    return _launch("conv3x3_s8", "yq8_conv3x3_s8", x, w, bias, shift, leaky,
+                   torch.int8, planes, tc.S8)
 
 
 def conv3x3_int8(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -218,13 +221,13 @@ def conv3x3_int8(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     """x (B, H, W, C) int8, w (3, 3, C, N) int8 -> SAME 3x3/s1 conv, one
     shift for the layer, +bias, clip to int8, integer leaky: (B, H, W, N)
     int8. conv3x3_s8's kernel, with the shift broadcast to (N,); on the card
-    ``planes`` is pack_conv3x3_s8(w)."""
+    ``planes`` is pack_s8(w)."""
     shift = _broadcast(shift_out, w)
     _check("conv3x3_int8", x, w, bias, shift, torch.int8, 4)
     if x.device.type == "cpu":
         return conv3x3_s8_plain(x, w, bias, shift, leaky)
-    return _conv3("conv3x3_int8", "yq8_conv3x3_s8", x, w, bias, shift, leaky,
-                  torch.int8, planes, tc.S8)
+    return _launch("conv3x3_int8", "yq8_conv3x3_s8", x, w, bias, shift,
+                   leaky, torch.int8, planes, tc.S8)
 
 
 def conv3x3_w8a16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -232,9 +235,9 @@ def conv3x3_w8a16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                   planes: torch.Tensor | None = None) -> torch.Tensor:
     """x (B, H, W, C) int16, w (3, 3, C, N) int8 -> SAME 3x3/s1 conv with the
     fused per-channel requant, (B, H, W, N) int16. On the card ``planes``
-    (pack_conv3x3_w8a16(w)) is the kernel's weight operand."""
+    (pack_w8a16(w)) is the kernel's weight operand."""
     _check("conv3x3_w8a16", x, w, bias, shift, torch.int16, 4)
     if x.device.type == "cpu":
         return conv3x3_w8a16_plain(x, w, bias, shift, leaky)
-    return _conv3("conv3x3_w8a16", "yq8_conv3x3_w8a16", x, w, bias, shift,
-                  leaky, torch.int16, planes, tc.W8A16)
+    return _launch("conv3x3_w8a16", "yq8_conv3x3_w8a16", x, w, bias, shift,
+                   leaky, torch.int16, planes, tc.W8A16)

@@ -2,11 +2,11 @@
 schemes, weight-plane layout, split of K and launch.
 
 The Python side of ``csrc/igemm_tc.cuh``, whose one templated body runs
-``q16.mm_q16`` and ``q16.conv3x3_q16`` (scheme ``Q16``), ``q8.conv3x3_w8a16``
-(``W8A16``) and ``q8.conv3x3_s8`` / ``q8.conv3x3_int8`` (``S8``) on the 8-bit
-tensor cores. Each scheme cuts its operands into 8-bit pieces, sums the
-products of each shift into an s32 set over at most ``KMAX`` values of k,
-and recombines the sets modulo 2^32:
+``q16.mm_q16`` and ``q16.conv3x3_q16`` (scheme ``Q16``), ``q8.mm_w8a16`` and
+``q8.conv3x3_w8a16`` (``W8A16``), and ``q8.mm_s8``, ``q8.conv3x3_s8`` and
+``q8.conv3x3_int8`` (``S8``) on the 8-bit tensor cores. Each scheme cuts its
+operands into 8-bit pieces, sums the products of each shift into an s32 set
+over at most ``KMAX`` values of k, and recombines the sets modulo 2^32:
 
   Q16    int16 A, the weight's s8 high and u8 low planes: three sets
          (<< 16, << 8, << 0)
@@ -14,7 +14,8 @@ and recombines the sets modulo 2^32:
   S8     int8 A against one s8 plane: one set
 
 The wrappers take the weights as planes packed once, at model build
-(``q16.pack_q16``, ``q8.pack_w8``, both through ``arrange_planes``).
+(``q16.pack_q16``, ``q8.pack_s8``, ``q8.pack_w8a16``: one packer per scheme,
+for a 1x1 and a 3x3 weight alike, all through ``arrange_planes``).
 ``emulate`` computes a scheme's sums from those planes the way the kernel
 does, so the CPU tests hold the layout and each scheme's exactness. Where
 the output tiles cannot fill the card, ``split`` cuts K over blocks, and
@@ -41,7 +42,9 @@ BM, BN, KMAX = 64, 64, 32768
 # at batch 1 and 8, NVIDIA H100 80GB HBM3): for Q16 any value from 15 to 26
 # picks, at each shape, a split at most 6% slower than the fastest one
 # measured there, and 20 is the middle of that range; the sweep of W8A16
-# and S8 found no shape where it picks a split more than 10% slower.
+# and S8 found no shape where it picks a split more than 10% slower. Their
+# 1x1 convs (1 to 16 K steps, fewer than the cost) stay unsplit, which the
+# sweep found fastest at every shape, the 13x13 ones at batch 1 included.
 SPLIT_COST = 20
 
 
@@ -84,14 +87,13 @@ def _round_up(v: int, m: int) -> int:
 
 
 Q16 = Scheme("q16", 0, a_bytes=2, planes=2, wave=3, pack="pack_q16")
-W8A16 = Scheme("w8a16", 1, a_bytes=2, planes=1, wave=3,
-               pack="pack_conv3x3_w8a16")
+W8A16 = Scheme("w8a16", 1, a_bytes=2, planes=1, wave=3, pack="pack_w8a16")
 # S8's waves count two blocks per SM, though four stay on one: the split
 # sweep found the 13x13 convs at batch 1 fastest at 4-5 splits, where more
 # blocks than two per SM gave no shorter wave, and with three or four per
 # SM in its waves split chose 8-11 splits, up to 1.28x slower (NVIDIA H100
 # 80GB HBM3).
-S8 = Scheme("s8", 2, a_bytes=1, planes=1, wave=2, pack="pack_conv3x3_s8")
+S8 = Scheme("s8", 2, a_bytes=1, planes=1, wave=2, pack="pack_s8")
 
 # Fragment position p = 16h + 4t + i of a 32-k chunk (h < 2, lane t < 4,
 # byte i < 4) holds k = FRAG_K[p]: ldmatrix gives lane t the int16 pairs
