@@ -45,7 +45,10 @@ and in two plan slices of the int16 tier, in four phases:
    timed beside it;
 4. profile, per tier: each conv alone at batch 8 and 1 (CUDA events) beside
    its plain version, a library call and its bound, summed per kernel over
-   one forward; the forward's device time by kernel against its time per
+   one forward (the 1x1 kernel and its library calls also alone on the
+   device, in CUDA graph replays, since events around such short calls hold
+   the host's time per launch); the forward's device time by kernel, its
+   largest glue kernel and the device's idle share against its time per
    forward (torch.profiler, each kernel known by its full name), the bytes
    per second the 1x1 kernel moves on that device time, and the SM clock
    and power draw sampled beside them; each fused conv+pool alone
@@ -1199,8 +1202,9 @@ def kernel_names(dev: torch.device) -> dict[str, str]:
 
 
 def new_forward() -> dict:
-    return {"ms": 0.0, "device_ms": None, "plain_ms": 0.0, "library_ms": 0.0,
-            "library": set(), "bound": [0.0, 0.0, 0.0], "bytes": 0}
+    return {"ms": 0.0, "device_ms": None, "graph_ms": None, "plain_ms": 0.0,
+            "library_ms": 0.0, "library_graph_ms": None, "library": set(),
+            "bound": [0.0, 0.0, 0.0], "bytes": 0}
 
 
 def phase_profile(model: YoloV2Q, plain: YoloV2Q, dev: torch.device,
@@ -1213,7 +1217,9 @@ def phase_profile(model: YoloV2Q, plain: YoloV2Q, dev: torch.device,
     SM clock and power sampled beside them. Returns, per kernel and batch,
     those summed over one forward's convs (ms: CUDA events around the
     wrappers, which hold the host's time per launch where the device outruns
-    it; device_ms: the profiler's device time of the kernel per forward)."""
+    it; device_ms: the profiler's device time of the kernel per forward;
+    graph_ms and library_graph_ms, for the 1x1 kernel: it and its library
+    calls alone on the device, from graph_ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1244,6 +1250,14 @@ def phase_profile(model: YoloV2Q, plain: YoloV2Q, dev: torch.device,
                 p_ms = cuda_ms(lambda: plain._conv(l, x), reps=3)   # noqa: B023
                 lib, what = library_call(name, x, w)
                 l_ms = cuda_ms(lib, reps=5)
+                f = forward[name][bsz]
+                if name == mm:
+                    # the 1x1 convs' events hold the host's time per launch:
+                    # the kernel and the library call on the device alone
+                    f["graph_ms"] = (f["graph_ms"] or 0.0) + graph_ms(
+                        lambda: model._conv(l, x))   # noqa: B023
+                    f["library_graph_ms"] = ((f["library_graph_ms"] or 0.0)
+                                             + graph_ms(lib))
                 del lib
                 macs = bsz * l.h * l.w * l.c * l.n * l.size * l.size
                 out16 = tier != "int8" or l.idx == model.head16
@@ -1253,7 +1267,6 @@ def phase_profile(model: YoloV2Q, plain: YoloV2Q, dev: torch.device,
                           + bsz * l.h * l.w * l.n * (2 if out16 else 1))
                 part = bound(bsz * l.h * l.w, l.c * l.size * l.size, l.n,
                              products(x, w), nbytes)
-                f = forward[name][bsz]
                 f["ms"] += ms
                 f["plain_ms"] += p_ms
                 f["library_ms"] += l_ms
@@ -1276,7 +1289,11 @@ def phase_profile(model: YoloV2Q, plain: YoloV2Q, dev: torch.device,
                     f"ms, bound {f['bound'][0]:.4f} ms ({bound_by(f['bound'])}; "
                     f"{100 * f['bound'][0] / f['ms']:.1f}% of the kernel time), "
                     f"plain {f['plain_ms']:.4f} ms, "
-                    f"{' / '.join(sorted(f['library']))} {f['library_ms']:.4f} ms")
+                    f"{' / '.join(sorted(f['library']))} {f['library_ms']:.4f} ms"
+                    + ("" if f["graph_ms"] is None else
+                       f"; device alone (CUDA graph replays): kernel "
+                       f"{f['graph_ms']:.4f} ms, the library calls "
+                       f"{f['library_graph_ms']:.4f} ms"))
 
             xb = torch.from_numpy(rng.integers(
                 0, 256, (bsz, spec.net.height, spec.net.width, 3),
@@ -1311,6 +1328,13 @@ def phase_profile(model: YoloV2Q, plain: YoloV2Q, dev: torch.device,
                       if v and k not in (mm, c3, "glue", "memset")}
             if others:
                 raise AssertionError(f"{tag} the {tier} forward ran {others}")
+            say(f"{tag} b={bsz} forward: {fwd_ms:.3f} ms (CUDA events), "
+                f"device busy {dev_ms:.3f} ms (profiler): {c3} "
+                f"{by[c3]:.3f}, {mm} {by[mm]:.3f}, split-K workspace memsets "
+                f"{by['memset']:.3f}, glue {by['glue']:.3f} (largest "
+                f"{glue_top[0]!r} {glue_top[1]:.3f}); convs "
+                f"{100 * (dev_ms - by['glue']) / dev_ms:.1f}% of device "
+                f"time, device idle {100 * max(0.0, 1 - dev_ms / fwd_ms):.1f}%")
             for name in forward:
                 forward[name][bsz]["device_ms"] = by[name]
             # the 1x1 convs are bound by their bytes: the rate they move
@@ -1532,6 +1556,8 @@ def main() -> int:
 
     def at(f: dict) -> dict:
         return {"ms": f["ms"], "device_ms": f["device_ms"],
+                "graph_ms": f["graph_ms"],
+                "library_graph_ms": f["library_graph_ms"],
                 "bound_ms": f["bound"][0],
                 "bound_by": bound_by(f["bound"]), "plain_ms": f["plain_ms"],
                 "library_ms": f["library_ms"],
@@ -1540,7 +1566,10 @@ def main() -> int:
     # ms, plain_ms, bound_ms and library_ms: summed over phase 2's timed
     # cases (the yolov2 416 shapes of the kernel's kind at batch 2);
     # per_forward: phase 4's sums over one forward's convs at batch 8 and 1
-    # (ms from CUDA events around the wrappers, device_ms from the profiler)
+    # (ms and library_ms from CUDA events around the calls, which hold the
+    # host's time per launch; device_ms the kernel's device time in the
+    # forward, from the profiler; graph_ms and library_graph_ms, for the 1x1
+    # kernels, the kernel and the library calls alone in CUDA graph replays)
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": check.max_abs_err[name],
                 "ms": check.ms[name], "plain_ms": check.plain_ms[name],

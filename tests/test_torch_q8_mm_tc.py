@@ -88,7 +88,6 @@ def test_pack_mm_layout(scheme, k, n):
     nb, kc, g, h, r, e = np.indices((np_ // 64, kp // 32, 8, 2, 8, 16))
     want = wp[32 * kc + order[16 * h + e], 64 * nb + 8 * g + r]
     np.testing.assert_array_equal(planes[:, :, 0], want.view(np.uint8))
-    assert torch.equal(pack(_t(w)), q8.pack_w8(_t(w), sch))
 
 
 @pytest.mark.parametrize("scheme", SCHEMES)

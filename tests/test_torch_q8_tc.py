@@ -7,7 +7,7 @@ convs, mm_s8 and mm_w8a16.
 The kernels run only on the card (chip_smoke.py holds them to their plain
 versions there). What they compute is held here through ``tc.emulate``,
 which sums from the packed weight planes
-(``q8.pack_w8``) and the activations split as the kernels split them, with
+(``q8.pack_s8``, ``q8.pack_w8a16``) and the activations split as the kernels split them, with
 every s32 partial sum checked: equal to the exact sums modulo 2^32
 (``acc32(mm_sum64)``), to XLA's int32 dot and conv, and, through the
 per-channel requant, to the Pallas kernels they replace
@@ -26,6 +26,7 @@ from yolotpu.ops import pallas_q16 as pq16
 from yolotpu_torch.ops import convops, q8, q16, tc
 
 SCHEMES = {"s8": (tc.S8, np.int8), "w8a16": (tc.W8A16, np.int16)}
+PACK = {tc.S8: q8.pack_s8, tc.W8A16: q8.pack_w8a16}
 TARGET = {np.int8: 2**5, np.int16: 2**13}   # output spread the shifts aim at
 
 
@@ -57,7 +58,7 @@ def test_pack_w8_layout(scheme):
     sch = SCHEMES[scheme][0]
     k, n = 150, 100
     w = np.random.default_rng(9).integers(-128, 128, (k, n)).astype(np.int8)
-    planes = q8.pack_w8(_t(w), sch).numpy()
+    planes = PACK[sch](_t(w)).numpy()
     kp = -(-k // sch.bk) * sch.bk
     assert planes.shape == sch.planes_shape(k, n) == (2, kp // 32, 1, 8, 2, 8,
                                                       16)
@@ -94,7 +95,7 @@ def test_tc_sum_equals_exact_and_xla(scheme, m, k, n, xvalues):
     x = _draw(rng, (m, k), xdtype, xv)
     w = _draw(rng, (k, n), np.int8, (-128, 127) if xvalues else None)
     tx, tw = _t(x), _t(w)
-    got = tc.emulate(tx, q8.pack_w8(tw, sch), k, n, sch)
+    got = tc.emulate(tx, PACK[sch](tw), k, n, sch)
     assert got.dtype == torch.int32
     assert torch.equal(got, q16.acc32(q16.mm_sum64(tx, tw)))
     want = jnp.dot(jnp.asarray(x), jnp.asarray(w),
@@ -110,7 +111,7 @@ def test_tc_sum_of_im2col_equals_conv(scheme, b, h, w_, c, n):
     x = _draw(rng, (b, h, w_, c), xdtype)
     w = _draw(rng, (3, 3, c, n), np.int8)
     tx, tw = _t(x), _t(w)
-    got = tc.emulate(q16.im2col3x3(tx), q8.pack_w8(tw, sch), 9 * c, n,
+    got = tc.emulate(q16.im2col3x3(tx), PACK[sch](tw), 9 * c, n,
                      sch).reshape(b, h, w_, n)
     assert torch.equal(got, q16.acc32(q16.conv3x3_sum64(tx, tw)))
     # XLA's conv takes one dtype: int16 x int8 through int32, whose products
@@ -143,7 +144,7 @@ def test_tc_sum_requant_equals_pallas(scheme, vector, leaky):
          else np.full(n, base)).astype(np.int32)
     bias = rng.integers(-TARGET[xdtype] // 2, TARGET[xdtype] // 2,
                         n).astype(np.int32)
-    sums = tc.emulate(q16.im2col3x3(_t(x)), q8.pack_w8(_t(w), sch), 9 * c,
+    sums = tc.emulate(q16.im2col3x3(_t(x)), PACK[sch](_t(w)), 9 * c,
                       n, sch).reshape(2, 8, 8, n)
     lo, hi = np.iinfo(xdtype).min, np.iinfo(xdtype).max
     got = convops.requant32(sums, _t(bias), _t(s), leaky, lo, hi).numpy()
@@ -223,7 +224,7 @@ def test_tc_sum_chunks_a_long_k(scheme, c, xv):
     x = np.full((2, k), xv, xdtype)
     w = np.full((k, n), -128, np.int8)
     tx, tw = _t(x), _t(w)
-    got = tc.emulate(tx, q8.pack_w8(tw, sch), k, n, sch)
+    got = tc.emulate(tx, PACK[sch](tw), k, n, sch)
     assert torch.equal(got, q16.acc32(q16.mm_sum64(tx, tw)))
     want = jnp.dot(jnp.asarray(x), jnp.asarray(w),
                    preferred_element_type=jnp.int32)
@@ -267,7 +268,7 @@ def test_planes_required_on_card_ignored_by_plain(name):
     good = getattr(q8, sch.pack)(torch.zeros(wshape, dtype=torch.int8))
     tc.check_planes(name, good, k, 8, torch.device("cpu"), sch)
     other = tc.S8 if sch is tc.W8A16 else tc.W8A16
-    wrong = q8.pack_w8(torch.zeros((3, 3, 16, 8), dtype=torch.int8), other)
+    wrong = PACK[other](torch.zeros((3, 3, 16, 8), dtype=torch.int8))
     with pytest.raises(ValueError, match="planes"):
         tc.check_planes(name, wrong, k, 8, torch.device("cpu"), sch)
 

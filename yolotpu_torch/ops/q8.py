@@ -113,7 +113,7 @@ def conv3x3_int8_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return conv3x3_s8_plain(x, w, bias, _broadcast(shift_out, w), leaky)
 
 
-def pack_w8(w: torch.Tensor, scheme: tc.Scheme) -> torch.Tensor:
+def _pack(w: torch.Tensor, scheme: tc.Scheme) -> torch.Tensor:
     """int8 weights, (C, N) or HWIO (3, 3, C, N), read as (K, N) -> the
     ``scheme`` kernel's B operand, one s8 plane (``tc.arrange_planes``,
     uint8 ``scheme.planes_shape(K, N)`` on w's device: K padded to 128 for
@@ -127,13 +127,13 @@ def pack_w8(w: torch.Tensor, scheme: tc.Scheme) -> torch.Tensor:
 def pack_s8(w: torch.Tensor) -> torch.Tensor:
     """The planes of w, (K, N) or (3, 3, C, N) int8, for the tc.S8 kernels:
     mm_s8, conv3x3_s8 and conv3x3_int8."""
-    return pack_w8(w, tc.S8)
+    return _pack(w, tc.S8)
 
 
 def pack_w8a16(w: torch.Tensor) -> torch.Tensor:
     """The planes of w, (K, N) or (3, 3, C, N) int8, for the tc.W8A16
     kernels: mm_w8a16 and conv3x3_w8a16."""
-    return pack_w8(w, tc.W8A16)
+    return _pack(w, tc.W8A16)
 
 
 def _check(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
