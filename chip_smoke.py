@@ -9,13 +9,14 @@ each integer tier (int16-exact; int8 w8a8 with the head16 epilogue; w8a16)
 and in two plan slices of the int16 tier, in four phases:
 
 1. card: name and power limit, torch and CUDA versions, kernel build time,
-   each kernel's registers and spills, the tensor-core MMA instructions of
-   each kernel (cuobjdump: the seven tensor-core instantiations hold integer
-   wgmma, no other kernel any MMA), and the tile, shared memory and
-   registers of each operand scheme of the tensor-core body (Q16: mm_q16,
-   conv3x3_q16; W8A16: mm_w8a16, conv3x3_w8a16; S8: mm_s8 with either
-   output, conv3x3_s8, conv3x3_int8), checked against the wrappers' copy of
-   it;
+   each kernel's registers and spills (none allowed), each kernel's
+   tensor-core MMA count (cuobjdump: the ten instantiations of the
+   tensor-core body hold integer wgmma, and the library holds no other
+   kernel), and the tile, shared memory and registers of each operand
+   scheme of the tensor-core body (Q16: mm_q16, conv3x3_q16,
+   conv3x3_pool_q16 in its three pool orders; W8A16: mm_w8a16,
+   conv3x3_w8a16; S8: mm_s8 with either output, conv3x3_s8, conv3x3_int8),
+   checked against the wrappers' copy of it;
 2. kernels: each of the six conv kernels against its plain PyTorch version
    on the card at all 23 yolov2 conv shapes of its kind (batch 2) and at
    edge cases (shift extremes, per-channel shift vectors that mix them, sums
@@ -28,8 +29,10 @@ and in two plan slices of the int16 tier, in four phases:
    66,600, S8 at 131,472, whose exact sums wrap; the 1x1 and the 3x3
    kernel of each scheme); the
    fused conv+pool kernel in each pool order at the five
-   yolov2 shapes a 2x2/s2 pool follows and at edge cases (C=3 and 4,
-   shifts, sums that wrap at shift 31, where the three orders must differ);
+   yolov2 shapes a 2x2/s2 pool follows, at batch 1, 2 and 8, and at edge
+   cases (C=3, 4 and 7, shifts, sums that wrap at shift 31, where the three
+   orders must differ, splits of K forced through the workspace exit,
+   K beyond one split);
    the scalar-shift int8 conv at the int8 tier's 15 3x3 shapes; all
    compared with ``torch.equal``, with both times from CUDA events, and, at
    the model's shapes, the bound (the least time the card could take) and
@@ -52,10 +55,12 @@ and in two plan slices of the int16 tier, in four phases:
    forward (torch.profiler, each kernel known by its full name), the bytes
    per second the 1x1 kernel moves on that device time, and the SM clock
    and power draw sampled beside them; each fused conv+pool alone
-   against conv3x3_q16 then the pool, and summed over P1's fused convs;
-   then, for each tier's tensor-core convs at batch 1 and 8, the device
-   time (CUDA graph replays) of every split of K beside the one
-   ``tc.split`` picks.
+   against conv3x3_q16 then the pool, and summed over P1's fused convs
+   beside its library call (a float64 matmul on im2col, then the pool),
+   each alone on the device in CUDA graph replays, and the fused kernel's
+   device time in P1's forward; then, for each tier's tensor-core convs
+   and P1's fused convs at batch 1 and 8, the device time (CUDA graph
+   replays) of every split of K beside the one ``tc.split`` picks.
 
 Any failed check raises, so the exit code is not 0. The line before the
 last is a JSON record of the kernels; the last is
@@ -68,6 +73,7 @@ from __future__ import annotations
 import functools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -133,6 +139,7 @@ POOL_CONVS = (0, 2, 6, 10, 16)   # the yolov2 convs a 2x2/s2 pool follows
 # packed planes: kernel -> (its operand scheme, what packs its planes)
 TC_KERNELS = {"mm_q16": (tc.Q16, q16.pack_q16),
               "conv3x3_q16": (tc.Q16, q16.pack_q16),
+              "conv3x3_pool_q16": (tc.Q16, q16.pack_q16),
               "mm_w8a16": (tc.W8A16, q8.pack_w8a16),
               "conv3x3_w8a16": (tc.W8A16, q8.pack_w8a16),
               "mm_s8": (tc.S8, q8.pack_s8),
@@ -140,14 +147,18 @@ TC_KERNELS = {"mm_q16": (tc.Q16, q16.pack_q16),
               "conv3x3_int8": (tc.S8, q8.pack_s8)}
 # the tensor-core instantiations: (kernel, what tells it from the others of
 # the kernel, the scheme's and the loader's part of its mangled name); the
-# int16 output of mm_s8 is a scheme struct of its own, S8Out16
+# int16 output of mm_s8 is a scheme struct of its own, S8Out16, and each
+# pool order of conv3x3_pool_q16 a Q16Pool<order>, with the window-major
+# loader ConvTc<int16_t, true>
 TC_INSTANCES = (("mm_q16", "", "3Q16", "MmTcIs"),
-                ("conv3x3_q16", "", "3Q16", "ConvTcIs"),
+                ("conv3x3_q16", "", "3Q16", "ConvTcIsLb0E"),
                 ("mm_w8a16", "", "5W8A16", "MmTcIs"),
-                ("conv3x3_w8a16", "", "5W8A16", "ConvTcIs"),
+                ("conv3x3_w8a16", "", "5W8A16", "ConvTcIsLb0E"),
                 ("mm_s8", " (int8 output)", "2S8", "MmTcIa"),
                 ("mm_s8", " (int16 output)", "7S8Out16", "MmTcIa"),
-                ("conv3x3_s8", "", "2S8", "ConvTcIa"))
+                ("conv3x3_s8", "", "2S8", "ConvTcIaLb0E"),
+                *(("conv3x3_pool_q16", f" (order {o})", f"7Q16PoolILi{i}E",
+                   "ConvTcIsLb1E") for i, o in enumerate(q16.POOL_ORDERS)))
 INT8_KERNELS = ("mm_s8", "conv3x3_s8", "conv3x3_int8")   # int8 x int8
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): 8-bit tensor-core
 # multiply-adds per second (1,979 T int8 ops) and device memory bytes per
@@ -234,13 +245,19 @@ def library_call(name: str, x: torch.Tensor, w: torch.Tensor):
     """One PyTorch call that computes the kernel's sums (not its wrap or
     requant) on the same operands, as (fn, what): torch._int_mm for int8 x
     int8 where its shape rules allow, else a float64 matmul (exact below
-    2^53), on the im2col matrix for a 3x3 conv. Never called by the port."""
+    2^53), on the im2col matrix for a 3x3 conv; for the conv fused with its
+    pool, that matmul and then the 2x2/s2 pool of the sums (ops.pool). Never
+    called by the port."""
     a = x.reshape(-1, x.shape[-1]) if name.startswith("mm") else q16.im2col3x3(x)
     b = w.reshape(-1, w.shape[-1])
     if name in INT8_KERNELS and int_mm_ok(a, b):
         a, b = a.contiguous(), b.contiguous()
         return (lambda: torch._int_mm(a, b)), "_int_mm"
     a, b = a.to(torch.float64), b.to(torch.float64)
+    if name == "conv3x3_pool_q16":
+        sums = (*x.shape[:3], w.shape[-1])
+        return (lambda: pool.maxpool((a @ b).reshape(sums), 2, 2, 0),
+                "matmul fp64 + maxpool")
     return (lambda: a @ b), "matmul fp64"
 
 
@@ -532,12 +549,16 @@ def phase_card() -> str:
         say(f"[card]   SASS {fn}: {n} instructions, {mma} tensor-core MMA "
             f"{ops}")
     tc_fns = {fn for fn in sass if "igemm_tc_kernel" in fn}
-    if len(tc_fns) != len(TC_INSTANCES) or any(
-            "GMMA" not in sass[fn][2] for fn in tc_fns) or any(
-            sass[fn][1] for fn in sass if fn not in tc_fns):
-        raise AssertionError(f"warpgroup MMA (wgmma: *GMMA in SASS) must be in "
-                             f"the {len(TC_INSTANCES)} yq::tc kernels, and no "
-                             "tensor-core MMA elsewhere")
+    if len(tc_fns) != len(TC_INSTANCES) or set(sass) != tc_fns or any(
+            "IGMMA" not in sass[fn][2] for fn in tc_fns):
+        raise AssertionError(f"the library must hold the {len(TC_INSTANCES)} "
+                             "yq::tc kernels, each with integer warpgroup MMA "
+                             "(wgmma: IGMMA in SASS), and no other kernel; it "
+                             f"holds {sorted(sass)}")
+    spills = [ln.strip() for ln in lib.log.splitlines() if any(
+        int(v) for v in re.findall(r"(\d+) bytes spill", ln))]
+    if spills:
+        raise AssertionError(f"ptxas reports spills: {spills}")
     regs = ptxas_registers(lib.log)
     cfg = lib.cdll.yq_tc_config
     for name, which, scheme_part, loader_part in TC_INSTANCES:
@@ -629,8 +650,8 @@ def phase_kernels(check: KernelCheck, dev: torch.device) -> None:
                       f"leaky={leaky}", (x, w, b, 18, leaky), wraps=True)
 
     say(f"[kernels] edge cases: shifts {SHIFTS} x leaky on/off; sums built "
-        "to wrap, weights and inputs at -32768 and +-32767, C=3, N=425, "
-        "ragged M, K and C")
+        "to wrap, weights and inputs at -32768 and +-32767, C=3 and 7, "
+        "N=425, ragged M, K and C")
     cases = 0
     for shift in SHIFTS:
         for leaky in (False, True):
@@ -641,20 +662,22 @@ def phase_kernels(check: KernelCheck, dev: torch.device) -> None:
             x, w, b = on(*narrow_operands(rng, (333, 72), (72, 64), shift))
             check.compare("mm_q16", f"narrow shift={shift} leaky={leaky}",
                           (x, w, b, shift, leaky))
-            # conv: C=1061 built to wrap, then C=3 with N=425, and C=N=16
+            # conv: C=1061 built to wrap, then C=3 with N=425, C=7 (the
+            # widest window that one K step holds) and C=N=16
             x, w, b = on(*wrap_operands(rng, 2 * 9 * 7, 9, 70, shift, nblk=2))
             c = x.shape[-1]
             check.compare("conv3x3_q16",
                           f"wrap 2x9x7x{c}->70 shift={shift} leaky={leaky}",
                           (x.reshape(2, 9, 7, c), w.reshape(3, 3, c, 70), b,
                            shift, leaky), wraps=True)
-            for (bb, h, wd, c, n) in ((1, 13, 11, 3, 425), (1, 5, 3, 16, 16)):
+            for (bb, h, wd, c, n) in ((1, 13, 11, 3, 425), (2, 6, 5, 7, 24),
+                                      (1, 5, 3, 16, 16)):
                 x, w, b = on(*narrow_operands(rng, (bb, h, wd, c), (3, 3, c, n),
                                               shift))
                 check.compare("conv3x3_q16",
                               f"{bb}x{h}x{wd}x{c}->{n} shift={shift} leaky={leaky}",
                               (x, w, b, shift, leaky))
-            cases += 5
+            cases += 6
     say(f"[kernels] {cases} edge cases equal, each with at least "
         f"{UNSAT_FLOOR} of its outputs unsaturated, and {WRAP_FLOOR} "
         "unsaturated with a wrapped sum where built to wrap")
@@ -752,7 +775,8 @@ def phase_kernels8(check: KernelCheck, dev: torch.device) -> None:
 
     say(f"[kernels] int8 and w8a16 edge cases, leaky on/off: shift vectors "
         f"mixing {SHIFTS} over the columns; each shift broadcast; "
-        "operands at -128/127 and -32768/32767; C=3, N=425, ragged M, K, C; "
+        "operands at -128/127 and -32768/32767; C=3, 7, 14, N=425, ragged M, "
+        "K, C; "
         "mm_s8's int16 output at shift - 8 with bias << 8; w8a16 sums built "
         f"to wrap from blocks of {WRAP_BLOCK8} products (-32768)*(-128). No "
         "int8 x int8 case is built to wrap: |x*w| <= 2^14 and K <= 9*1280 "
@@ -766,12 +790,15 @@ def phase_kernels8(check: KernelCheck, dev: torch.device) -> None:
             args = on(*mixed_operands8(rng, (1000, 300), (300, 425), xdtype, out))
             check.compare(mm, f"mixed shifts 1000x300->425 leaky={leaky}",
                           args[:4] + (leaky,))
-            for (bb, h, wd, c, n) in ((1, 13, 11, 3, 425), (2, 9, 7, 40, 70)):
+            # C=7 and 14: the widest windows one K step of int16 and of
+            # int8 holds (and, for int16, C=14 gathered value by value)
+            for (bb, h, wd, c, n) in ((1, 13, 11, 3, 425), (2, 6, 5, 7, 24),
+                                      (1, 7, 6, 14, 24), (2, 9, 7, 40, 70)):
                 args = on(*mixed_operands8(rng, (bb, h, wd, c), (3, 3, c, n),
                                            xdtype, out))
                 check.compare(c3, f"mixed shifts {bb}x{h}x{wd}x{c}->{n} "
                               f"leaky={leaky}", args[:4] + (leaky,))
-            cases += 3
+            cases += 5
             for shift in SHIFTS:
                 args = on(*narrow_operands8(rng, (333, 72), (72, 64), xdtype,
                                             out, shift))
@@ -816,35 +843,46 @@ def phase_kernels_pool(check: KernelCheck, dev: torch.device) -> None:
         return rng.integers(-32768, 32768, shape).astype(np.int16)
 
     rng = np.random.default_rng(16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     say(f"[kernels] conv3x3_pool_q16, orders {q16.POOL_ORDERS}: the yolov2 "
         f"416x416 convs a 2x2/s2 pool follows ({POOL_CONVS}) at batch "
-        f"{BATCH_SHAPES}, full-range operands at shift {FULL_SHIFT}, then "
+        f"{BATCH_SHAPES} (timed), 1 and {BATCH_SLICE}, K split as the wrapper "
+        f"chooses (tc.split), full-range operands at shift {FULL_SHIFT}, then "
         f"narrow ones at shift {NARROW_SHIFT}")
     spec = zoo.build("yolov2")
     for l in spec.conv_layers():
         if l.idx not in POOL_CONVS:
             continue
         leaky = l.activation == "leaky"
-        xshape, wshape = (BATCH_SHAPES, l.h, l.w, l.c), (3, 3, l.c, l.n)
+        wshape = (3, 3, l.c, l.n)
         label = f"conv{l.idx} {l.h}x{l.w}x{l.c}->{l.n}"
-        x, w, b = on(full(xshape), full(wshape), small_bias(rng, l.n))
-        for order in q16.POOL_ORDERS:
-            check.compare("conv3x3_pool_q16", f"{label} {order}",
-                          (x, w, b, FULL_SHIFT, leaky), wraps=True, timed=True,
-                          order=order)
-        x, w, b = on(*narrow_operands(rng, xshape, wshape, NARROW_SHIFT))
+        for bsz in (BATCH_SHAPES, 1, BATCH_SLICE):
+            x, w, b = on(full((bsz, l.h, l.w, l.c)), full(wshape),
+                         small_bias(rng, l.n))
+            kps = tc.split(bsz * l.h * l.w, l.n, 9 * l.c, sms, tc.Q16)
+            splits = -(-(-(-9 * l.c // tc.Q16.bk)) // kps)
+            for order in q16.POOL_ORDERS:
+                check.compare("conv3x3_pool_q16", f"{label} b={bsz} {order}",
+                              (x, w, b, FULL_SHIFT, leaky), wraps=True,
+                              timed=bsz == BATCH_SHAPES, order=order)
+            if bsz != BATCH_SHAPES:
+                say(f"  conv3x3_pool_q16 {label} b={bsz}: the three orders "
+                    f"equal, K {9 * l.c} in {splits} splits of "
+                    f"{kps * tc.Q16.bk}")
+        x, w, b = on(*narrow_operands(rng, (BATCH_SHAPES, l.h, l.w, l.c),
+                                      wshape, NARROW_SHIFT))
         for order in q16.POOL_ORDERS:
             check.compare("conv3x3_pool_q16", f"{label} {order} narrow",
                           (x, w, b, NARROW_SHIFT, leaky), order=order)
 
     say(f"[kernels] conv3x3_pool_q16 edge cases, each order: shifts {SHIFTS} "
-        "x leaky on/off at C=3, 4 and 16 (ragged M and N); full-range "
+        "x leaky on/off at C=3, 4, 7 and 16 (ragged M and N); full-range "
         "operands at shift 31, where acc + 2^29 wraps and the orders differ")
     cases = 0
     for shift in SHIFTS:
         for leaky in (False, True):
             for (bb, h, wd, c, n) in ((1, 14, 12, 3, 40), (2, 6, 10, 4, 70),
-                                      (1, 10, 6, 16, 16)):
+                                      (1, 6, 8, 7, 24), (1, 10, 6, 16, 16)):
                 x, w, b = on(*narrow_operands(rng, (bb, h, wd, c), (3, 3, c, n),
                                               shift))
                 for order in q16.POOL_ORDERS:
@@ -872,6 +910,40 @@ def phase_kernels_pool(check: KernelCheck, dev: torch.device) -> None:
             cases += 3
     say(f"[kernels] {cases} conv3x3_pool_q16 edge cases equal, each with at "
         f"least {UNSAT_FLOOR} of its outputs unsaturated")
+
+    say("[kernels] conv3x3_pool_q16 through the split-K exit (the last block "
+        "of a tile pools the workspace's sums), each order x leaky on/off, "
+        "the K steps per split forced: ragged M and N at C=16, C=40, and "
+        "conv10's shape at batch 1; then K beyond one s32 partial sum "
+        f"({tc.KMAX}) at C=3700, every operand -32513")
+    choose, cases = tc.split, 0
+    try:
+        for (bb, h, wd, c, n), steps in (((1, 6, 10, 16, 70), (1, 2)),
+                                         ((2, 8, 12, 40, 32), (1, 4)),
+                                         ((1, 52, 52, 128, 256), (1, 5, 9))):
+            for leaky in (False, True):
+                x, w, b = on(full((bb, h, wd, c)), full((3, 3, c, n)),
+                             small_bias(rng, n))
+                for kps in steps:
+                    tc.split = lambda *a, kps=kps: kps   # noqa: E731
+                    for order in q16.POOL_ORDERS:
+                        check.compare(
+                            "conv3x3_pool_q16", f"{bb}x{h}x{wd}x{c}->{n} {order} "
+                            f"leaky={leaky}, {kps} K steps per split",
+                            (x, w, b, FULL_SHIFT, leaky), wraps=True, order=order)
+                        cases += 1
+    finally:
+        tc.split = choose
+    for leaky in (False, True):
+        x, w = (np.full(shape, -32513, np.int16) for shape in ((1, 4, 6, 3700),
+                                                                (3, 3, 3700, 16)))
+        x, w, b = on(x, w, small_bias(rng, 16))
+        for order in q16.POOL_ORDERS:
+            check.compare("conv3x3_pool_q16", f"1x4x6x3700->16 (K=33300) "
+                          f"-32513 {order} leaky={leaky}", (x, w, b, 18, leaky),
+                          wraps=True, order=order)
+            cases += 1
+    say(f"[kernels] {cases} conv3x3_pool_q16 split-K cases equal")
 
 
 def phase_kernels_int8(check: KernelCheck, dev: torch.device) -> None:
@@ -1051,12 +1123,12 @@ def latency_ms(model: YoloV2Q, x1: torch.Tensor) -> np.ndarray:
 
 
 def phase_plan(spec, store: WeightStore, name: str, default: YoloV2Q,
-               dev: torch.device) -> int:
+               dev: torch.device) -> tuple[dict, YoloV2Q]:
     """An int16 plan slice through Engine under YOLO2_Q16_PLAN: its launch
     counts, its head against the plain versions on the card and the CPU and
     against the default plan's, and its times beside the default plan's in
     turns (default, plan, plan, default). Returns its main path's
-    launches."""
+    launches and its model."""
     plan, (n_mm, n_c3, n_pool), own_pools = PLANS[name]
     tag = f"[plan {name}]"
     os.environ["YOLO2_Q16_PLAN"] = plan
@@ -1139,7 +1211,7 @@ def phase_plan(spec, store: WeightStore, name: str, default: YoloV2Q,
             f"{' / '.join(f'{v:.3f}' for v in ms[who])} ms per batch "
             f"(in turns); batch 1 latency p50 {lat[who][0]:.3f} ms p90 "
             f"{lat[who][1]:.3f} ms")
-    return launches
+    return launches, model
 
 
 def is_memset(key: str) -> bool:
@@ -1182,7 +1254,8 @@ def kernel_names(dev: torch.device) -> dict[str, str]:
         ("conv3x3_w8a16", lambda: q8.conv3x3_w8a16(c16, k8, b, s, True,
                                                    planes=pw8)),
         *(("conv3x3_pool_q16",
-           lambda o=o: q16.conv3x3_pool_q16(c16, k16, b, 3, True, o))
+           lambda o=o: q16.conv3x3_pool_q16(c16, k16, b, 3, True, o,
+                                            planes=pk16))
           for o in q16.POOL_ORDERS),
     ]
     names: dict[str, str] = {}
@@ -1199,6 +1272,36 @@ def kernel_names(dev: torch.device) -> dict[str, str]:
             continue
         names[keys.pop()] = name
     return names
+
+
+def device_ms_by_kernel(fn, names: dict[str, str],
+                        reps: int = 10) -> tuple[dict, tuple]:
+    """The device time of one fn() call by kernel (torch.profiler over reps
+    calls, kernels known by their full names): ms per call of each kernel of
+    KERNEL_SOURCES, of the split-K workspace's memsets and of everything
+    else ("glue"), and the largest glue kernel as (name, ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by = dict.fromkeys(KERNEL_SOURCES, 0.0) | {"glue": 0.0, "memset": 0.0}
+    glue_top = ("", 0.0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        ms = us / 1e3 / reps
+        kind = "memset" if is_memset(e.key) else names.get(e.key, "glue")
+        by[kind] += ms
+        if kind == "glue" and ms > glue_top[1]:
+            glue_top = (e.key[:60], ms)
+    return by, glue_top
 
 
 def new_forward() -> dict:
@@ -1220,9 +1323,6 @@ def phase_profile(model: YoloV2Q, plain: YoloV2Q, dev: torch.device,
     it; device_ms: the profiler's device time of the kernel per forward;
     graph_ms and library_graph_ms, for the 1x1 kernel: it and its library
     calls alone on the device, from graph_ms)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     spec, tier = model.spec, model.precision
     tag = f"[profile {tier}]"
     mm, c3 = TIER_KERNELS[tier]
@@ -1299,26 +1399,8 @@ def phase_profile(model: YoloV2Q, plain: YoloV2Q, dev: torch.device,
                 0, 256, (bsz, spec.net.height, spec.net.width, 3),
                 dtype=np.uint8)).to(dev)
             fwd_ms = cuda_ms(lambda: model(xb), reps=20)   # noqa: B023
-            reps = 10
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    model(xb)
-                torch.cuda.synchronize()
-            by = dict.fromkeys(KERNEL_SOURCES, 0.0) | {"glue": 0.0,
-                                                       "memset": 0.0}
-            glue_top = ("", 0.0)
-            for e in prof.key_averages():
-                if e.device_type != DeviceType.CUDA:
-                    continue
-                us = getattr(e, "self_device_time_total", None)
-                if us is None:
-                    us = e.self_cuda_time_total
-                ms = us / 1e3 / reps
-                kind = "memset" if is_memset(e.key) else names.get(e.key, "glue")
-                by[kind] += ms
-                if kind == "glue" and ms > glue_top[1]:
-                    glue_top = (e.key[:60], ms)
+            by, glue_top = device_ms_by_kernel(
+                lambda: model(xb), names)   # noqa: B023
             dev_ms = sum(by.values())
             if dev_ms == 0:
                 say(f"{tag} b={bsz}: the profiler saw no device time; "
@@ -1368,19 +1450,25 @@ def phase_profile(model: YoloV2Q, plain: YoloV2Q, dev: torch.device,
     return forward
 
 
-def phase_profile_pool(model: YoloV2Q, dev: torch.device) -> dict:
+def phase_profile_pool(model: YoloV2Q, p1_model: YoloV2Q, dev: torch.device,
+                       names: dict[str, str]) -> dict:
     """Each conv a 2x2/s2 pool follows, fused (conv3x3_pool_q16, each order)
     against conv3x3_q16 then pool.maxpool, at batch BATCH_SLICE and 1, on
     random full-range int16 inputs and the int16 model's weights (CUDA
     events). Returns, per batch, the fused kernel's time (order "acc"), its
-    plain version's, one library call's and its bound, summed over the
-    convs that plan P1 fuses: one P1 forward's conv3x3_pool_q16 launches."""
+    plain version's, one library call's (a float64 matmul on im2col, then
+    the pool) and its bound, summed over the convs that plan P1 fuses: one
+    P1 forward's conv3x3_pool_q16 launches; those three and conv3x3_q16
+    then the pool also alone on the device (graph_ms), and the fused
+    kernel's device time in the forward of ``p1_model``, the model of plan
+    P1 (device_ms_by_kernel)."""
     rng = np.random.default_rng(2)
     p1 = [int(i.split(":")[0]) for i in PLANS["P1"][0].split(",")]
     forward = {}
     for bsz in (BATCH_SLICE, 1):
         sums = dict.fromkeys(("unfused", *q16.POOL_ORDERS), 0.0)
         f = forward[bsz] = new_forward()
+        f["graph_ms"] = f["library_graph_ms"] = unfused_graph = 0.0
         for l in model.spec.conv_layers():
             if l.idx not in POOL_CONVS:
                 continue
@@ -1390,13 +1478,19 @@ def phase_profile_pool(model: YoloV2Q, dev: torch.device) -> dict:
             shift, leaky = model.plan.conv_shift_out[l.idx], l.activation == "leaky"
             p = model.spec.layers[l.idx + 1]
             planes = getattr(model, f"p{l.idx}")
-            ms = {"unfused": cuda_ms(lambda: pool.maxpool(   # noqa: B023
-                q16.conv3x3_q16(x, w, b, shift, leaky,   # noqa: B023
-                                planes=planes),   # noqa: B023
-                p.size, p.stride, p.padding), reps=10)}
+
+            def unfused():
+                return pool.maxpool(q16.conv3x3_q16(   # noqa: B023
+                    x, w, b, shift, leaky, planes=planes),   # noqa: B023
+                    p.size, p.stride, p.padding)   # noqa: B023
+
+            def fused(order="acc"):
+                return q16.conv3x3_pool_q16(x, w, b, shift, leaky,   # noqa: B023
+                                            order, planes=planes)   # noqa: B023
+
+            ms = {"unfused": cuda_ms(unfused, reps=10)}
             for o in q16.POOL_ORDERS:
-                ms[o] = cuda_ms(lambda: q16.conv3x3_pool_q16(   # noqa: B023
-                    x, w, b, shift, leaky, o), reps=10)   # noqa: B023
+                ms[o] = cuda_ms(functools.partial(fused, o), reps=10)
             for k, v in ms.items():
                 sums[k] += v
             say(f"[profile pool] b={bsz} conv{l.idx} {l.h}x{l.w}x{l.c}->{l.n}: "
@@ -1410,6 +1504,9 @@ def phase_profile_pool(model: YoloV2Q, dev: torch.device) -> dict:
                     x, w, b, shift, leaky, "acc"), reps=3)   # noqa: B023
                 f["library_ms"] += cuda_ms(lib, reps=5)
                 f["library"].add(what)
+                f["graph_ms"] += graph_ms(fused)
+                f["library_graph_ms"] += graph_ms(lib)
+                unfused_graph += graph_ms(unfused)
                 del lib
                 out = bsz * l.h * l.w // 4 * l.n
                 add_bound(f["bound"], bound(
@@ -1421,7 +1518,23 @@ def phase_profile_pool(model: YoloV2Q, dev: torch.device) -> dict:
             f"{p1}, order acc): kernel {f['ms']:.4f} ms, bound "
             f"{f['bound'][0]:.4f} ms ({bound_by(f['bound'])}), plain "
             f"{f['plain_ms']:.4f} ms, {' / '.join(sorted(f['library']))} "
-            f"{f['library_ms']:.4f} ms")
+            f"{f['library_ms']:.4f} ms; device alone (CUDA graph replays): "
+            f"kernel {f['graph_ms']:.4f} ms, the library calls "
+            f"{f['library_graph_ms']:.4f} ms, conv3x3_q16 + maxpool "
+            f"{unfused_graph:.4f} ms")
+        xb = torch.from_numpy(rng.integers(
+            0, 256, (bsz, model.spec.net.height, model.spec.net.width, 3),
+            dtype=np.uint8)).to(dev)
+        by, _ = device_ms_by_kernel(lambda: p1_model(xb), names)   # noqa: B023
+        if not sum(by.values()):
+            say(f"[profile pool] b={bsz}: the profiler saw no device time")
+            continue
+        f["device_ms"] = by["conv3x3_pool_q16"]
+        say(f"[profile pool] b={bsz} P1 forward, device time (profiler): "
+            f"conv3x3_pool_q16 {by['conv3x3_pool_q16']:.4f} ms, conv3x3_q16 "
+            f"{by['conv3x3_q16']:.4f}, mm_q16 {by['mm_q16']:.4f}, memsets "
+            f"{by['memset']:.4f}, glue {by['glue']:.4f}, busy "
+            f"{sum(by.values()):.4f} ms")
     return forward
 
 
@@ -1452,22 +1565,25 @@ def split_steps(k: int, bk: int) -> list[int]:
     return steps
 
 
-def phase_split(model: YoloV2Q, dev: torch.device) -> None:
+def phase_split(model: YoloV2Q, dev: torch.device,
+                fused_only: bool = False) -> None:
     """tc.split's split of K against every other split (split_steps),
     for each conv of one tier's model that runs on the tensor cores (the
-    convs with packed planes), at batch 1 and 8, on random full-range
-    inputs and the model's weights (``model._conv``): each conv's device
-    time (graph_ms) at every split, the split chosen, the fastest, and
-    their sums over one forward; a choice more than 10% slower than the
-    fastest split is flagged."""
+    convs with packed planes; ``fused_only``: of those, the convs fused
+    with their pool, conv3x3_pool_q16), at batch 1 and 8, on random
+    full-range inputs and the model's weights (``model._conv``): each
+    conv's device time (graph_ms) at every split, the split chosen, the
+    fastest, and their sums over one forward; a choice more than 10% slower
+    than the fastest split is flagged."""
     rng = np.random.default_rng(4)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     choose = tc.split
     tier = model.precision
     act = torch.int8 if tier == "int8" else torch.int16
     lim = torch.iinfo(act)
-    convs = [l for l in model.spec.conv_layers() if hasattr(model, f"p{l.idx}")]
-    tag = f"[split {tier}]"
+    convs = [l for l in model.spec.conv_layers() if hasattr(model, f"p{l.idx}")
+             and (not fused_only or model.route[l.idx][0] == "conv3_pool")]
+    tag = f"[split {tier}{' fused' if fused_only else ''}]"
     say(f"{tag} tc.split against every split of K (1 to {SPLIT_SWEEP} "
         f"splits) of the {len(convs)} tensor-core convs, device ms per call "
         "from CUDA graph replays")
@@ -1477,7 +1593,8 @@ def phase_split(model: YoloV2Q, dev: torch.device) -> None:
             near, far = 0, []
             for l in convs:
                 mm, c3 = TIER_KERNELS[tier]
-                name = mm if model.route[l.idx][0] == "mm" else c3
+                name = {"mm": mm, "conv3": c3,
+                        "conv3_pool": "conv3x3_pool_q16"}[model.route[l.idx][0]]
                 scheme = TC_KERNELS[name][0]
                 m, k = bsz * l.h * l.w, l.c * l.size * l.size
                 x = torch.from_numpy(rng.integers(
@@ -1536,7 +1653,8 @@ def main() -> int:
         runs[tier], models[tier], plains[tier] = phase_slice(spec, store, tier,
                                                              dev)
     for name in PLANS:
-        runs[name] = phase_plan(spec, store, name, models["int16"], dev)
+        runs[name], models[name] = phase_plan(spec, store, name,
+                                              models["int16"], dev)
     # conv3x3_int8 is on no path, as K13 in the JAX package
     launches = {k: sum(r.get(k, 0) for r in runs.values()) for k in KERNEL_SOURCES}
     per_forward = {k: {path: r[k] // 4 for path, r in runs.items() if r.get(k)}
@@ -1549,9 +1667,11 @@ def main() -> int:
     forward = {}
     for tier in TIERS:
         forward.update(phase_profile(models[tier], plains[tier], dev, names))
-    forward["conv3x3_pool_q16"] = phase_profile_pool(models["int16"], dev)
+    forward["conv3x3_pool_q16"] = phase_profile_pool(
+        models["int16"], models["P1"], dev, names)
     for tier in TIERS:
         phase_split(models[tier], dev)
+    phase_split(models["P1"], dev, fused_only=True)
     say(f"[card] phases 1-4 took {time.perf_counter() - t0:.1f} s")
 
     def at(f: dict) -> dict:
@@ -1569,6 +1689,7 @@ def main() -> int:
     # (ms and library_ms from CUDA events around the calls, which hold the
     # host's time per launch; device_ms the kernel's device time in the
     # forward, from the profiler; graph_ms and library_graph_ms, for the 1x1
+    # kernels and the fused conv+pool,
     # kernels, the kernel and the library calls alone in CUDA graph replays)
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "max_abs_err": check.max_abs_err[name],

@@ -29,8 +29,8 @@
 // SM so that short-K blocks overlap, and splits K where the output tiles
 // cannot fill the card (the 13x13 layers at b=1). TMA for B and keeping
 // more than one wgmma group in flight are the next steps. The same conv
-// fused with a following 2x2/s2 pool is conv3x3_pool_q16.cu, on the
-// CUDA-core body.
+// fused with a following 2x2/s2 pool is conv3x3_pool_q16.cu, on the same
+// body with a window-major loader and the pool in the epilogue.
 #include "igemm_tc.cuh"
 
 // x (B, H, W, C) int16, wp the packed planes of w (3, 3, C, N) read as

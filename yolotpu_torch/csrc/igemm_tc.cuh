@@ -1,8 +1,12 @@
 // Exact integer GEMM on the 8-bit tensor cores, with the fused requant: the
-// body of mm_q16.cu, conv3x3_q16.cu, mm_w8a16.cu, conv3x3_w8a16.cu, mm_s8.cu
-// and conv3x3_s8.cu.
+// body of mm_q16.cu, conv3x3_q16.cu, conv3x3_pool_q16.cu, mm_w8a16.cu,
+// conv3x3_w8a16.cu, mm_s8.cu and conv3x3_s8.cu.
 //
 //   out[m, n] = requant(sum_k A[m, k] * w[k, n]  (mod 2^32), bias[n], shift)
+//
+// and, for a conv fused with the 2x2/s2 maxpool after it, one output row per
+// pool window: out[i, n] = the pool and requant, in one of three orders
+// (PoolOrder), of the four sums of rows 4i .. 4i+3.
 //
 // The tensor cores multiply 8-bit operands into s32. Three operand schemes,
 // chosen at compile time, reach them (the structs Q16, W8A16 and S8 below):
@@ -61,6 +65,15 @@
 // an unsplit block stages its tile through shared memory, reads each
 // column's bias and shift once, and every output leaves as 16 bytes (eight
 // int16) or 8 bytes (eight int8) per thread where N allows.
+//
+// The pool. A conv whose loader visits the output pixels window-major
+// (ConvTc<T, true>) has the four members of pool window i in rows 4i .. 4i+3
+// of M, so a 64-row tile holds 16 whole windows. Both exits then hand each
+// thread one window and 8 columns: it reads the window's four rows of sums
+// (from the staged tile, or from the workspace in the last block of a split
+// tile), pools and requantizes them in the epilogue's order (EpiPool) and
+// writes 16 bytes of the pooled row; the conv's own output never reaches
+// device memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -93,6 +106,7 @@ constexpr int KMAX = 32768;         // k per s32 partial sum
 // other schemes shared the body.
 struct EpiLayer {
     using Out = int16_t;
+    static constexpr bool POOL = false;
     struct Col {
         int n;
     };
@@ -111,6 +125,7 @@ struct EpiLayer {
 template <class Out_>
 struct EpiChannel {
     using Out = Out_;
+    static constexpr bool POOL = false;
     struct Col {
         int32_t bias;
         int shift;
@@ -125,6 +140,53 @@ struct EpiChannel {
     }
     __device__ __forceinline__ Out requant(uint32_t acc, Col c) const {
         return (Out)yq::requant<Range<Out>::lo, Range<Out>::hi>(acc, c.bias, c.shift, leaky);
+    }
+};
+
+// Where a conv fused with the following 2x2/s2 maxpool takes the pool's
+// max, which is a different function once acc + 2^(shift-1) wraps: on the
+// four sums; on each horizontal pair's sums, then on the requantized pair
+// maxima; or on the four requantized values.
+enum PoolOrder { kPoolAcc = 0, kPoolAccH = 1, kPoolOut = 2 };
+
+// The signed int32 max of two wrapped sums (an unsigned max is wrong as
+// soon as a sum wraps negative).
+__device__ __forceinline__ uint32_t max_s32(uint32_t a, uint32_t b) {
+    return (int32_t)a > (int32_t)b ? a : b;
+}
+
+// EpiLayer with the pool: out is (M / 4, N), one row per pool window, and
+// pool() takes the sums a[q] of the window's members q = 2 * dy + dx.
+template <int ORDER>
+struct EpiPool {
+    using Out = int16_t;
+    static constexpr bool POOL = true;
+    struct Col {
+        int n;
+    };
+    const int32_t* bias;  // (N,)
+    int16_t* out;         // (M / 4, N)
+    int shift, leaky;
+
+    __device__ __forceinline__ Col column(int n) const { return {n}; }
+    __device__ __forceinline__ Out pool(const uint32_t a[4], Col c) const {
+        const int32_t b = __ldg(bias + c.n);
+        if constexpr (ORDER == kPoolAcc) {
+            return requant_q16(max_s32(max_s32(a[0], a[1]), max_s32(a[2], a[3])), b, shift,
+                               leaky);
+        } else if constexpr (ORDER == kPoolAccH) {
+            const int16_t top = requant_q16(max_s32(a[0], a[1]), b, shift, leaky);
+            const int16_t bot = requant_q16(max_s32(a[2], a[3]), b, shift, leaky);
+            return top > bot ? top : bot;
+        } else {
+            int16_t v = requant_q16(a[0], b, shift, leaky);
+#pragma unroll
+            for (int q = 1; q < 4; ++q) {
+                const int16_t r = requant_q16(a[q], b, shift, leaky);
+                v = r > v ? r : v;
+            }
+            return v;
+        }
     }
 };
 
@@ -159,6 +221,12 @@ struct S8 {
 struct S8Out16 : S8 {
     using Epi = EpiChannel<int16_t>;
 };
+// Q16 with the 2x2/s2 pool in the epilogue, one scheme per pool order: the
+// int16 tier's conv fused with the pool after it.
+template <int ORDER>
+struct Q16Pool : Q16 {
+    using Epi = EpiPool<ORDER>;
+};
 
 template <class S>
 struct Tile {
@@ -172,6 +240,8 @@ struct Tile {
     static_assert(B_CHUNKS * 16 * THREADS == B_STAGE, "threads cover a B stage");
     static_assert(BM * C_LD * 4 <= SMEM, "the staged output tile fits the ring");
     static_assert(KMAX % BK == 0, "a split's K is whole K steps");
+    static_assert(BM / 4 * (BN / 8) == THREADS,
+                  "a pooled exit gives each thread one window and 8 columns");
 };
 
 // Host side: whether rows of `bytes` bytes at base x take 16-byte copies.
@@ -291,11 +361,15 @@ __device__ __forceinline__ int4 gather16(int k, int K, F value) {
 // r0 + ROW_STEP j (j < 4) of the tile, bytes 16 c8 .. 16 c8 + 15 of the row,
 // that is k0 + V c8 .. + V - 1 with V = 16 / sizeof(T) values per chunk.
 // MmTc<T>: the (M, K) activation rows of a 1x1 conv; ConvTc<T>: the implicit
-// im2col of a SAME 3x3 window. vec: 16-byte copies (the row length in bytes
-// is a multiple of 16 and the base 16-byte aligned); otherwise each value is
-// loaded on its own
-// (ConvTc gathers a C small enough that one K step holds all of 9C, the
-// entry conv, by kernel rows instead).
+// im2col of a SAME 3x3 window, row m the output pixel m in (b, y, x) order;
+// ConvTc<T, true>: the same with the pixels visited window-major for a conv
+// a 2x2/s2 pool follows (H and W even): row m is member q = m & 3 of pool
+// window m >> 2, the pixel (2 ho + q / 2, 2 wo + q % 2) of window (b, ho, wo),
+// so rows 4i .. 4i+3 are the four members of window i. vec: 16-byte copies
+// (the row length in bytes is a multiple of 16 and the base 16-byte
+// aligned); otherwise each value is loaded on its own (ConvTc gathers a C
+// small enough that one K step holds all of 9C, the entry conv, by kernel
+// rows instead).
 template <class T_>
 struct MmTc {
     using T = T_;
@@ -336,7 +410,7 @@ struct MmTc {
     }
 };
 
-template <class T_>
+template <class T_, bool WINDOWS = false>
 struct ConvTc {
     using T = T_;
     static constexpr int V = 16 / (int)sizeof(T);        // values per chunk
@@ -348,7 +422,8 @@ struct ConvTc {
     };
     const T* x;
     int H, W, C, K, vec, r0, c8;
-    int m[4], y[4], xw[4];  // each row's pixel and its (y, x); m = -1 past M
+    int m[4], y[4], xw[4];  // each row's pixel (b, y, x) as one index and
+                            // its (y, x); m = -1 past M
 
     __device__ ConvTc(const Params& p, long long m0, long long M, int tid)
         : x(p.x), H(p.H), W(p.W), C(p.C), K(9 * p.C), vec(p.vec), r0(tid >> 3), c8(tid & 7) {
@@ -356,10 +431,19 @@ struct ConvTc {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
             const long long mm = m0 + r0 + ROW_STEP * j;
-            m[j] = mm < M ? (int)mm : -1;
-            const int r = m[j] >= 0 ? m[j] % hw : 0;
-            y[j] = r / p.W;
-            xw[j] = r - y[j] * p.W;
+            if constexpr (WINDOWS) {
+                const int win = mm < M ? (int)(mm >> 2) : 0, q = (int)(mm & 3);
+                const int b = win / (hw / 4), r = win - b * (hw / 4);
+                const int ho = r / (p.W / 2);
+                y[j] = 2 * ho + (q >> 1);
+                xw[j] = 2 * (r - ho * (p.W / 2)) + (q & 1);
+                m[j] = mm < M ? b * hw + y[j] * p.W + xw[j] : -1;
+            } else {
+                m[j] = mm < M ? (int)mm : -1;
+                const int r = m[j] >= 0 ? m[j] % hw : 0;
+                y[j] = r / p.W;
+                xw[j] = r - y[j] * p.W;
+            }
         }
     }
 
@@ -393,32 +477,50 @@ struct ConvTc {
             return;
         }
         if (9 * C <= BK) {
-            // one K step: row j's window is three runs of 3C values, one per
-            // kernel row dy (k = 3C dy + C dx + c, the pixels (y+dy-1, x-1 ..
-            // x+1) in order), then zeros up to BK. The thread with c8 = dy < 3
-            // writes run dy of its 4 rows, the one with c8 = 3 the zeros;
-            // C = 3 (the entry conv) costs 9 loads per run, not a division
-            // per value.
-            if (c8 > 3) return;
+            // one K step holds the whole window (the entry conv). Kernel row
+            // dy of a row's window is one run of 3C contiguous input values,
+            // the pixels (y+dy-1, x-1 .. x+1): k = 3C dy + r is value r of
+            // that run. In each pass over 32 k, thread c8 takes k = 4 c8 ..
+            // 4 c8 + 3 of its 4 rows (zeros from K up to BK, with no index
+            // work where all four lie past K): the 8 threads of a row read
+            // 32 neighbouring values, the 16 loads of a pass are all in
+            // flight before its first store, and a row's four values leave
+            // as one store.
+            struct alignas(4 * sizeof(T)) Quad {
+                T v[4];
+            };
+            const int run = 3 * C;
+#pragma unroll 1
+            for (int k0 = 4 * c8; k0 < BK; k0 += 32) {
+                if (k0 >= K) {
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                T* dst = row(sA, j);
-                if (c8 == 3) {
-                    int kk = K;
-                    for (; kk % V; ++kk) dst[kk] = 0;
-                    for (; kk < BK; kk += V)
-                        *reinterpret_cast<int4*>(dst + kk) = make_int4(0, 0, 0, 0);
+                    for (int j = 0; j < 4; ++j) *reinterpret_cast<Quad*>(row(sA, j) + k0) = Quad{};
                     continue;
                 }
-                const int iy = y[j] + c8 - 1;
-                const bool row_ok = m[j] >= 0 && iy >= 0 && iy < H;
-                for (int dx = 0; dx < 3; ++dx) {
-                    const int ix = xw[j] + dx - 1;
-                    const bool ok = row_ok && ix >= 0 && ix < W;
-                    const T* src = x + (long long)(m[j] + (c8 - 1) * W + dx - 1) * C;
-                    T* run = dst + (3 * c8 + dx) * C;
-                    for (int c = 0; c < C; ++c) run[c] = ok ? src[c] : (T)0;
+                int off[4];   // value k's offset from the row's pixel
+                int tap[4];   // dy | dx << 2, or -1 past K
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const int k = k0 + i;
+                    const int dy = (k >= run) + (k >= 2 * run), r = k - dy * run;
+                    const int dx = (r >= C) + (r >= 2 * C);
+                    off[i] = (dy - 1) * W * C + r - C;
+                    tap[i] = k < K ? dy | (dx << 2) : -1;
                 }
+                Quad q[4];
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    const T* px = x + (long long)(m[j] >= 0 ? m[j] : 0) * C;
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) {
+                        const int iy = y[j] + (tap[i] & 3) - 1, ix = xw[j] + (tap[i] >> 2) - 1;
+                        const bool ok = m[j] >= 0 && tap[i] >= 0 && iy >= 0 && iy < H &&
+                                        ix >= 0 && ix < W;
+                        q[j].v[i] = ok ? px[off[i]] : (T)0;
+                    }
+                }
+#pragma unroll
+                for (int j = 0; j < 4; ++j) *reinterpret_cast<Quad*>(row(sA, j) + k0) = q[j];
             }
             return;
         }
@@ -431,18 +533,13 @@ struct ConvTc {
     }
 };
 
-// Requantize the eight sums of out[m, n .. n+7] (columns past N dropped)
-// and store them, as one 16-byte (int16) or 8-byte (int8) store where the
-// row allows.
-template <class Epi>
-__device__ __forceinline__ void store8(const Epi& ep, long long m, int n, int N,
-                                       const uint32_t acc[8], const typename Epi::Col col[8]) {
-    using Out = typename Epi::Out;
+// Store v as row[n .. n+7] of an output row of N values (columns past N
+// dropped), as one 16-byte (int16) or 8-byte (int8) store where the row
+// allows.
+template <class Out>
+__device__ __forceinline__ void store_values(Out* row, int n, int N, const Out v[8]) {
     using U = std::make_unsigned_t<Out>;
-    Out v[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = n + e < N ? ep.requant(acc[e], col[e]) : (Out)0;
-    Out* dst = ep.out + m * N + n;
+    Out* dst = row + n;
     if ((N & 7) == 0) {
         if constexpr (sizeof(Out) == 2) {
             uint4 q;
@@ -466,11 +563,43 @@ __device__ __forceinline__ void store8(const Epi& ep, long long m, int n, int N,
     }
 }
 
+// Requantize the eight sums of out[m, n .. n+7] and store them.
+template <class Epi>
+__device__ __forceinline__ void store8(const Epi& ep, long long m, int n, int N,
+                                       const uint32_t acc[8], const typename Epi::Col col[8]) {
+    typename Epi::Out v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+        v[e] = n + e < N ? ep.requant(acc[e], col[e]) : (typename Epi::Out)0;
+    store_values(ep.out + m * N, n, N, v);
+}
+
+// The pooled exits (Epi::POOL): pool window m / 4, whose members' sums are
+// rows m .. m+3 of M, at columns n .. n+7 -> out[m / 4, n .. n+7]. row(q, s)
+// reads the eight sums of row m + q into s. M is a multiple of 4, so a
+// window lies wholly inside M or wholly past it.
+template <class Epi, class F>
+__device__ __forceinline__ void store_window(const Epi& ep, long long m, long long M, int n,
+                                             int N, const typename Epi::Col col[8], F row) {
+    if (m >= M || n >= N) return;
+    uint32_t s[4][8];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) row(q, s[q]);
+    typename Epi::Out v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+        const uint32_t a[4] = {s[0][e], s[1][e], s[2][e], s[3][e]};
+        v[e] = n + e < N ? ep.pool(a, col[e]) : (typename Epi::Out)0;
+    }
+    store_values(ep.out + (m / 4) * N, n, N, v);
+}
+
 // wp: the packed planes, per BN columns and 32 k one block of PLANES planes
 // of PLANE bytes, indexed (n / BN) * (Kp / 32) + k / 32, with K padded to
 // whole K steps (Kp) and N to whole BN tiles, with zeros.
 // ws (used when gridDim.z > 1): M*N uint32 sums, then one counter per
-// output tile, all zero at launch.
+// output tile, all zero at launch. With a pooled epilogue M counts the
+// conv's rows (the loader's, window-major) and e.out has M / 4.
 template <class S, class Loader>
 __global__ void __launch_bounds__(THREADS, S::MIN_BLOCKS)
 igemm_tc_kernel(const typename Loader::Params p, const uint8_t* __restrict__ wp,
@@ -615,15 +744,26 @@ igemm_tc_kernel(const typename Loader::Params p, const uint8_t* __restrict__ wp,
                     make_uint2(combine<S>(acc, i), combine<S>(acc, i + 1));
             }
         __syncthreads();
+        if constexpr (S::Epi::POOL) {
+            // thread tid: window tid / 8 of the tile's 16, columns c .. c+7
+            const int r = 4 * (tid / (BN / 8));
+            store_window(e, m0 + r, M, n0 + c, N, col, [&](int q, uint32_t s[8]) {
+                const uint4 lo = *reinterpret_cast<const uint4*>(sC + (r + q) * C_LD + c);
+                const uint4 hi = *reinterpret_cast<const uint4*>(sC + (r + q) * C_LD + c + 4);
+                s[0] = lo.x, s[1] = lo.y, s[2] = lo.z, s[3] = lo.w;
+                s[4] = hi.x, s[5] = hi.y, s[6] = hi.z, s[7] = hi.w;
+            });
+        } else {
 #pragma unroll
-        for (int j = 0; j < BM * BN / 8 / THREADS; ++j) {
-            const int r = (tid + j * THREADS) / (BN / 8);
-            const long long m = m0 + r;
-            if (m >= M || n0 + c >= N) continue;
-            const uint4 lo = *reinterpret_cast<const uint4*>(sC + r * C_LD + c);
-            const uint4 hi = *reinterpret_cast<const uint4*>(sC + r * C_LD + c + 4);
-            const uint32_t sums[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-            store8(e, m, n0 + c, N, sums, col);
+            for (int j = 0; j < BM * BN / 8 / THREADS; ++j) {
+                const int r = (tid + j * THREADS) / (BN / 8);
+                const long long m = m0 + r;
+                if (m >= M || n0 + c >= N) continue;
+                const uint4 lo = *reinterpret_cast<const uint4*>(sC + r * C_LD + c);
+                const uint4 hi = *reinterpret_cast<const uint4*>(sC + r * C_LD + c + 4);
+                const uint32_t sums[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+                store8(e, m, n0 + c, N, sums, col);
+            }
         }
         return;
     }
@@ -646,16 +786,26 @@ igemm_tc_kernel(const typename Loader::Params p, const uint8_t* __restrict__ wp,
     if (!last) return;
     __threadfence();
     // the last block of the tile: every split's sums are in the workspace
-#pragma unroll
-    for (int j = 0; j < BM * BN / 8 / THREADS; ++j) {
-        const int r = (tid + j * THREADS) / (BN / 8);
-        const long long m = m0 + r;
+    if constexpr (S::Epi::POOL) {
+        const long long m = m0 + 4 * (tid / (BN / 8));
         const int n = n0 + c;
-        if (m >= M || n >= N) continue;
-        uint32_t sums[8];
+        store_window(e, m, M, n, N, col, [&](int q, uint32_t s[8]) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i) sums[i] = n + i < N ? __ldcg(ws + m * N + n + i) : 0u;
-        store8(e, m, n, N, sums, col);
+            for (int i = 0; i < 8; ++i)
+                s[i] = n + i < N ? __ldcg(ws + (m + q) * N + n + i) : 0u;
+        });
+    } else {
+#pragma unroll
+        for (int j = 0; j < BM * BN / 8 / THREADS; ++j) {
+            const int r = (tid + j * THREADS) / (BN / 8);
+            const long long m = m0 + r;
+            const int n = n0 + c;
+            if (m >= M || n >= N) continue;
+            uint32_t sums[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) sums[i] = n + i < N ? __ldcg(ws + m * N + n + i) : 0u;
+            store8(e, m, n, N, sums, col);
+        }
     }
 }
 

@@ -1,5 +1,4 @@
-// Requant epilogue shared by every kernel of csrc/ (through igemm.cuh and
-// igemm_tc.cuh).
+// Requant epilogue shared by every kernel of csrc/ (through igemm_tc.cuh).
 //
 // The contract is the one of yolotpu/ops/pallas_q16.py:_requant32 and of the
 // per-channel epilogues of pallas_matmul.py and pallas_q16.py's w8 kernels

@@ -22,8 +22,9 @@ which with ``ALL_KINDS`` and ``next_is_pool22`` mirrors
 ``yolotpu/models/engine_plan.py``), with every kind of ``ALL_KINDS`` accepted where ``yolotpu``'s
 ``params_q16`` accepts it and refused with the same ``ValueError`` where it
 does not. A kind that folds the following 2x2/s2 pool into the conv runs
-``ops.q16.conv3x3_pool_q16`` in the order where the TPU kind takes the
-pool's max; the orders differ once acc + 2^(shift-1) wraps:
+``ops.q16.conv3x3_pool_q16`` (conv3x3_q16's tensor-core body with the pool in
+its epilogue) in the order where the TPU kind takes the pool's max; the
+orders differ once acc + 2^(shift-1) wraps:
 
   | TPU kind                                       | port kernel       | pool order |
   |------------------------------------------------|-------------------|------------|

@@ -182,9 +182,9 @@ class YoloV2Q(nn.Module):
     The int8 and w8a16 kernels take one shift per output channel; a
     per-layer shift is broadcast to that vector here, once.
 
-    On the card the weights of the convs that run on the tensor cores (every
-    tier's mm and conv3) are also packed here, once (buffers ``p{idx}``, by
-    ``packers``).
+    On the card the weights of the convs, which all run on the tensor cores
+    (every tier's mm and conv3, and the int16 tier's conv fused with its
+    pool), are also packed here, once (buffers ``p{idx}``, by ``packers``).
 
     ``overrides`` ({conv idx: TPU engine kind}, the ``YOLO2_Q16_PLAN``
     lever) is taken by the int16 tier only, as ``yolotpu`` plans only its
@@ -199,7 +199,8 @@ class YoloV2Q(nn.Module):
     pooled = {"int16": q16.conv3x3_pool_q16}
     # precision -> engine kind -> what packs that kind's weights for the
     # tensor cores, on the card (the kernels' planes= operand)
-    packers = {"int16": {"mm": q16.pack_q16, "conv3": q16.pack_q16},
+    packers = {"int16": {"mm": q16.pack_q16, "conv3": q16.pack_q16,
+                         "conv3_pool": q16.pack_q16},
                "int8": {"mm": q8.pack_s8, "conv3": q8.pack_s8},
                "w8a16": {"mm": q8.pack_w8a16, "conv3": q8.pack_w8a16}}
 
@@ -264,7 +265,8 @@ class YoloV2Q(nn.Module):
             y = mm(x.reshape(-1, c), w, b, shift, leaky, **kw)
             return y.reshape(bsz, h, wd, l.n)
         if kernel == "conv3_pool":
-            return self.pooled[self.precision](x, w, b, shift, leaky, order)
+            return self.pooled[self.precision](x, w, b, shift, leaky, order,
+                                               **kw)
         return conv3(x, w, b, shift, leaky, **kw)
 
     @torch.no_grad()

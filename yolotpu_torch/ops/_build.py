@@ -36,7 +36,8 @@ SIGNATURES = {
     "yq16_mm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "yq16_conv3x3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "yq_tc_config": (_I, _I),
-    "yq16_conv3x3_pool": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "yq16_conv3x3_pool": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _P),
     "yq8_mm_s8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "yq8_mm_w8a16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "yq8_conv3x3_s8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),

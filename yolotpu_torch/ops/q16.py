@@ -24,16 +24,18 @@ is exact: |x*w| <= 2^30 and K <= 9*1280 keep every partial sum below 2^44,
 far inside float64's 53-bit mantissa in any summation order, so rounding to
 int64 and wrapping to int32 gives the wraparound int32 sum.
 
-mm_q16 and conv3x3_q16 run on the 8-bit tensor cores (``csrc/igemm_tc.cuh``):
-each int16 is cut into a signed high and an unsigned low byte, and the
-three s32 partial sums (high x high, the two mixed products, low x low) are
+All three run on the 8-bit tensor cores (``csrc/igemm_tc.cuh``): each int16
+is cut into a signed high and an unsigned low byte, and the three s32
+partial sums (high x high, the two mixed products, low x low) are
 recombined modulo 2^32 (``ops.tc``, scheme ``tc.Q16``). On the card they
 take the weights also as packed planes (``pack_q16``, once at model build):
 the high (s8) and low (u8) bytes, padded to the kernel's tile in K and N
 and laid out as its B fragments. ``tc.emulate`` computes the sums from
 those planes the way the kernel does, so the CPU tests hold the layout.
-conv3x3_pool_q16 reads HWIO int16 as a (taps*C, N) row-major matrix on the
-CUDA cores. The bias is the (N,) int32 pre-shifted bias.
+conv3x3_pool_q16 is conv3x3_q16's implicit GEMM with its rows, the output
+pixels, visited window-major (``window_major``): rows 4i .. 4i+3 are the
+four members of pool window i, and the kernel's epilogue pools them into
+one output row. The bias is the (N,) int32 pre-shifted bias.
 """
 
 from __future__ import annotations
@@ -127,16 +129,26 @@ def conv3x3_q16_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return requant32(acc, bias, shift, leaky).to(torch.int16)
 
 
-def conv3x3_pool_q16_plain(x: torch.Tensor, w: torch.Tensor,
-                           bias: torch.Tensor, shift: int, leaky: bool,
-                           order: str) -> torch.Tensor:
-    """conv3x3_q16_plain's sums, then the 2x2/s2 pool in ``order``; every
-    max is a signed int32 (or int16) max of the wrapped values, as
-    ``jnp.maximum`` takes it."""
-    acc = acc32(conv3x3_sum64(x, w))
-    b, h, wd, n = acc.shape
-    # (b, ho, dy, wo, dx, n): the pool window's members on axes 2 and 4
-    win = acc.reshape(b, h // 2, 2, wd // 2, 2, n)
+def window_major(b: int, h: int, wd: int) -> torch.Tensor:
+    """The pixel (b, y, x), as the index (b*H + y)*W + x, of each row of the
+    conv3x3_pool_q16 kernel's GEMM, (B*H*W,) int64: row m is member
+    q = m % 4 of pool window m // 4, the windows in (b, ho, wo) order and
+    the member at (2 ho + q // 2, 2 wo + q % 2), so rows 4i .. 4i+3 are the
+    four sums that window i pools."""
+    m = torch.arange(b * h * wd)
+    win, q = m // 4, m % 4
+    img, r = win // (h * wd // 4), win % (h * wd // 4)
+    y = 2 * (r // (wd // 2)) + q // 2
+    x = 2 * (r % (wd // 2)) + q % 2
+    return (img * h + y) * wd + x
+
+
+def pool_windows(win: torch.Tensor, bias: torch.Tensor, shift: int,
+                 leaky: bool, order: str) -> torch.Tensor:
+    """int32 sums (B, H/2, 2, W/2, 2, N), a pool window's members on axes 2
+    and 4 (dy, dx), -> the 2x2/s2 pool and requant in ``order``, (B, H/2,
+    W/2, N) int16; every max is a signed int32 (or int16) max of the
+    wrapped values, as ``jnp.maximum`` takes it."""
     if order == "acc":
         v = requant32(win.amax(dim=(2, 4)), bias, shift, leaky)
     elif order == "acc_h":
@@ -147,6 +159,19 @@ def conv3x3_pool_q16_plain(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"conv3x3_pool_q16: order {order!r} (one of "
                          f"{', '.join(POOL_ORDERS)})")
     return v.to(torch.int16)
+
+
+def conv3x3_pool_q16_plain(x: torch.Tensor, w: torch.Tensor,
+                           bias: torch.Tensor, shift: int, leaky: bool,
+                           order: str, planes=None) -> torch.Tensor:
+    """conv3x3_q16_plain's sums, then the 2x2/s2 pool in ``order``
+    (``pool_windows``); ``planes`` is taken and not read, as in
+    mm_q16_plain."""
+    acc = acc32(conv3x3_sum64(x, w))
+    b, h, wd, n = acc.shape
+    # (b, ho, dy, wo, dx, n)
+    return pool_windows(acc.reshape(b, h // 2, 2, wd // 2, 2, n), bias, shift,
+                        leaky, order)
 
 
 def check_operands(name: str, x: torch.Tensor, w: torch.Tensor,
@@ -212,11 +237,13 @@ def conv3x3_q16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 
 def conv3x3_pool_q16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-                     shift: int, leaky: bool, order: str) -> torch.Tensor:
+                     shift: int, leaky: bool, order: str,
+                     planes: torch.Tensor | None = None) -> torch.Tensor:
     """x (B, H, W, C) int16 with H and W even, w (3, 3, C, N) int16 -> SAME
     3x3/s1 conv with fused requant and the darknet 2x2/s2 maxpool after it,
     the max taken in ``order`` (one of POOL_ORDERS): (B, H/2, W/2, N)
-    int16."""
+    int16. On the card ``planes`` (pack_q16(w), conv3x3_q16's) is the
+    kernel's weight operand; K is split as for the conv's B*H*W rows."""
     check_operands("conv3x3_pool_q16", x, w, bias, 4,
                    w.ndim == 4 and w.shape[:3] == (3, 3, x.shape[-1]))
     b, h, wd, c = x.shape
@@ -226,10 +253,12 @@ def conv3x3_pool_q16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     if x.device.type == "cpu":
         return conv3x3_pool_q16_plain(x, w, bias, shift, leaky, order)
     n = w.shape[-1]
+    _build.check_rows("conv3x3_pool_q16", b * h * wd)
+    tc.check_planes("conv3x3_pool_q16", planes, 9 * c, n, x.device, tc.Q16)
     out = torch.empty((b, h // 2, wd // 2, n), dtype=torch.int16,
                       device=x.device)
-    return _build.launch("conv3x3_pool_q16", "yq16_conv3x3_pool", out,
-                         x.data_ptr(), w.data_ptr(), bias.data_ptr(),
-                         out.data_ptr(), b, h, wd, c, n, int(shift),
-                         int(leaky), POOL_ORDERS.index(order),
-                         counts=LAUNCHES)
+    return tc.launch("conv3x3_pool_q16", "yq16_conv3x3_pool", out,
+                     b * h * wd, n, 9 * c,
+                     (x.data_ptr(), planes.data_ptr(), bias.data_ptr()),
+                     (b, h, wd, c, n, int(shift), int(leaky),
+                      POOL_ORDERS.index(order)), tc.Q16, LAUNCHES)
