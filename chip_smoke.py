@@ -5,15 +5,16 @@
 It builds the hand-written kernels from ``yolotpu_torch/csrc/`` with nvcc
 for ``sm_90a`` (one nvcc per source, all started together) and drives the
 port's main paths, YOLOv2 at 416x416 with synthetic weights from seed 0 in
-each integer tier (int16-exact; int8 w8a8 with the head16 epilogue; w8a16)
-and in two plan slices of the int16 tier, in four phases:
+each tier (fp32; int16-exact; int8 w8a8 with the head16 epilogue; w8a16)
+and in two plan slices of the int16 tier, every forward a replay of a CUDA
+graph that the engine captured, in four phases:
 
 1. card: name and power limit, torch and CUDA versions, kernel build time,
    each kernel's registers and spills (none allowed), each kernel's
    tensor-core MMA count (cuobjdump: the ten instantiations of the
    tensor-core body hold integer wgmma, and the library holds no other
-   kernel), and the tile, shared memory and registers of each operand
-   scheme of the tensor-core body (Q16: mm_q16, conv3x3_q16,
+   kernel but nms_greedy's), and the tile, shared memory and registers of
+   each operand scheme of the tensor-core body (Q16: mm_q16, conv3x3_q16,
    conv3x3_pool_q16 in its three pool orders; W8A16: mm_w8a16,
    conv3x3_w8a16; S8: mm_s8 with either output, conv3x3_s8, conv3x3_int8),
    checked against the wrappers' copy of it;
@@ -37,20 +38,33 @@ and in two plan slices of the int16 tier, in four phases:
    compared with ``torch.equal``, with both times from CUDA events, and, at
    the model's shapes, the bound (the least time the card could take) and
    one library call's time for the same sums; every case keeps most outputs
-   unsaturated, so they depend on the sums;
-3. slices, one per tier: ``Engine.detect`` on three frames and
-   ``predict_batch_rgb`` at batch 8, the kernel launches of that run
-   counted (and per forward), each detect head and the batch head held
-   bit-equal to the plain versions on the card, frame 0 also on the CPU,
-   and the ms per batch and batch-1 latency;
-   then the same for the int16 tier under the plan slices P1 and P2
-   (``YOLO2_Q16_PLAN``), whose heads must also equal the default plan's,
-   timed beside it;
-4. profile, per tier: each conv alone at batch 8 and 1 (CUDA events) beside
+   unsaturated, so they depend on the sums; nms_greedy, the device NMS's
+   greedy scan, against its plain version (``torch.equal``) on yolov2 416
+   candidate tables (N=845, K=256, C=80) at batch 1 and 8, timed (events and
+   graph replays) beside its plain version and bound, and on tied scores,
+   an empty class, K=N, a saturated crowd and K=1024;
+3. slices: the /255 normalisation and the letterbox of raw frames of three
+   shapes, on the card against the CPU, bit for bit; then per tier an
+   Engine (3 ``detect`` requests, ``predict_batch_rgb`` at batch 8) and an
+   Engine with device NMS (3 ``detect_device`` requests, the batch's top-K
+   tables, a batch of raw frames letterboxed on the card), each forward a
+   replay of a CUDA graph: the kernel launches of that run counted per
+   captured forward (one eager run and one capture per graph) and the
+   replays (one per request), the replayed heads held bit-equal to the
+   eager forward and the plain versions on the card, frame 0 also to the
+   CPU (fp32: within the CPU tests' tolerance, and TF32 shown off),
+   detect_device held to detect and the raw frames' tables to the host
+   letterbox's, and the ms per batch and batch-1 latency, eager and replayed
+   in turns, and what the device NMS adds to a replay; then the same for the
+   int16 tier under the plan slices P1 and P2 (``YOLO2_Q16_PLAN``), whose
+   heads must also equal the default plan's, timed beside it;
+4. profile: per path and graph, the replay's device time by kernel and the
+   device's idle share in it (torch.profiler); per integer tier: each conv
+   alone at batch 8 and 1 (CUDA events) beside
    its plain version, a library call and its bound, summed per kernel over
    one forward (the 1x1 kernel and its library calls also alone on the
    device, in CUDA graph replays, since events around such short calls hold
-   the host's time per launch); the forward's device time by kernel, its
+   the host's time per launch); the eager forward's device time by kernel, its
    largest glue kernel and the device's idle share against its time per
    forward (torch.profiler, each kernel known by its full name), the bytes
    per second the 1x1 kernel moves on that device time, and the SM clock
@@ -90,7 +104,8 @@ from yolotpu_torch.image import letterbox_image  # noqa: E402
 from yolotpu_torch.models import engine_plan, zoo  # noqa: E402
 from yolotpu_torch.models.yolov2 import YoloV2Q  # noqa: E402
 from yolotpu_torch.names import names_for  # noqa: E402
-from yolotpu_torch.ops import _build, convops, pool, q8, q16, tc  # noqa: E402
+from yolotpu_torch.ops import (_build, convops, letterbox, nms, pool,  # noqa: E402
+                               q8, q16, tc)
 from yolotpu_torch.quant import (calibrate_activations,  # noqa: E402
                                  calibrate_activations_int8, quantize_weights,
                                  quantize_weights_int8, quantize_weights_w8a16)
@@ -122,10 +137,13 @@ KERNEL_SOURCES = {
                          ":1204/:1261 (K10), :417 (K11), :1521 (K12)"),
     "conv3x3_int8": ("yolotpu_torch/csrc/conv3x3_s8.cu",
                      "yolotpu/ops/pallas_conv.py:123, :85 (K13)"),
+    "nms_greedy": ("yolotpu_torch/csrc/nms_greedy.cu",
+                   "yolotpu/ops/nms.py:89 (the vmapped lax.scan of "
+                   "greedy_nms_mask, :36-57; no Pallas kernel)"),
 }
-KERNEL_MODULE = {name: (q16 if name in q16.LAUNCHES else q8)
+KERNEL_MODULE = {name: next(m for m in (q16, q8, nms) if name in m.LAUNCHES)
                  for name in KERNEL_SOURCES}
-TIERS = tuple(YoloV2Q.kernels)
+TIERS = tuple(YoloV2Q.kernels)   # the integer tiers; fp32 runs no kernel of ours
 # tier -> the names of its (mm, conv3) kernels
 TIER_KERNELS = {tier: tuple(f.__name__ for f in fns)
                 for tier, fns in YoloV2Q.kernels.items()}
@@ -167,6 +185,22 @@ INT8_KERNELS = ("mm_s8", "conv3x3_s8", "conv3x3_int8")   # int8 x int8
 # once.
 PEAK_MAC8 = 1979e12 / 2
 PEAK_BYTES = 3.35e12
+PEAK_FP32 = 67e12   # fp32 operations per second outside the tensor cores
+# nms_greedy at yolov2 416: N = 13*13*5 candidates, the engine's top K, and
+# the COCO classes; the engine's IoU threshold
+NMS_SHAPE = (845, 256, 80)
+NMS_THRESH = 0.45
+# the raw frame shapes whose letterbox is held to the CPU's; the first is
+# the main path's
+RAW_SHAPES = ((480, 640), (640, 360), (216, 216))
+# fp32 heads, the card's cuDNN against the CPU's oneDNN: the tolerance of
+# tests/test_torch_fp32.py, 1e-4 of the head's largest magnitude (other
+# summation orders, compounded over 23 convs)
+FP32_HEAD_TOL = 1e-4
+# detect_device is held to detect at this threshold: the synthetic weights'
+# class scores spread over 80 classes and reach 0.25 rarely; at 0.05 about 90
+# detections a frame survive
+DETECT_THRESH = 0.05
 # the int16 plan slices: name -> (YOLO2_Q16_PLAN, per-forward launches of
 # mm_q16, conv3x3_q16, conv3x3_pool_q16, the pools that run as their own op)
 SPLIT_SWEEP = 32   # the most splits of K that phase_split times
@@ -185,12 +219,13 @@ class PlainYoloV2Q(YoloV2Q):
 
 
 def launch_counts() -> dict:
-    return {**q16.LAUNCHES, **q8.LAUNCHES}
+    return {**q16.LAUNCHES, **q8.LAUNCHES, **nms.LAUNCHES}
 
 
 def reset_launches() -> None:
     q16.reset_launches()
     q8.reset_launches()
+    nms.reset_launches()
 
 
 def say(msg: str) -> None:
@@ -549,12 +584,14 @@ def phase_card() -> str:
         say(f"[card]   SASS {fn}: {n} instructions, {mma} tensor-core MMA "
             f"{ops}")
     tc_fns = {fn for fn in sass if "igemm_tc_kernel" in fn}
-    if len(tc_fns) != len(TC_INSTANCES) or set(sass) != tc_fns or any(
-            "IGMMA" not in sass[fn][2] for fn in tc_fns):
+    nms_fns = {fn for fn in sass if "nms_greedy_kernel" in fn}
+    if len(tc_fns) != len(TC_INSTANCES) or len(nms_fns) != 1 \
+            or set(sass) != tc_fns | nms_fns or any(
+                "IGMMA" not in sass[fn][2] for fn in tc_fns):
         raise AssertionError(f"the library must hold the {len(TC_INSTANCES)} "
                              "yq::tc kernels, each with integer warpgroup MMA "
-                             "(wgmma: IGMMA in SASS), and no other kernel; it "
-                             f"holds {sorted(sass)}")
+                             "(wgmma: IGMMA in SASS), nms_greedy's kernel and "
+                             f"no other kernel; it holds {sorted(sass)}")
     spills = [ln.strip() for ln in lib.log.splitlines() if any(
         int(v) for v in re.findall(r"(\d+) bytes spill", ln))]
     if spills:
@@ -582,6 +619,9 @@ def phase_card() -> str:
             f"{planes} weight plane(s), {smem} bytes of dynamic shared memory "
             f"per block, {blocks} blocks per SM ({scheme.wave} in tc.split's "
             f"waves), {regs[fns[0]]} registers")
+    fn, = (fn for fn in regs if "nms_greedy_kernel" in fn)
+    say(f"[card] nms_greedy: {regs[fn]} registers, no spills, one block of "
+        f"K threads per (class, frame), {sass[fn][0]} instructions")
     return smi
 
 
@@ -977,6 +1017,110 @@ def phase_kernels_int8(check: KernelCheck, dev: torch.device) -> None:
                           (*on(x, w, b), shift, leaky))
 
 
+def nms_scene(rng, b: int, n: int, c: int, dev: torch.device,
+              kind: str = "decoded") -> tuple:
+    """Decoded region tensors (boxes (B, N, 4), obj (B, N), probs (B, N, C))
+    on the card, as a scene of a few objects gives them: centers uniform
+    over the frame, sizes up to 0.4 of it (many overlaps), objectness
+    uniform, each box's class probabilities 0.7 on one of 6 classes and
+    the rest spread (Dirichlet 0.1). ``kind``: "ties", objectness and class
+    scores on coarse grids, as quantized heads give them; "empty", class 7
+    never scores and class 0 dominates; "crowd", every candidate over the
+    threshold and crowded into a quarter of the frame (a saturated top K,
+    most boxes suppressed)."""
+    centers = rng.uniform(0.1, 0.9, (b, n, 2))
+    sizes = rng.uniform(0.02, 0.4, (b, n, 2))
+    obj = rng.uniform(0, 1, (b, n))
+    probs = 0.3 * rng.dirichlet(np.full(c, 0.1), (b, n))
+    main = rng.integers(0, 6, (b, n))
+    np.put_along_axis(probs, main[..., None], np.take_along_axis(
+        probs, main[..., None], -1) + 0.7, -1)
+    if kind == "ties":
+        obj = rng.choice([0.0, 0.5, 0.75, 1.0], (b, n))
+        probs = rng.choice([0.25, 0.5, 1.0], (b, n, c))
+    elif kind == "empty":
+        probs[..., 7] = 0.0
+        probs[..., 0] += 0.5
+    elif kind == "crowd":
+        centers = rng.uniform(0.4, 0.6, (b, n, 2))
+        obj = rng.uniform(0.5, 1.0, (b, n))
+    boxes = np.concatenate([centers, sizes], -1)
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(dev)
+                 for a in (boxes, obj, probs))
+
+
+def nms_bound(cprob: torch.Tensor, ious: torch.Tensor) -> tuple:
+    """(operations ms, bytes ms) of nms_greedy on these inputs: cprob and
+    ious read once and the output written once; per frame and class K^2
+    score comparisons to rank the boxes and K(K-1)/2 IoU tests of the scan,
+    fp32 comparisons outside the tensor cores."""
+    b, k, c = cprob.shape
+    nbytes = 4 * (2 * cprob.numel() + ious.numel())
+    return (b * c * 1.5 * k * k / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3)
+
+
+def phase_kernels_nms(check: KernelCheck, dev: torch.device) -> dict:
+    """nms_greedy against its plain version (torch.equal) on the candidate
+    tables that topk_decode_nms hands it: at yolov2 416's shape (N=845,
+    K=256, C=80) at batch 1 and 8, timed (CUDA events around the wrapper,
+    and alone on the device in CUDA graph replays) beside the plain version
+    and the bound; then at edge cases. Returns, per batch, the kernel's
+    numbers for the JSON line."""
+    rng = np.random.default_rng(21)
+    n, k, c = NMS_SHAPE
+    say(f"[kernels] nms_greedy: yolov2 416 tables (N={n}, K={k}, C={c}, "
+        f"IoU threshold {NMS_THRESH}) at batch 1 and {BATCH_SLICE}, then "
+        "tied scores, an empty class, K=N, a saturated crowd and K=1024")
+    out = {}
+
+    def one(label: str, scene: tuple, topk: int, timed: bool = False):
+        _, cprob, ious, sat = nms.candidates(*scene, 0.25, topk)
+        got = nms.nms_greedy(cprob, ious, NMS_THRESH)
+        want = nms.nms_greedy_plain(cprob, ious, NMS_THRESH)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check.max_abs_err["nms_greedy"] = max(check.max_abs_err["nms_greedy"],
+                                              err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"nms_greedy {label}: kernel != plain (max "
+                                 f"abs err {err})")
+        scored = int((cprob > 0).sum())
+        kept = int((want > 0).sum())
+        if not 0 < kept < scored:
+            raise AssertionError(f"nms_greedy {label}: blind case, {kept} of "
+                                 f"{scored} class scores kept")
+        line = (f"  nms_greedy {label:34s} equal, {kept} of {scored} class "
+                f"scores kept, saturated {sat.tolist()}")
+        if timed:
+            f = {"ms": cuda_ms(lambda: nms.nms_greedy(cprob, ious, NMS_THRESH),
+                               reps=20),
+                 "graph_ms": graph_ms(lambda: nms.nms_greedy(cprob, ious,
+                                                             NMS_THRESH)),
+                 "plain_ms": cuda_ms(lambda: nms.nms_greedy_plain(
+                     cprob, ious, NMS_THRESH), reps=2)}
+            part = nms_bound(cprob, ious)
+            f["bound"] = [max(part), part[0] if part[0] >= part[1] else 0.0,
+                          part[1] if part[1] > part[0] else 0.0]
+            out[cprob.shape[0]] = f
+            line += (f"; kernel {f['ms']:.4f} ms (events), {f['graph_ms']:.4f}"
+                     f" ms alone on the device (graph replays), plain "
+                     f"{f['plain_ms']:.3f} ms, bound {max(part):.5f} ms "
+                     f"({bound_by(f['bound'])}), no library call")
+        say(line)
+
+    for bsz in (1, BATCH_SLICE):
+        one(f"b={bsz} N={n} K={k} C={c}", nms_scene(rng, bsz, n, c, dev), k,
+            timed=True)
+    one(f"ties b=3 N={n} K={k}", nms_scene(rng, 3, n, c, dev, "ties"), k)
+    one(f"an empty class b=2 N={n} K={k}", nms_scene(rng, 2, n, c, dev,
+                                                      "empty"), k)
+    one(f"K=N b=2 N={n} K={n}", nms_scene(rng, 2, n, c, dev), n)
+    one(f"saturated crowd b=2 N={n} K={k}", nms_scene(rng, 2, n, c, dev,
+                                                       "crowd"), k)
+    one("K=1024 b=1 N=1100 C=20", nms_scene(rng, 1, 1100, 20, dev), 1024)
+    return out
+
+
 def quantized_store(spec) -> WeightStore:
     """Synthetic weights from seed 0, calibrated on one seeded image and
     quantized for the three integer tiers, as load_or_synthesize does it."""
@@ -990,86 +1134,220 @@ def quantized_store(spec) -> WeightStore:
     return store
 
 
+def close_heads(got: np.ndarray, want: np.ndarray, fp32: bool) -> bool:
+    """Integer tiers: bit-equal. fp32: within FP32_HEAD_TOL of the largest
+    magnitude (two summation orders of cuDNN's, or cuDNN's and oneDNN's)."""
+    if not fp32:
+        return np.array_equal(got, want)
+    return bool(np.abs(got - want).max() <= FP32_HEAD_TOL * np.abs(want).max())
+
+
 def hold_detect_heads(tag: str, spec, frames: list, results: list,
-                      plain: YoloV2Q, dev: torch.device) -> None:
-    """Each detect request's head, the batch-1 path, against the plain
-    versions on the same letterboxed frame on the card (at batch 1 the
-    tensor-core kernels split K as they do at no other batch)."""
+                      ref: YoloV2Q, dev: torch.device, fp32: bool) -> None:
+    """Each detect request's head (a replay of the batch-1 graph) against
+    ``ref``, eager on the same letterboxed frame on the card: the plain
+    versions (integer tiers; at batch 1 the tensor-core kernels split K as
+    they do at no other batch) or the fp32 model itself."""
     for i, (im, (_, res)) in enumerate(zip(frames, results)):
         boxed = letterbox_image(im, spec.net.width, spec.net.height)
         x = torch.from_numpy(np.ascontiguousarray(
             boxed.transpose(1, 2, 0)[None], np.float32)).to(dev)
-        want = plain(x)["head"][0].permute(2, 0, 1).cpu().numpy()
-        if not np.array_equal(res.head_chw, want):
-            raise AssertionError(f"{tag} request {i}: head (batch 1) kernels "
-                                 "!= plain versions on the card")
-    say(f"{tag} the {len(results)} detect heads (batch 1) bit-equal: kernels "
-        "== plain on the card")
+        want = ref(x)["head"][0].permute(2, 0, 1).cpu().numpy()
+        if not close_heads(res.head_chw, want, fp32):
+            raise AssertionError(f"{tag} request {i}: replayed head (batch 1) "
+                                 "!= the eager one on the card")
+    say(f"{tag} the {len(results)} detect heads (batch 1, replayed) "
+        f"{'within tolerance of' if fp32 else 'bit-equal to'} the "
+        f"{'eager model' if fp32 else 'plain versions'} on the card")
+
+
+def kept(dets: list, thresh: float = 0.25) -> list[tuple]:
+    """(class, score, box) of each detection whose best class is over the
+    threshold, by class and score (as tests/test_torch_nms.py)."""
+    return sorted((*d.best_class(), *d.bbox) for d in dets
+                  if d.best_class()[1] > thresh)
+
+
+def same_detections(got: list, want: list) -> bool:
+    """The same classes, scores and boxes within rtol 1e-4 (the host path
+    decodes in numpy, the device path in PyTorch on the card)."""
+    return ([g[0] for g in got] == [w[0] for w in want]
+            and (not got or np.allclose([g[1:] for g in got],
+                                        [w[1:] for w in want],
+                                        rtol=1e-4, atol=1e-6)))
+
+
+def close_tables(got: tuple, want: tuple, fp32: bool) -> bool:
+    """Top-K tables (boxes, scores, classes, valid) equal, or in fp32 the
+    boxes and scores within rtol 1e-4 and the rest equal."""
+    if not fp32:
+        return all(np.array_equal(g, w) for g, w in zip(got, want))
+    return (np.allclose(got[0], want[0], rtol=1e-4, atol=1e-6)
+            and np.allclose(got[1], want[1], rtol=1e-4, atol=1e-6)
+            and np.array_equal(got[2], want[2])
+            and np.array_equal(got[3], want[3]))
+
+
+def tables_of(out: dict) -> tuple:
+    return tuple(out[k].cpu().numpy() for k in ("det_boxes", "det_scores",
+                                                "det_classes", "det_valid"))
+
+
+def graph_of(eng: Engine, dtype: torch.dtype, shape: tuple,
+             letterbox: bool = False):
+    return eng.graphs[(letterbox, dtype, shape)]
+
+
+def in_turns(fns: dict, measure) -> dict:
+    """measure(fn) of each of two functions in turns (a, b, b, a)."""
+    (a, fa), (b, fb) = fns.items()
+    got = {a: [], b: []}
+    for who, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+        got[who].append(measure(fn))
+    return got
+
+
+def replay_fn(g):
+    """One replay of a captured forward, its head read to the host."""
+    def run():
+        g.graph.replay()
+        return g.out["head"].cpu()
+    return run
+
+
+def check_tf32_off(tag: str, model: YoloV2Q, dev: torch.device) -> None:
+    """The fp32 tier's conv runs with TF32 off: one of its convs on random
+    inputs against a float64 conv on the card, within 1e-5 of the sum of
+    absolute products (TF32 keeps about 3 decimal digits: its error there is
+    about 1e-3), and cuDNN's own flag left as the caller had it."""
+    l = next(l for l in model.spec.conv_layers() if l.size == 3 and l.c >= 256)
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((2, l.h, l.w, l.c),
+                                             dtype=np.float32)).to(dev)
+    w = getattr(model, f"w{l.idx}").permute(1, 2, 3, 0)   # HWIO view
+    flag = torch.backends.cudnn.allow_tf32
+    got = convops.conv_fp32(x, w, torch.zeros(l.n, device=dev), 1, l.pad,
+                            "linear").double()
+
+    def conv64(a, b):
+        return torch.nn.functional.conv2d(
+            a.double().permute(0, 3, 1, 2), b.double().permute(3, 2, 0, 1),
+            padding=l.pad).permute(0, 2, 3, 1)
+
+    err = float(((got - conv64(x, w)).abs() / conv64(x.abs(), w.abs())).max())
+    if err > 1e-5 or torch.backends.cudnn.allow_tf32 != flag:
+        raise AssertionError(f"{tag} conv{l.idx}: relative error {err:.2e} "
+                             "against float64 (TF32 on?), or cuDNN's TF32 "
+                             f"flag changed ({flag} -> "
+                             f"{torch.backends.cudnn.allow_tf32})")
+    say(f"{tag} TF32 off: conv{l.idx} {l.h}x{l.w}x{l.c}->{l.n} within "
+        f"{err:.2e} of float64 (relative to the sum of |products|); cuDNN's "
+        f"allow_tf32 left at {flag}")
 
 
 def phase_slice(spec, store: WeightStore, tier: str,
-                dev: torch.device) -> tuple[dict, YoloV2Q, YoloV2Q]:
-    """One tier's main path, its launch counts, its heads against the plain
-    versions on the card and the CPU, and its ms per batch and latency.
-    Returns the launches, the model and its plain twin."""
-    eng = Engine(spec, store, precision=tier, device=dev)
-    mm, c3 = TIER_KERNELS[tier]
-    n_mm = sum(k == "mm" for k in eng.model.kinds.values())
-    n_c3 = sum(k == "conv3" for k in eng.model.kinds.values())
+                dev: torch.device) -> dict:
+    """One tier's main path, every forward a replay of a CUDA graph that the
+    engines captured: Engine (the head; letterbox, decode and NMS on the
+    host) serves 3 detect requests and a batch of BATCH_SLICE uint8 frames;
+    Engine(device_nms=True) 3 detect_device requests, the same batch's top-K
+    tables and a batch of 2 raw frames letterboxed on the card. Then its
+    launch counts (per captured forward: each graph runs its forward once
+    eagerly before its capture) and replays (one per request), its heads
+    and tables against the eager forward and the plain versions on the card
+    and the CPU, detect_device against detect, and the ms per batch and
+    batch-1 latency, eager and replayed in turns. Returns the launches, the
+    launches per forward, the two engines and the plain twin (None in
+    fp32)."""
+    fp32 = tier == "fp32"
     tag = f"[slice {tier}]"
-    say(f"{tag} yolov2 {spec.net.width}x{spec.net.height} {tier}, {n_mm} {mm} "
-        f"+ {n_c3} {c3} convs per forward")
-
     rng = np.random.default_rng(0)
+    net = (1, spec.net.height, spec.net.width, 3)
     frames = [rng.random((3, 480, 640), dtype=np.float32) for _ in range(3)]
-    batch = rng.integers(0, 256, (BATCH_SLICE, spec.net.height, spec.net.width, 3),
-                         dtype=np.uint8)
+    batch = rng.integers(0, 256, (BATCH_SLICE, *net[1:]), dtype=np.uint8)
+    raw = rng.integers(0, 256, (2, *RAW_SHAPES[0], 3), dtype=np.uint8)
     names = names_for(spec.region.classes)
-
-    def expect(forwards: int) -> dict:
-        want = dict.fromkeys(launch_counts(), 0)
-        want[mm], want[c3] = forwards * n_mm, forwards * n_c3
-        return want
+    oc = spec.layers[-1].out_c
+    lh, lw = spec.layers[-1].out_h, spec.layers[-1].out_w
 
     # the main path, with the launch counts read around it
     reset_launches()
+    eng = Engine(spec, store, tier, dev)
+    det = Engine(spec, store, tier, dev, device_nms=True)
+    kinds = list(eng.model.kinds.values())
+    per_forward = ({} if fp32 else dict(zip(TIER_KERNELS[tier], (
+        kinds.count("mm"), kinds.count("conv3")))))
+    g1 = graph_of(eng, torch.float32, net)
     results = []
     for im in frames:
-        before = launch_counts()
+        before, replays = launch_counts(), g1.replays
         results.append(eng.detect(im))
-        per = {k: v - before[k] for k, v in launch_counts().items()}
-        if per != expect(1):
-            raise AssertionError(f"{tag} detect ran {per} kernel launches")
+        if launch_counts() != before or g1.replays != replays + 1:
+            raise AssertionError(f"{tag} detect was not one replay of the "
+                                 "batch-1 graph")
     heads = eng.predict_batch_rgb(batch)
+    device = [det.detect_device(im) for im in frames]
+    tables = det.predict_batch_detections(batch)
+    raw_tables = det.predict_batch_raw_frames(raw)
     torch.cuda.synchronize()
     launches = launch_counts()
-    if launches != expect(4):
-        raise AssertionError(f"{tag} main path launched {launches}, want "
-                             f"{expect(4)}")
+    graphs = (len(eng.graphs), len(det.graphs))
+    replays = sum(g.replays for e in (eng, det) for g in e.graphs.values())
+    forwards = 2 * sum(graphs)   # each graph: one warm-up run, one capture
+    want = dict.fromkeys(launches, 0)
+    want.update({k: forwards * v for k, v in per_forward.items()})
+    want["nms_greedy"] = 2 * graphs[1]
+    if graphs != (2, 3) or launches != want or replays != 9:
+        raise AssertionError(f"{tag} main path: {graphs} graphs, {replays} "
+                             f"replays, launched {launches}; want (2, 3), 9, "
+                             f"{want}")
     head16 = q8.INT16_OUT_LAUNCHES["mm_s8"]
-    if head16 != (4 if tier == "int8" else 0):
+    if head16 != (forwards if tier == "int8" else 0):
         raise AssertionError(f"{tag} {head16} mm_s8 launches wrote int16")
-    split = (f" ({launches[mm] - head16} with int8 output, {head16} with "
-             "int16: the head16 conv)" if tier == "int8" else "")
-    say(f"{tag} main path (3 detect + 1 batch of {BATCH_SLICE}) launched "
-        f"{mm} {launches[mm]}{split}, {c3} {launches[c3]}; no other kernel; "
-        f"per forward {n_mm} {mm} + {n_c3} {c3}")
+    per_forward["nms_greedy"] = 1
+    say(f"{tag} main path (3 detect + 1 batch of {BATCH_SLICE} through "
+        f"Engine, 3 detect_device + 1 batch of {BATCH_SLICE} + 1 raw batch of "
+        f"2 {RAW_SHAPES[0]} through Engine(device_nms=True)): {sum(graphs)} "
+        f"graphs captured, {replays} replays for 9 requests; launched "
+        + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+        + f" = {forwards} captured forwards x {per_forward} per forward "
+        f"(nms_greedy: the device-NMS engine's {2 * graphs[1]})"
+        + (f"; {head16} mm_s8 launches with int16 output (head16)"
+           if tier == "int8" else ""))
 
-    for i, (dets, res) in enumerate(results):
-        labels = sum(int((d.prob > 0.25).sum()) for d in dets)
+    for i, ((dets, res), (ddets, dsec)) in enumerate(zip(results, device)):
         top = sorted(dets, key=lambda d: d.objectness, reverse=True)[:2]
         desc = "; ".join(
             f"obj {d.objectness:.3f} {names[int(d.prob.argmax())]} "
             f"p={d.prob.max():.4f} box ({d.bbox[0]:.3f},{d.bbox[1]:.3f},"
             f"{d.bbox[2]:.3f},{d.bbox[3]:.3f})" for d in top)
-        say(f"{tag} request {i}: {res.seconds * 1e3:.1f} ms, {len(dets)} boxes "
-            f"over the objectness threshold, {labels} labels over 0.25"
-            f"{'; top: ' + desc if desc else ''}")
         if not np.isfinite(res.head_chw).all():
             raise AssertionError(f"{tag} request {i}: non-finite head")
+        say(f"{tag} request {i}: detect {res.seconds * 1e3:.2f} ms, "
+            f"{len(dets)} boxes over the objectness threshold, "
+            f"{len(kept(dets))} over 0.25 in their best class; detect_device "
+            f"{dsec * 1e3:.2f} ms, "
+            f"{len(ddets)}{'; top: ' + desc if desc else ''}")
+    # detect_device against detect, as tests/test_torch_nms.py holds them:
+    # with K = N (every box a candidate, so never saturated) and a threshold
+    # that the synthetic weights' class scores reach
+    n_boxes = lh * lw * spec.region.num
+    agree = Engine(spec, store, tier, dev, device_nms=True,
+                   thresh=DETECT_THRESH, topk=n_boxes)
+    counts = []
+    for i, im in enumerate(frames):
+        host = kept(eng.detect(im, DETECT_THRESH)[0], DETECT_THRESH)
+        got = kept(agree.detect_device(im)[0], DETECT_THRESH)
+        if not host or not same_detections(got, host):
+            raise AssertionError(f"{tag} request {i} at threshold "
+                                 f"{DETECT_THRESH}: detect_device kept "
+                                 f"{len(got)} {got[:3]}..., detect {len(host)} "
+                                 f"{host[:3]}...")
+        counts.append(len(got))
+    say(f"{tag} detect_device == detect on the 3 frames at threshold "
+        f"{DETECT_THRESH}, K=N={n_boxes}: {counts} detections (classes equal, "
+        "scores and boxes within rtol 1e-4)")
 
-    oc = spec.layers[-1].out_c
-    lh, lw = spec.layers[-1].out_h, spec.layers[-1].out_w
     if heads.shape != (BATCH_SLICE, oc, lh, lw) or not np.isfinite(heads).all():
         raise AssertionError(f"{tag} batch head {heads.shape}, finite "
                              f"{np.isfinite(heads).all()}")
@@ -1077,12 +1355,18 @@ def phase_slice(spec, store: WeightStore, tier: str,
         raise AssertionError(f"{tag} batch head takes only "
                              f"{len(np.unique(heads))} values")
 
-    # the same model through the plain versions, on the card and on the CPU
-    plain = PlainYoloV2Q(spec, eng.qtables, eng.params, dev, tier)
-    hold_detect_heads(tag, spec, frames, results, plain, dev)
+    # the replayed heads and tables against the eager forward, the plain
+    # versions on the card and the CPU
     xb = torch.from_numpy(batch).to(dev)
-    want_heads = plain(xb)["head"].permute(0, 3, 1, 2).cpu().numpy()
-    if not np.array_equal(heads, want_heads):
+    eager = eng.model(xb)["head"].permute(0, 3, 1, 2).cpu().numpy()
+    if not close_heads(heads, eager, fp32):
+        raise AssertionError(f"{tag} batch head: replayed != eager")
+    plain = None if fp32 else PlainYoloV2Q(spec, eng.qtables, eng.params, dev,
+                                           tier)
+    hold_detect_heads(tag, spec, frames, results, eng.model if fp32 else plain,
+                      dev, fp32)
+    if plain is not None and not np.array_equal(
+            heads, plain(xb)["head"].permute(0, 3, 1, 2).cpu().numpy()):
         raise AssertionError(f"{tag} batch head: kernels != plain versions "
                              "on the card")
     cpu_params = {k: {n: t.cpu() for n, t in v.items()} for k, v in eng.params.items()}
@@ -1090,47 +1374,124 @@ def phase_slice(spec, store: WeightStore, tier: str,
     t0 = time.perf_counter()
     cpu_head = cpu_model(torch.from_numpy(batch[:1]))["head"].permute(0, 3, 1, 2).numpy()
     cpu_s = time.perf_counter() - t0
-    if not np.array_equal(heads[:1], cpu_head):
-        raise AssertionError(f"{tag} frame 0 head: kernels on the card != "
-                             "plain on the CPU")
-    say(f"{tag} head {heads.shape} bit-equal: kernels == plain on the card "
-        f"(batch {BATCH_SLICE}) == plain on the CPU (frame 0, {cpu_s:.1f} s); "
-        f"{len(np.unique(heads))} distinct values")
+    if not close_heads(heads[:1], cpu_head, fp32):
+        raise AssertionError(f"{tag} frame 0 head: the card != the CPU "
+                             f"(max abs diff {np.abs(heads[:1] - cpu_head).max()})")
+    rel = float(np.abs(heads[:1] - cpu_head).max() / np.abs(cpu_head).max())
+    say(f"{tag} head {heads.shape} "
+        + (f"replayed within {rel:.2e} (of its largest magnitude; tolerance "
+           f"{FP32_HEAD_TOL}) of the CPU's (frame 0, {cpu_s:.1f} s), "
+           f"{np.abs(heads - eager).max():.2e} from the eager forward"
+           if fp32 else
+           f"bit-equal: replayed == eager == plain on the card (batch "
+           f"{BATCH_SLICE}) == plain on the CPU (frame 0, {cpu_s:.1f} s)")
+        + f"; {len(np.unique(heads))} distinct values")
+    if fp32:
+        check_tf32_off(tag, eng.model, dev)
+    if not close_tables(tables, tables_of(det.model(xb)), fp32):
+        raise AssertionError(f"{tag} batch top-K tables: replayed != eager")
+    boxed = np.stack([letterbox_image(
+        (f.astype(np.float32) / np.float32(255)).transpose(2, 0, 1),
+        spec.net.width, spec.net.height) for f in raw])
+    if not close_tables(raw_tables, det.predict_batch_detections(boxed), fp32):
+        raise AssertionError(f"{tag} raw frames: the tables of the card's "
+                             "letterbox != those of the host's")
+    say(f"{tag} top-K tables (batch {BATCH_SLICE}, "
+        f"{int(tables[3].sum())} valid) replayed == eager; raw "
+        f"{RAW_SHAPES[0]} frames letterboxed on the card: "
+        f"{int(raw_tables[3].sum())} valid, == the host letterbox's"
+        + (" (fp32: boxes and scores within rtol 1e-4)" if fp32 else ""))
 
-    # throughput and latency on device-resident frames
-    model = eng.model
-    ms_b8 = cuda_ms(lambda: model(xb), reps=20)
-    plain_ms_b8 = cuda_ms(lambda: plain(xb), reps=3)
-    p50, p90 = latency_ms(model, xb[:1].contiguous())
-    say(f"{tag} batch {BATCH_SLICE}: {ms_b8:.3f} ms per batch "
-        f"({BATCH_SLICE * 1e3 / ms_b8:.1f} frames/s) kernels, "
-        f"{plain_ms_b8:.3f} ms plain versions")
-    say(f"{tag} batch 1 latency (host clock, head to host): p50 {p50:.3f} ms "
-        f"p90 {p90:.3f} ms")
-    return {mm: launches[mm], c3: launches[c3]}, model, plain
+    # ms per batch and batch-1 latency, eager and replayed in turns, on
+    # device-resident frames
+    g8 = graph_of(eng, torch.uint8, (BATCH_SLICE, *net[1:]))
+    ms = in_turns({"eager": lambda: eng.model(xb), "replay": g8.graph.replay},
+                  lambda fn: cuda_ms(fn, reps=20))
+    x1 = g1.inp.clone()
+    lat = in_turns({"eager": lambda: eng.model(x1)["head"].cpu(),
+                    "replay": replay_fn(g1)}, latency_ms)
+    for who in ("eager", "replay"):
+        say(f"{tag} {who:6s} batch {BATCH_SLICE}: "
+            f"{' / '.join(f'{v:.3f}' for v in ms[who])} ms per batch (in "
+            f"turns); batch 1 latency p50 "
+            f"{' / '.join(f'{v[0]:.3f}' for v in lat[who])} ms, p90 "
+            f"{' / '.join(f'{v[1]:.3f}' for v in lat[who])} ms")
+    if fp32:
+        flops = BATCH_SLICE * sum(2 * l.out_h * l.out_w * l.n * l.c * l.size ** 2
+                                  for l in spec.conv_layers())
+        say(f"{tag} {flops / 1e9:.1f} GFLOP of convs per batch of "
+            f"{BATCH_SLICE}: {flops / np.mean(ms['replay']) / 1e9:.1f} "
+            f"TFLOP/s replayed, of the card's {PEAK_FP32 / 1e12:.0f} in fp32")
+    # what the decode and the NMS add to a replayed forward
+    d1 = graph_of(det, torch.float32, net)
+    d8 = graph_of(det, torch.uint8, (BATCH_SLICE, *net[1:]))
+    extra = {bsz: in_turns({"head": h.graph.replay, "nms": d.graph.replay},
+                           lambda fn: cuda_ms(fn, reps=20))
+             for bsz, h, d in ((1, g1, d1), (BATCH_SLICE, g8, d8))}
+    for bsz, v in extra.items():
+        say(f"{tag} device NMS at batch {bsz}: replay "
+            f"{' / '.join(f'{t:.3f}' for t in v['nms'])} ms against "
+            f"{' / '.join(f'{t:.3f}' for t in v['head'])} ms head only: "
+            f"+{np.mean(v['nms']) - np.mean(v['head']):.3f} ms per forward")
+    return {"launches": launches, "per_forward": per_forward, "eng": eng,
+            "det": det, "plain": plain}
 
 
-def latency_ms(model: YoloV2Q, x1: torch.Tensor) -> np.ndarray:
-    """p50 and p90 of 25 batch-1 forwards (host clock, head to host), after
-    5 warm-up runs."""
+def latency_ms(fn) -> np.ndarray:
+    """p50 and p90 of 25 fn() calls (host clock; fn ends with the head on
+    the host), after 5 warm-up calls."""
     lat = []
     for _ in range(30):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model(x1)["head"].cpu()
+        fn()
         lat.append((time.perf_counter() - t0) * 1e3)
     return np.percentile(lat[5:], [50, 90])
 
 
-def phase_plan(spec, store: WeightStore, name: str, default: YoloV2Q,
-               dev: torch.device) -> tuple[dict, YoloV2Q]:
+def phase_letterbox(dev: torch.device) -> None:
+    """The /255 normalisation of every uint8 value, and the letterbox of
+    raw frames of RAW_SHAPES to 416x416, on the card against the CPU, bit
+    for bit."""
+    x = torch.arange(256, dtype=torch.uint8)
+    want = convops.normalize_u8(x)
+    recip = int((x.to(dev).to(torch.float32) / 255.0).cpu().ne(want).sum())
+    if not torch.equal(convops.normalize_u8(x.to(dev)).cpu(), want):
+        raise AssertionError("[letterbox] normalize_u8 on the card != the CPU")
+    rng = np.random.default_rng(5)
+    for h, w in RAW_SHAPES:
+        u8 = rng.integers(0, 256, (2, h, w, 3), dtype=np.uint8)
+        got = letterbox.device_letterbox(torch.from_numpy(u8).to(dev), 416,
+                                         416).cpu().numpy()
+        for i in range(2):
+            host = letterbox_image((u8[i].astype(np.float32) / np.float32(255))
+                                   .transpose(2, 0, 1), 416, 416)
+            if not np.array_equal(got[i], host.transpose(1, 2, 0)):
+                raise AssertionError(f"[letterbox] {h}x{w} frame {i}: the "
+                                     "card's letterbox != the host's")
+    say(f"[letterbox] /255 of all 256 uint8 values bit-equal on the card and "
+        f"the CPU (a Python divisor would differ in {recip}); raw frames "
+        f"{RAW_SHAPES} letterboxed to 416x416 on the card bit-equal to the "
+        "host letterbox")
+
+
+def phase_plan(spec, store: WeightStore, name: str, default: dict,
+               dev: torch.device) -> dict:
     """An int16 plan slice through Engine under YOLO2_Q16_PLAN: its launch
-    counts, its head against the plain versions on the card and the CPU and
-    against the default plan's, and its times beside the default plan's in
-    turns (default, plan, plan, default). Returns its main path's
-    launches and its model."""
+    counts per captured forward and its replays, its replayed head against
+    its eager forward, the plain versions on the card and the CPU and the
+    default plan's, and its times beside the default plan's in turns
+    (default, plan, plan, default), eager and replayed. ``default`` is the
+    int16 slice's phase_slice result. Returns the launches, the launches per
+    forward and the engine."""
     plan, (n_mm, n_c3, n_pool), own_pools = PLANS[name]
     tag = f"[plan {name}]"
+    rng = np.random.default_rng(0)
+    net = (1, spec.net.height, spec.net.width, 3)
+    frames = [rng.random((3, 480, 640), dtype=np.float32) for _ in range(3)]
+    batch = rng.integers(0, 256, (BATCH_SLICE, *net[1:]), dtype=np.uint8)
+    # the main path, with the launch counts read around it
+    reset_launches()
     os.environ["YOLO2_Q16_PLAN"] = plan
     try:
         eng = Engine(spec, store, precision="int16", device=dev)
@@ -1138,80 +1499,79 @@ def phase_plan(spec, store: WeightStore, name: str, default: YoloV2Q,
     finally:
         del os.environ["YOLO2_Q16_PLAN"]
     model = eng.model
-    fused = {i: o for i, (k, o) in model.route.items() if k == "conv3_pool"}
-    pools = [l.idx for l in spec.layers
-             if isinstance(l, MaxPoolSpec) and l.idx not in model.folded]
-    say(f"{tag} YOLO2_Q16_PLAN={plan}: conv3x3_pool_q16 at {fused}; pools "
-        f"{pools} run as their own op")
-    if pools != own_pools:
-        raise AssertionError(f"{tag} pools {pools} run alone, want {own_pools}")
-
-    def expect(forwards: int) -> dict:
-        want = dict.fromkeys(launch_counts(), 0)
-        want.update({"mm_q16": forwards * n_mm, "conv3x3_q16": forwards * n_c3,
-                     "conv3x3_pool_q16": forwards * n_pool})
-        return want
-
-    rng = np.random.default_rng(0)
-    frames = [rng.random((3, 480, 640), dtype=np.float32) for _ in range(3)]
-    batch = rng.integers(0, 256, (BATCH_SLICE, spec.net.height, spec.net.width, 3),
-                         dtype=np.uint8)
-    # the main path, with the launch counts read around it
-    reset_launches()
+    g1 = graph_of(eng, torch.float32, net)
     results = []
     for i, im in enumerate(frames):
-        before = launch_counts()
+        before, replays = launch_counts(), g1.replays
         dets, res = eng.detect(im)
         results.append((dets, res))
-        per = {k: v - before[k] for k, v in launch_counts().items()}
-        if per != expect(1):
-            raise AssertionError(f"{tag} detect ran {per} kernel launches")
+        if launch_counts() != before or g1.replays != replays + 1:
+            raise AssertionError(f"{tag} detect was not one replay")
         if not np.isfinite(res.head_chw).all():
             raise AssertionError(f"{tag} request {i}: non-finite head")
-        say(f"{tag} request {i}: {res.seconds * 1e3:.1f} ms, {len(dets)} boxes "
-            "over the objectness threshold")
     heads = eng.predict_batch_rgb(batch)
     torch.cuda.synchronize()
     launches = launch_counts()
-    if launches != expect(4):
-        raise AssertionError(f"{tag} main path launched {launches}, want "
-                             f"{expect(4)}")
-    say(f"{tag} main path (3 detect + 1 batch of {BATCH_SLICE}) launched "
-        f"mm_q16 {launches['mm_q16']}, conv3x3_q16 {launches['conv3x3_q16']}, "
-        f"conv3x3_pool_q16 {launches['conv3x3_pool_q16']}; no other kernel; "
-        f"per forward {n_mm} + {n_c3} + {n_pool}")
+    per_forward = {"mm_q16": n_mm, "conv3x3_q16": n_c3,
+                   "conv3x3_pool_q16": n_pool}
+    forwards = 2 * len(eng.graphs)
+    want = dict.fromkeys(launches, 0)
+    want.update({k: forwards * v for k, v in per_forward.items()})
+    replays = sum(g.replays for g in eng.graphs.values())
+    if launches != want or replays != 4:
+        raise AssertionError(f"{tag} main path launched {launches} in "
+                             f"{replays} replays; want {want}, 4")
+    fused = {i: o for i, (k, o) in model.route.items() if k == "conv3_pool"}
+    pools = [l.idx for l in spec.layers
+             if isinstance(l, MaxPoolSpec) and l.idx not in model.folded]
+    if pools != own_pools:
+        raise AssertionError(f"{tag} pools {pools} run alone, want {own_pools}")
+    say(f"{tag} YOLO2_Q16_PLAN={plan}: conv3x3_pool_q16 at {fused}; pools "
+        f"{pools} run as their own op; main path (3 detect + 1 batch of "
+        f"{BATCH_SLICE}): {len(eng.graphs)} graphs, {replays} replays, "
+        f"launched mm_q16 {launches['mm_q16']}, conv3x3_q16 "
+        f"{launches['conv3x3_q16']}, conv3x3_pool_q16 "
+        f"{launches['conv3x3_pool_q16']} = {forwards} captured forwards x "
+        f"{per_forward}; no other kernel")
 
     xb = torch.from_numpy(batch).to(dev)
     plain = PlainYoloV2Q(spec, eng.qtables, eng.params, dev, "int16", overrides)
-    hold_detect_heads(tag, spec, frames, results, plain, dev)
-    if not np.array_equal(heads, plain(xb)["head"].permute(0, 3, 1, 2).cpu().numpy()):
-        raise AssertionError(f"{tag} batch head: kernels != plain versions "
-                             "on the card")
+    hold_detect_heads(tag, spec, frames, results, plain, dev, False)
+    for who, ref in (("eager", model), ("plain", plain),
+                     ("the default plan's", default["eng"].model)):
+        if not np.array_equal(heads, ref(xb)["head"].permute(0, 3, 1, 2)
+                              .cpu().numpy()):
+            raise AssertionError(f"{tag} batch head: replayed != {who}")
     cpu_params = {k: {n: t.cpu() for n, t in v.items()} for k, v in eng.params.items()}
     cpu_model = YoloV2Q(spec, eng.qtables, cpu_params, "cpu", "int16", overrides)
     cpu_head = cpu_model(torch.from_numpy(batch[:1]))["head"].permute(0, 3, 1, 2).numpy()
     if not np.array_equal(heads[:1], cpu_head):
         raise AssertionError(f"{tag} frame 0 head: kernels on the card != "
                              "plain on the CPU")
-    if not np.array_equal(heads, default(xb)["head"].permute(0, 3, 1, 2).cpu().numpy()):
-        raise AssertionError(f"{tag} batch head != the default plan's")
-    say(f"{tag} head {heads.shape} bit-equal: kernels == plain on the card "
-        f"(batch {BATCH_SLICE}) == plain on the CPU (frame 0) == the default "
-        "plan's kernels")
+    say(f"{tag} head {heads.shape} bit-equal: replayed == eager == plain on "
+        f"the card (batch {BATCH_SLICE}) == plain on the CPU (frame 0) == the "
+        "default plan's kernels")
 
-    ms = {"default": [], name: []}
-    for who, m in (("default", default), (name, model), (name, model),
-                   ("default", default)):
-        ms[who].append(cuda_ms(lambda: m(xb), reps=20))   # noqa: B023
-    x1 = xb[:1].contiguous()
-    lat = {who: latency_ms(m, x1) for who, m in (("default", default),
-                                                  (name, model))}
-    for who in ("default", name):
-        say(f"{tag} {who:7s} batch {BATCH_SLICE}: "
-            f"{' / '.join(f'{v:.3f}' for v in ms[who])} ms per batch "
-            f"(in turns); batch 1 latency p50 {lat[who][0]:.3f} ms p90 "
-            f"{lat[who][1]:.3f} ms")
-    return launches, model
+    d = default["eng"]
+    dg8 = graph_of(d, torch.uint8, (BATCH_SLICE, *net[1:]))
+    g8 = graph_of(eng, torch.uint8, (BATCH_SLICE, *net[1:]))
+    x1 = g1.inp.clone()
+    for mode, fns, lat_fns in (
+            ("eager", {"default": lambda: d.model(xb), name: lambda: model(xb)},
+             {"default": lambda: d.model(x1)["head"].cpu(),
+              name: lambda: model(x1)["head"].cpu()}),
+            ("replay", {"default": dg8.graph.replay, name: g8.graph.replay},
+             {"default": replay_fn(graph_of(d, torch.float32, net)),
+              name: replay_fn(g1)})):
+        ms = in_turns(fns, lambda fn: cuda_ms(fn, reps=20))
+        lat = in_turns(lat_fns, latency_ms)
+        for who in ("default", name):
+            say(f"{tag} {mode:6s} {who:7s} batch {BATCH_SLICE}: "
+                f"{' / '.join(f'{v:.3f}' for v in ms[who])} ms per batch (in "
+                f"turns); batch 1 latency p50 "
+                f"{' / '.join(f'{v[0]:.3f}' for v in lat[who])} ms, p90 "
+                f"{' / '.join(f'{v[1]:.3f}' for v in lat[who])} ms")
+    return {"launches": launches, "per_forward": per_forward, "eng": eng}
 
 
 def is_memset(key: str) -> bool:
@@ -1242,7 +1602,10 @@ def kernel_names(dev: torch.device) -> dict[str, str]:
     # the operands exist before the profiler starts: only the kernel runs
     # (at these shapes K is not split, so the tensor-core kernels launch
     # alone, with no workspace memset)
+    cprob, ious = torch.rand((2, 64, 8), device=dev), torch.rand((2, 64, 64),
+                                                                 device=dev)
     calls = [
+        ("nms_greedy", lambda: nms.nms_greedy(cprob, ious, 0.5)),
         ("mm_q16", lambda: q16.mm_q16(x16, w16, b, 3, True, planes=p16)),
         ("conv3x3_q16", lambda: q16.conv3x3_q16(c16, k16, b, 3, True,
                                                 planes=pk16)),
@@ -1302,6 +1665,29 @@ def device_ms_by_kernel(fn, names: dict[str, str],
         if kind == "glue" and ms > glue_top[1]:
             glue_top = (e.key[:60], ms)
     return by, glue_top
+
+
+def phase_profile_replay(tag: str, graphs: dict, names: dict[str, str]) -> None:
+    """Where the device time of a replayed forward goes: for each captured
+    graph (label -> CapturedForward), its ms per replay (CUDA events) and
+    its device busy time by kernel (torch.profiler over replays, kernels
+    known by their full names), and so the device's idle share in a
+    replay."""
+    for label, g in graphs.items():
+        fwd_ms = cuda_ms(g.graph.replay, reps=20)
+        by, glue_top = device_ms_by_kernel(g.graph.replay, names)
+        busy = sum(by.values())
+        if busy == 0:
+            say(f"{tag} {label} replay: {fwd_ms:.3f} ms; the profiler saw no "
+                "device time in the replays: busy and idle not measured")
+            continue
+        ours = ", ".join(f"{k} {v:.3f}" for k, v in by.items()
+                         if v and k not in ("glue", "memset"))
+        say(f"{tag} {label} replay: {fwd_ms:.3f} ms (CUDA events), device "
+            f"busy {busy:.3f} ms (profiler): {ours or 'no kernel of ours'}, "
+            f"memsets {by['memset']:.3f}, glue {by['glue']:.3f} (largest "
+            f"{glue_top[0]!r} {glue_top[1]:.3f}); device idle "
+            f"{100 * max(0.0, 1 - busy / fwd_ms):.1f}%")
 
 
 def new_forward() -> dict:
@@ -1636,7 +2022,12 @@ def main() -> int:
               "an NVIDIA GPU", file=sys.stderr)
         return 2
     os.environ.setdefault("YOLO2_NO_DUMP", "1")   # no region text dumps
-    dev = torch.device("cuda", 0)
+    return run(torch.device("cuda", 0))
+
+
+def run(dev: torch.device) -> int:
+    """Phases 1-4 on ``dev``, then the JSON record of the kernels and the
+    last line."""
     t0 = time.perf_counter()
     smi = phase_card()
     check = KernelCheck()
@@ -1644,64 +2035,87 @@ def main() -> int:
     phase_kernels8(check, dev)
     phase_kernels_pool(check, dev)
     phase_kernels_int8(check, dev)
+    nms_times = phase_kernels_nms(check, dev)
     say(f"[card] phases 1-2 took {time.perf_counter() - t0:.1f} s")
+    phase_letterbox(dev)
     spec = zoo.build("yolov2")
     store = quantized_store(spec)
-    # each main path (3 detect + 1 batch: 4 forwards) -> its launches
-    runs, models, plains = {}, {}, {}
-    for tier in TIERS:
-        runs[tier], models[tier], plains[tier] = phase_slice(spec, store, tier,
-                                                             dev)
+    # each main path -> its launches, launches per forward and engines
+    runs = {tier: phase_slice(spec, store, tier, dev)
+            for tier in (*TIERS, "fp32")}
     for name in PLANS:
-        runs[name], models[name] = phase_plan(spec, store, name,
-                                              models["int16"], dev)
+        runs[name] = phase_plan(spec, store, name, runs["int16"], dev)
     # conv3x3_int8 is on no path, as K13 in the JAX package
-    launches = {k: sum(r.get(k, 0) for r in runs.values()) for k in KERNEL_SOURCES}
-    per_forward = {k: {path: r[k] // 4 for path, r in runs.items() if r.get(k)}
-                   for k in KERNEL_SOURCES}
-    say(f"[card] launches per forward, by kernel and path: {per_forward}")
+    launches = {k: sum(r["launches"].get(k, 0) for r in runs.values())
+                for k in KERNEL_SOURCES}
+    per_forward = {k: {path: r["per_forward"][k] for path, r in runs.items()
+                       if r["per_forward"].get(k)} for k in KERNEL_SOURCES}
+    say(f"[card] launches per captured forward, by kernel and path: "
+        f"{per_forward}")
     say(f"[card] phases 1-3 took {time.perf_counter() - t0:.1f} s")
     names = kernel_names(dev)
-    say(f"[profile] kernels by full name: {len(names)} of 10 instantiations "
-        "seen by the profiler")
+    say(f"[profile] kernels by full name: {len(names)} of 11 functions seen "
+        "by the profiler")
+    net = (spec.net.height, spec.net.width, 3)
+    for path, r in runs.items():
+        engines = [("", r["eng"])] + ([("device NMS ", r["det"])]
+                                      if "det" in r else [])
+        phase_profile_replay(f"[profile {path}]", {
+            f"{what}b={b}": graph_of(e, dt, (b, *net))
+            for what, e in engines
+            for b, dt in ((BATCH_SLICE, torch.uint8), (1, torch.float32))},
+            names)
     forward = {}
     for tier in TIERS:
-        forward.update(phase_profile(models[tier], plains[tier], dev, names))
+        forward.update(phase_profile(runs[tier]["eng"].model,
+                                     runs[tier]["plain"], dev, names))
     forward["conv3x3_pool_q16"] = phase_profile_pool(
-        models["int16"], models["P1"], dev, names)
+        runs["int16"]["eng"].model, runs["P1"]["eng"].model, dev, names)
+    forward["nms_greedy"] = nms_times
     for tier in TIERS:
-        phase_split(models[tier], dev)
-    phase_split(models["P1"], dev, fused_only=True)
+        phase_split(runs[tier]["eng"].model, dev)
+    phase_split(runs["P1"]["eng"].model, dev, fused_only=True)
     say(f"[card] phases 1-4 took {time.perf_counter() - t0:.1f} s")
 
     def at(f: dict) -> dict:
-        return {"ms": f["ms"], "device_ms": f["device_ms"],
+        return {"ms": f["ms"], "device_ms": f.get("device_ms"),
                 "graph_ms": f["graph_ms"],
-                "library_graph_ms": f["library_graph_ms"],
+                "library_graph_ms": f.get("library_graph_ms"),
                 "bound_ms": f["bound"][0],
                 "bound_by": bound_by(f["bound"]), "plain_ms": f["plain_ms"],
-                "library_ms": f["library_ms"],
-                "library": " / ".join(sorted(f["library"]))}
+                "library_ms": f.get("library_ms"),
+                "library": " / ".join(sorted(f.get("library", ())))}
 
     # ms, plain_ms, bound_ms and library_ms: summed over phase 2's timed
-    # cases (the yolov2 416 shapes of the kernel's kind at batch 2);
-    # per_forward: phase 4's sums over one forward's convs at batch 8 and 1
-    # (ms and library_ms from CUDA events around the calls, which hold the
-    # host's time per launch; device_ms the kernel's device time in the
+    # cases (the yolov2 416 shapes of the kernel's kind at batch 2; for
+    # nms_greedy its yolov2 416 table at batch 8, which has no library
+    # call); per_forward: phase 4's sums over one forward's convs at batch 8
+    # and 1 (ms and library_ms from CUDA events around the calls, which hold
+    # the host's time per launch; device_ms the kernel's device time in the
     # forward, from the profiler; graph_ms and library_graph_ms, for the 1x1
-    # kernels and the fused conv+pool,
-    # kernels, the kernel and the library calls alone in CUDA graph replays)
-    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[name], "max_abs_err": check.max_abs_err[name],
-                "ms": check.ms[name], "plain_ms": check.plain_ms[name],
-                "bound_ms": check.bound[name][0],
-                "bound_by": bound_by(check.bound[name]),
-                "library_ms": check.library_ms[name],
-                "library": " / ".join(sorted(check.library[name])),
-                "launches_per_forward": per_forward[name],
-                "per_forward": ({f"b{b}": at(f) for b, f in forward[name].items()}
-                                if name in forward else None)}
-               for name, (src, rep) in KERNEL_SOURCES.items()]
+    # kernels and the fused conv+pool, the kernel and the library calls
+    # alone in CUDA graph replays; for nms_greedy phase 2's tables at batch
+    # 8 and 1); launches: the main paths' launches, each path's forwards run
+    # once eagerly and once under capture (launches_per_forward), and
+    # replayed for every request
+    kernels = []
+    for name, (src, rep) in KERNEL_SOURCES.items():
+        nms_b8 = nms_times[BATCH_SLICE] if name == "nms_greedy" else None
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches[name], "max_abs_err": check.max_abs_err[name],
+            "ms": nms_b8["ms"] if nms_b8 else check.ms[name],
+            "plain_ms": nms_b8["plain_ms"] if nms_b8 else check.plain_ms[name],
+            "bound_ms": nms_b8["bound"][0] if nms_b8 else check.bound[name][0],
+            "bound_by": bound_by(nms_b8["bound"] if nms_b8
+                                 else check.bound[name]),
+            "library_ms": None if nms_b8 else check.library_ms[name],
+            "library": ("none: PyTorch has no NMS call, torchvision is not "
+                        "installed" if nms_b8
+                        else " / ".join(sorted(check.library[name]))),
+            "launches_per_forward": per_forward[name],
+            "per_forward": ({f"b{b}": at(f) for b, f in forward[name].items()}
+                            if name in forward else None)})
     say(f"[card] {smi}")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

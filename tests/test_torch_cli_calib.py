@@ -17,9 +17,9 @@ from yolotpu_torch.graph import ConvSpec, ReorgSpec, RouteSpec
 from yolotpu_torch.models import zoo
 from yolotpu_torch.models.yolov2 import Int16Plan
 
-# where the port's parser differs from the JAX CLI's, by design: the integer
-# tiers only with int16 as the default, and its own --device
-DIFFERENT = {"precision", "device"}
+# where the port's parser differs from the JAX CLI's, by design: its own
+# --device
+DIFFERENT = {"device"}
 
 ARGVS = [
     ["--names", "f.names", "--hier", "0.4", "-v", "2", "img.png"],
@@ -30,27 +30,27 @@ ARGVS = [
     ["--model", "yolov2-tiny", "--synthetic-weights", "--seed", "3",
      "--net-size", "96", "--precision", "w8a16", "--hier", "0.9", "c.png"],
     ["d.png"],
+    ["--topk", "64", "--precision", "fp32", "--thresh", "0.1", "e.png"],
 ]
 
 
 @pytest.mark.parametrize("argv", ARGVS, ids=[" ".join(a) for a in ARGVS])
 def test_detect_argv_parses_as_in_the_jax_cli(argv):
     """An argv the JAX CLI parses, the port's parses too, to the same values
-    at every destination the two share (all of the port's but --device;
-    --precision where it is given)."""
+    at every destination the two share (all of the port's but --device),
+    the defaults of --precision (fp32) and --topk (256) included."""
     want = vars(jdetect.build_argparser().parse_args(argv))
     got = vars(detect.build_argparser().parse_args(argv))
     assert set(got) - set(want) == {"device"}
     shared = set(got) & set(want) - DIFFERENT
     assert {"names", "hier", "verbose", "cfg", "model", "input", "output",
             "thresh", "nms", "weights_dir", "synthetic_weights", "seed",
-            "net_size", "positional"} == shared
+            "net_size", "positional", "precision", "topk"} == shared
     for dest in shared:
         assert got[dest] == want[dest], dest
-    if "--precision" in argv:
-        assert got["precision"] == want["precision"]
-    else:
-        assert (got["precision"], want["precision"]) == ("int16", "fp32")
+    if "--precision" not in argv:
+        assert got["precision"] == "fp32"
+    assert got["topk"] == (64 if "--topk" in argv else 256)
     assert got["device"] == "cuda"
 
 

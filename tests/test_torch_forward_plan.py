@@ -201,10 +201,10 @@ def test_engine_reads_the_plan_lever(monkeypatch):
     from yolotpu_torch.runtime.engine import Engine
     spec, store = _setup("yolov2", 64, port=True)
     frames = _frames(64)
-    default = Engine(spec, store, device="cpu")
+    default = Engine(spec, store, "int16", device="cpu")
     assert {k for k, _ in default.model.route.values()} == {"mm", "conv3"}
     monkeypatch.setenv("YOLO2_Q16_PLAN", P2)
-    eng = Engine(spec, store, device="cpu")
+    eng = Engine(spec, store, "int16", device="cpu")
     assert eng.model.route[0] == ("conv3_pool", "acc_h")
     assert eng.model.route[2] == ("conv3_pool", "out")
     np.testing.assert_array_equal(eng.predict_batch_rgb(frames),
@@ -214,4 +214,4 @@ def test_engine_reads_the_plan_lever(monkeypatch):
     assert {k for k, _ in w8.model.route.values()} == {"mm", "conv3"}
     monkeypatch.setenv("YOLO2_Q16_PLAN", "0:conv3")
     with pytest.raises(ValueError, match="is not applicable"):
-        Engine(spec, store, device="cpu")
+        Engine(spec, store, "int16", device="cpu")

@@ -5,7 +5,8 @@ kernel path never falls back.
   ``yolotpu``.
 - A fresh interpreter with JAX and ``yolotpu`` blocked imports every module
   of the port, builds its spec and store from the port alone, and runs the
-  slice (Engine, under the default plan and under YOLO2_Q16_PLAN, and the
+  slice (the int16 Engine, under the default plan and under
+  YOLO2_Q16_PLAN; the fp32 Engine with device NMS on raw frames; and the
   detect CLI) at 64x64 on the CPU.
 - With no card, Engine(device="cuda") raises, and a kernel launch raises
   without counting a launch.
@@ -44,15 +45,19 @@ from yolotpu_torch.runtime.engine import Engine, load_or_synthesize
 from yolotpu_torch.cli.detect import main
 spec = zoo.build("yolov2", width=64, height=64)
 store = load_or_synthesize(spec, None, "int16", synthetic=True, seed=0)
-eng = Engine(spec, store, device="cpu")
+eng = Engine(spec, store, "int16", device="cpu")
 frames = np.random.default_rng(0).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
 heads = eng.predict_batch_rgb(frames)
 assert heads.shape == (2, 425, 2, 2) and np.isfinite(heads).all(), heads.shape
 os.environ["YOLO2_Q16_PLAN"] = "0:entryf,2:conv3p2,4:conv3p2"
-planned = Engine(spec, store, device="cpu")
+planned = Engine(spec, store, "int16", device="cpu")
 del os.environ["YOLO2_Q16_PLAN"]
 assert planned.model.route[2] == ("conv3_pool", "out"), planned.model.route
 assert (planned.predict_batch_rgb(frames) == heads).all()
+fp32 = Engine(spec, load_or_synthesize(spec, None, "fp32", synthetic=True),
+              device="cpu", device_nms=True)
+tables = fp32.predict_batch_raw_frames(frames[:, :48])
+assert [t.shape for t in tables] == [(2, 20, 4), (2, 20), (2, 20), (2, 20)]
 rc = main(["--synthetic-weights", "--device", "cpu", "--net-size", "64",
            "--output", sys.argv[2], sys.argv[1]])
 assert rc == 0, rc
@@ -85,6 +90,7 @@ def test_port_sources_never_import_jax():
     names = {m.name for m in pkgutil.walk_packages(yolotpu_torch.__path__,
                                                    "yolotpu_torch.")}
     assert {"yolotpu_torch.ops.q16", "yolotpu_torch.ops.q8",
+            "yolotpu_torch.ops.nms", "yolotpu_torch.ops.letterbox",
             "yolotpu_torch.models.yolov2",
             "yolotpu_torch.runtime.engine", "yolotpu_torch.cli.detect"} <= names
 
@@ -96,10 +102,9 @@ def test_engine_on_cuda_raises_without_a_card():
         pytest.skip("a CUDA device is present; this checks the no-card path")
     spec = zoo.build("yolov2-tiny", width=32, height=32)
     store = load_or_synthesize(spec, None, "int16", synthetic=True, seed=0)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        Engine(spec, store, device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*M6"):
-        Engine(spec, store, precision="fp32", device="cpu")
+    for precision in ("int16", "fp32"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Engine(spec, store, precision, device="cuda")
 
 
 def test_kernel_launch_raises_without_nvcc(monkeypatch, tmp_path):
@@ -135,7 +140,7 @@ def test_nvcc_command_targets_sm90a_and_csrc_only():
     assert srcs == sorted((PKG / "csrc").glob("*.cu"))
     assert {p.name for p in srcs} == {
         "mm_q16.cu", "conv3x3_q16.cu", "conv3x3_pool_q16.cu", "mm_s8.cu",
-        "mm_w8a16.cu", "conv3x3_s8.cu", "conv3x3_w8a16.cu"}
+        "mm_w8a16.cu", "conv3x3_s8.cu", "conv3x3_w8a16.cu", "nms_greedy.cu"}
     objs = [cmd[cmd.index("-o") + 1] for cmd in compiles]
     assert "-shared" in link and link[link.index("-o") + 1] == "/tmp/b/lib.so"
     assert link[-len(objs):] == objs

@@ -124,7 +124,8 @@ def test_decode_region(model, softmax, background):
     oc = spec.num * (spec.coords + spec.classes + 1)
     rng = np.random.default_rng(7)
     head = (rng.standard_normal((2, spec.h, spec.w, oc)) * 4).astype(np.float32)
-    got = region.decode_region(torch.from_numpy(head), spec)
+    got = region.decode_region(torch.from_numpy(head), spec,
+                               region.anchors(spec))
     want = jregion.decode_region(jnp.asarray(head), jspec)
     for g, w in zip(got, want):
         assert tuple(g.shape) == np.asarray(w).shape

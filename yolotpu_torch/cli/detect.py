@@ -1,11 +1,12 @@
-"""``yolov2_detect``-compatible detection CLI on PyTorch (integer tiers).
+"""``yolov2_detect``-compatible detection CLI on PyTorch.
 
-The counterpart of ``yolotpu/cli/detect.py``, keeping its flag contract for
-the integer tiers (--model --cfg --names --input/positional --output
---thresh --nms --hier --weights-dir --synthetic-weights --seed --net-size
---precision -v/--verbose) and adding --device. --precision takes the integer
-tiers only and defaults to int16. --hier is accepted and unused, as in the
-JAX CLI; its --topk, --dump-layers, --backend and --compute are not taken.
+The counterpart of ``yolotpu/cli/detect.py``, keeping its flag contract
+(--model --cfg --names --input/positional --output --thresh --nms --hier
+--topk --weights-dir --synthetic-weights --seed --net-size --precision
+-v/--verbose) and adding --device. --precision takes fp32, int16, int8 and
+w8a16 and defaults to fp32, as the JAX CLI does. --hier is accepted and
+unused and --topk is passed to the engine, as in the JAX CLI; its
+--dump-layers, --backend and --compute are not taken.
 The default output prefix is ``results/<stem>_prediction``; region dumps
 follow YOLO2_DUMP_REGION[_RAW] / YOLO2_NO_DUMP as in the JAX CLI.
 
@@ -32,6 +33,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--thresh", type=float, default=0.25)
     ap.add_argument("--nms", type=float, default=0.45)
     ap.add_argument("--hier", type=float, default=0.5)
+    ap.add_argument("--topk", type=int, default=256,
+                    help="the device NMS's candidate cap, passed to the engine")
     ap.add_argument("--weights-dir", default="weights",
                     help="directory with the .bin artifact set")
     ap.add_argument("--synthetic-weights", action="store_true",
@@ -39,9 +42,9 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--net-size", type=int, default=None, metavar="N",
                     help="override the network input size (zoo models only)")
-    ap.add_argument("--precision", default="int16",
-                    choices=["int16", "int8", "w8a16"],
-                    help="int16 exact, int8 (w8a8, head16) or w8a16; "
+    ap.add_argument("--precision", default="fp32",
+                    choices=["fp32", "int16", "int8", "w8a16"],
+                    help="fp32, int16 exact, int8 (w8a8, head16) or w8a16; "
                          "synthetic weights are calibrated for the tier")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda runs the hand-written kernels; cpu their "
@@ -78,7 +81,8 @@ def main(argv: list[str] | None = None) -> int:
     store = load_or_synthesize(spec, args.weights_dir, args.precision,
                                synthetic=args.synthetic_weights, seed=args.seed)
     t0 = time.time()
-    eng = Engine(spec, store, precision=args.precision, device=args.device)
+    eng = Engine(spec, store, precision=args.precision, device=args.device,
+                 topk=args.topk)
     ylog.info(f"engine ready in {time.time() - t0:.1f}s "
               f"(torch/{args.device}/{args.precision})")
 

@@ -1,13 +1,17 @@
-"""YOLOv2-family integer forward in PyTorch: the int16-exact, int8 (w8a8,
-with the head16 epilogue) and w8a16 tiers.
+"""YOLOv2-family forward in PyTorch: the fp32 tier and the int16-exact, int8
+(w8a8, with the head16 epilogue) and w8a16 tiers.
 
-The counterpart of the integer tiers of ``yolotpu/models/yolov2.py``. The
+The counterpart of ``build_forward`` in ``yolotpu/models/yolov2.py``. The
 graph walk, the Q routing (``Int16Plan``) and the parameter trees are the
 JAX package's; what differs is how the convs run. Activations stay NHWC at
-their exact channel width throughout (int16, or int8 in the int8 tier), and
-every conv goes through one of the tier's kernels as ``engine_plan``
-assigns it. One walk serves the three tiers. On CPU tensors the kernels'
-plain versions run, so the same module is the CPU reference.
+their exact channel width throughout (fp32, int16, or int8 in the int8
+tier). In the integer tiers every conv goes through one of the tier's
+kernels as ``engine_plan`` assigns it; the fp32 tier's convs are
+``convops.conv_fp32`` (cuDNN on the card, TF32 off). One walk serves the
+four tiers. On CPU tensors the kernels' plain versions run, so the same
+module is the CPU reference. With the ``detections`` output the decode and
+the class-wise NMS run too (``ops.nms``), and only a top-K table need leave
+the device.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from torch import nn
 
 from ..graph import (ConvSpec, MaxPoolSpec, NetworkSpec, RegionSpec,
                      ReorgSpec, RouteSpec)
-from ..ops import convops, pool, q16, q8, region, reorg
+from ..ops import convops, nms, pool, q16, q8, region, reorg
 from ..weights import QTables, WeightStore
 from . import engine_plan
 
@@ -111,6 +115,19 @@ def _round_shift_np(v: np.ndarray, shift) -> np.ndarray:
                     v << np.maximum(-s, 0))
 
 
+def params_fp32(spec: NetworkSpec, store: WeightStore,
+                device: torch.device | str = "cpu") -> dict:
+    """The fp32 tier's parameters: {"conv{idx}": {"w": HWIO fp32 weights,
+    "b": fp32 bias}} as device tensors, from the store's darknet
+    (n, c, k, k) weights."""
+    p = {}
+    for l in spec.conv_layers():
+        w, b = store.fp32[l.idx]
+        p[f"conv{l.idx}"] = {"w": np.ascontiguousarray(w.transpose(2, 3, 1, 0)),
+                             "b": b}
+    return params_from_jax(p, device)
+
+
 def _params_quantized(spec: NetworkSpec, wdict: dict, qt: QTables,
                       device: torch.device | str) -> dict:
     """{"conv{idx}": {"w": HWIO weights, "b": int32 bias pre-shifted into the
@@ -155,13 +172,21 @@ def params_w8a16(spec: NetworkSpec, store: WeightStore,
     return _params_quantized(spec, store.w8a16, store.qtables_w8, device)
 
 
+def _bias(b) -> np.ndarray:
+    """A bias as the port keeps it: fp32 for the fp32 tier, int32 for the
+    integer tiers."""
+    b = np.array(b)
+    return b.astype(np.float32 if b.dtype.kind == "f" else np.int32)
+
+
 def params_from_jax(jax_params: dict, device: torch.device | str = "cpu") -> dict:
-    """Any of ``yolotpu``'s ``params_int16``, ``params_int8`` and
-    ``params_w8a16`` trees, as numpy arrays, -> the port's parameters: the
-    same {"w", "b"} tree of device tensors, each weight in its own dtype.
-    The TPU-only entries (``cw``, ``wp8``) are dropped."""
+    """Any of ``yolotpu``'s ``params_fp32``, ``params_int16``,
+    ``params_int8`` and ``params_w8a16`` trees, as numpy arrays, -> the
+    port's parameters: the same {"w", "b"} tree of device tensors, each
+    weight in its own dtype, each bias fp32 or int32. The TPU-only entries
+    (``cw``, ``wp8``) are dropped."""
     return {name: {"w": torch.from_numpy(np.array(pw["w"])).to(device),
-                   "b": torch.from_numpy(np.array(pw["b"], np.int32)).to(device)}
+                   "b": torch.from_numpy(_bias(pw["b"])).to(device)}
             for name, pw in jax_params.items()}
 
 
@@ -170,21 +195,28 @@ def params_from_jax(jax_params: dict, device: torch.device | str = "cpu") -> dic
 # ---------------------------------------------------------------------------
 
 class YoloV2Q(nn.Module):
-    """The integer network of one precision tier ("int16", "int8" or
+    """The network of one precision tier ("fp32", "int16", "int8" or
     "w8a16"). ``forward(x)`` takes (B, H, W, 3) uint8 frames (normalised by
-    /255 in fp32 on the device) or float NHWC already letterboxed to the
-    network size, and returns ``{"head", "boxes", "obj", "probs"}``: the
-    dequantized raw region input (B, h, w, oc) fp32 and the decoded region
-    tensors.
+    /255 in fp32 on the device, ``convops.normalize_u8``) or float NHWC
+    already letterboxed to the network size, and returns what ``outputs``
+    names, as ``build_forward`` does: ``"head"``, the raw region input
+    (B, h, w, oc) fp32 (dequantized in the integer tiers); ``"boxes"``, the
+    decoded ``boxes``, ``obj`` and ``probs``; ``"detections"``, the top-K
+    table of ``nms.topk_decode_nms`` at ``thresh``, ``nms_thresh`` and
+    ``topk`` (``det_boxes``, ``det_scores``, ``det_classes``,
+    ``det_valid``, ``det_saturated``).
 
     In the int8 tier the conv feeding the region runs the head16 epilogue:
     int16 output at an 8-bits-finer scale, dequantized at ``output_q + 8``.
     The int8 and w8a16 kernels take one shift per output channel; a
     per-layer shift is broadcast to that vector here, once.
 
-    On the card the weights of the convs, which all run on the tensor cores
-    (every tier's mm and conv3, and the int16 tier's conv fused with its
-    pool), are also packed here, once (buffers ``p{idx}``, by ``packers``).
+    On the card the weights of the integer tiers' convs, which all run on
+    the tensor cores (every tier's mm and conv3, and the int16 tier's conv
+    fused with its pool), are also packed here, once (buffers ``p{idx}``, by
+    ``packers``). The fp32 tier keeps each weight as a contiguous (Cout, k,
+    k, Cin) tensor and hands ``conv_fp32`` its HWIO view, which cuDNN reads
+    as a channels-last filter with no copy.
 
     ``overrides`` ({conv idx: TPU engine kind}, the ``YOLO2_Q16_PLAN``
     lever) is taken by the int16 tier only, as ``yolotpu`` plans only its
@@ -195,6 +227,7 @@ class YoloV2Q(nn.Module):
     kernels = {"int16": (q16.mm_q16, q16.conv3x3_q16),
                "int8": (q8.mm_s8, q8.conv3x3_s8),
                "w8a16": (q8.mm_w8a16, q8.conv3x3_w8a16)}
+    precisions = ("fp32", *kernels)
     # precision -> the conv fused with the 2x2/s2 pool after it
     pooled = {"int16": q16.conv3x3_pool_q16}
     # precision -> engine kind -> what packs that kind's weights for the
@@ -204,29 +237,47 @@ class YoloV2Q(nn.Module):
                "int8": {"mm": q8.pack_s8, "conv3": q8.pack_s8},
                "w8a16": {"mm": q8.pack_w8a16, "conv3": q8.pack_w8a16}}
 
-    def __init__(self, spec: NetworkSpec, qtables: QTables, params: dict,
-                 device: torch.device | str = "cuda", precision: str = "int16",
-                 overrides: dict[int, str] | None = None):
+    def __init__(self, spec: NetworkSpec, qtables: QTables | None,
+                 params: dict, device: torch.device | str = "cuda",
+                 precision: str = "int16",
+                 overrides: dict[int, str] | None = None,
+                 outputs: tuple[str, ...] = ("head", "boxes"),
+                 thresh: float = 0.25, nms_thresh: float = 0.45,
+                 topk: int = 256):
         super().__init__()
-        if precision not in self.kernels:
+        if precision not in self.precisions:
             raise ValueError(f"precision {precision!r} (one of "
-                             f"{', '.join(self.kernels)})")
+                             f"{', '.join(self.precisions)})")
         if overrides and precision != "int16":
             raise ValueError(f"engine plan overrides {overrides} apply to the "
                              f"int16 tier only, not {precision!r}")
+        if qtables is None and precision != "fp32":
+            raise ValueError(f"the {precision} forward requires Q tables")
         self.spec = spec
         self.precision = precision
-        self.plan = Int16Plan.build(spec, qtables)
-        self.kinds = engine_plan.plan(spec, overrides)
-        self.route = engine_plan.kernels(spec, self.kinds)
+        self.outputs = tuple(outputs)
+        self.thresh, self.nms_thresh, self.topk = thresh, nms_thresh, topk
+        fp32 = precision == "fp32"
+        self.plan = None if fp32 else Int16Plan.build(spec, qtables)
+        self.kinds = {} if fp32 else engine_plan.plan(spec, overrides)
+        self.route = {} if fp32 else engine_plan.kernels(spec, self.kinds)
         self.folded = {idx + 1 for idx, (k, _) in self.route.items()
-                        if k == "conv3_pool"}   # pools a conv computes
+                       if k == "conv3_pool"}   # pools a conv computes
         self._needed = {s for l in spec.layers if isinstance(l, RouteSpec)
                         for s in l.layers}
         region_idx = spec.region.idx if spec.region is not None else None
+        if region_idx is not None:
+            self.register_buffer("anchors", region.anchors(spec.region, device))
         self.head16 = None   # the conv with the head16 epilogue (int8 tier)
         for l in spec.conv_layers():
             pw = params[f"conv{l.idx}"]
+            if fp32:
+                self.register_buffer(f"w{l.idx}", pw["w"].to(
+                    device=device, dtype=torch.float32).permute(3, 0, 1, 2)
+                    .contiguous())
+                self.register_buffer(f"b{l.idx}", pw["b"].to(
+                    device=device, dtype=torch.float32))
+                continue
             b = pw["b"].to(device=device, dtype=torch.int32)
             if precision != "int16":
                 s = torch.from_numpy(np.broadcast_to(
@@ -247,10 +298,14 @@ class YoloV2Q(nn.Module):
             pack = self.packers[precision].get(self.route[l.idx][0])
             if torch.device(device).type != "cpu" and pack is not None:
                 self.register_buffer(f"p{l.idx}", pack(w))
-        self._head_q = self.plan.output_q + (8 if precision == "int8" else 0)
+        self._head_q = (None if fp32 else self.plan.output_q
+                        + (8 if precision == "int8" else 0))
 
     def _conv(self, l: ConvSpec, x: torch.Tensor) -> torch.Tensor:
         w, b = getattr(self, f"w{l.idx}"), getattr(self, f"b{l.idx}")
+        if self.plan is None:
+            return convops.conv_fp32(x, w.permute(1, 2, 3, 0), b, l.stride,
+                                     l.pad, l.activation)
         shift = (self.plan.conv_shift_out[l.idx] if self.precision == "int16"
                  else getattr(self, f"s{l.idx}"))
         leaky = l.activation == "leaky"
@@ -269,14 +324,20 @@ class YoloV2Q(nn.Module):
                                                **kw)
         return conv3(x, w, b, shift, leaky, **kw)
 
+    def _dequantize(self, x: torch.Tensor, q: int | None) -> torch.Tensor:
+        return x if self.plan is None else convops.dequantize_int16(x, q)
+
     @torch.no_grad()
     def forward(self, x: torch.Tensor) -> dict:
         plan = self.plan
         if x.dtype == torch.uint8:
-            x = x.to(torch.float32) / 255.0
-        quantize = (convops.quantize_input_int8 if self.precision == "int8"
-                    else convops.quantize_input_int16)
-        cur = quantize(x, plan.input_q)
+            x = convops.normalize_u8(x)
+        if plan is None:
+            cur = x.to(torch.float32)
+        elif self.precision == "int8":
+            cur = convops.quantize_input_int8(x, plan.input_q)
+        else:
+            cur = convops.quantize_input_int16(x, plan.input_q)
         acts: dict[int, torch.Tensor] = {}
         head = None
         for l in self.spec.layers:
@@ -287,21 +348,30 @@ class YoloV2Q(nn.Module):
                     cur = pool.maxpool(cur, l.size, l.stride, l.padding)
             elif isinstance(l, ReorgSpec):
                 cur = reorg.reorg(cur, l.stride)
-                sh = plan.reorg_realign.get(l.idx, 0)
+                sh = 0 if plan is None else plan.reorg_realign.get(l.idx, 0)
                 if sh:
                     cur = convops.realign_int16(cur, sh)
             elif isinstance(l, RouteSpec):
                 cur = (acts[l.layers[0]] if len(l.layers) == 1 else
                        torch.cat([acts[s] for s in l.layers], dim=-1))
             elif isinstance(l, RegionSpec):
-                head = convops.dequantize_int16(cur, self._head_q)
+                head = self._dequantize(cur, self._head_q)
                 cur = head
             if l.idx in self._needed:
                 acts[l.idx] = cur
         if head is None:   # headless graph
-            head = convops.dequantize_int16(cur, plan.output_q)
-        out = {"head": head}
-        if self.spec.region is not None:
-            out["boxes"], out["obj"], out["probs"] = region.decode_region(
-                head, self.spec.region)
+            head = self._dequantize(cur, plan and plan.output_q)
+        out = {}
+        if "head" in self.outputs:
+            out["head"] = head
+        if self.spec.region is not None and (
+                "boxes" in self.outputs or "detections" in self.outputs):
+            boxes, obj, probs = region.decode_region(head, self.spec.region,
+                                                     self.anchors)
+            if "boxes" in self.outputs:
+                out["boxes"], out["obj"], out["probs"] = boxes, obj, probs
+            if "detections" in self.outputs:
+                (out["det_boxes"], out["det_scores"], out["det_classes"],
+                 out["det_valid"], out["det_saturated"]) = nms.topk_decode_nms(
+                    boxes, obj, probs, self.thresh, self.nms_thresh, self.topk)
         return out

@@ -30,7 +30,7 @@ BUILD_ROOT = CSRC.parent.parent / "build" / "yolotpu_torch"
 GENCODE = "arch=compute_90a,code=sm_90a"
 LIB_NAME = "libyolotpu_q16.so"
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argtypes (pointers and the stream as c_void_p)
 SIGNATURES = {
     "yq16_mm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -43,6 +43,7 @@ SIGNATURES = {
     "yq8_conv3x3_s8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "yq8_conv3x3_w8a16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _P),
+    "yq_nms_greedy": (_P, _P, _P, _I, _I, _I, _F, _P),
 }
 
 

@@ -1,7 +1,12 @@
-"""Integer ops of the int16, int8 (w8a8) and w8a16 tiers, in PyTorch (NHWC).
+"""Conv ops of the four tiers, in PyTorch (NHWC, weights HWIO).
 
-The counterpart of the integer subset of ``yolotpu/ops/convops.py``. The
-contract is the JAX package's: integer arithmetic in int32 with wraparound,
+The counterpart of ``yolotpu/ops/convops.py``. The fp32 tier's conv is the
+JAX package's ``lax.conv_general_dilated`` at HIGHEST precision, which runs
+outside any Pallas kernel: here it is ``F.conv2d`` (cuDNN on the card) with
+TF32 off for the call, after darknet's explicit padding, then the bias and
+one of the 13 darknet activations.
+
+The integer ops' contract is the JAX package's: integer arithmetic in int32 with wraparound,
 round-half-up requant shifts with their magnitude capped at 30 (one per
 layer, or one per output channel), saturation to the output type, and the
 integer leaky ``v/10`` truncated toward zero. PyTorch
@@ -13,6 +18,81 @@ explicit and the same on the CPU and on the card.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+
+def normalize_u8(x: torch.Tensor) -> torch.Tensor:
+    """uint8 -> float32 / 255 as a true division, the host loader's and the
+    JAX package's. A Python divisor would not do on the card: PyTorch's CUDA
+    division by a CPU scalar multiplies by its reciprocal, which differs
+    from x / 255 in the last bit for 126 of the 256 values; a 0-dim tensor
+    on x's device is divided by, and is made there (no host copy, so this
+    runs under CUDA graph capture)."""
+    return x.to(torch.float32) / torch.full((), 255.0, device=x.device)
+
+
+def pad_same_darknet(x: torch.Tensor, pad: int, value: float) -> torch.Tensor:
+    """Darknet's conv padding: ``pad`` pixels of ``value`` on each side of H
+    and W of an NHWC tensor (``convops.pad_same_darknet``); the conv is then
+    VALID, output (in + 2*pad - size)//stride + 1."""
+    if pad == 0:
+        return x
+    return F.pad(x, (0, 0, pad, pad, pad, pad), value=value)
+
+
+def conv_fp32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int,
+              pad: int, activation: str) -> torch.Tensor:
+    """fp32 conv + bias + activation: x (B, H, W, Cin) f32, w (k, k, Cin,
+    Cout) HWIO, b (Cout,) -> (B, Ho, Wo, Cout) f32 (``convops.conv_fp32``
+    at HIGHEST precision). cuDNN runs it with TF32 off for this call only
+    (cuDNN's own default is TF32, about three decimal digits); the flags of
+    the caller are restored after it. A weight that is an HWIO view of a
+    contiguous (Cout, k, k, Cin) tensor reaches cuDNN as a channels-last
+    filter with no copy, as the NHWC input does."""
+    xp = pad_same_darknet(x, pad, 0.0)
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        out = F.conv2d(xp.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                       stride=stride)
+    return activate_fp32(out.permute(0, 2, 3, 1) + b, activation)
+
+
+def activate_fp32(x: torch.Tensor, activation: str) -> torch.Tensor:
+    """All 13 darknet activations (``convops.activate_fp32``,
+    yolo_math.cpp:111-129), elementwise in fp32."""
+    if activation == "linear":
+        return x
+    if activation == "leaky":
+        return torch.where(x > 0, x, 0.1 * x)
+    if activation == "relu":
+        return torch.clamp_min(x, 0)
+    if activation == "logistic":
+        return torch.sigmoid(x)
+    if activation == "tanh":
+        return torch.tanh(x)
+    if activation == "elu":
+        return torch.where(x >= 0, x, torch.expm1(x))
+    if activation == "ramp":
+        return x * (x > 0) + 0.1 * x
+    if activation == "relie":
+        return torch.where(x > 0, x, 0.01 * x)
+    if activation == "loggy":
+        return 2.0 * torch.sigmoid(x) - 1.0
+    if activation == "plse":
+        return torch.where(x < -4, 0.01 * (x + 4),
+                           torch.where(x > 4, 0.01 * (x - 4) + 1,
+                                       0.125 * x + 0.5))
+    if activation == "stair":
+        nf = torch.floor(x)
+        half = torch.floor(x / 2.0)
+        return torch.where(torch.fmod(nf, 2.0) == 0, half, (x - nf) + half)
+    if activation == "hardtan":
+        return torch.clamp(x, -1.0, 1.0)
+    if activation == "lhtan":
+        return torch.where(x < 0, 0.001 * x,
+                           torch.where(x > 1, 0.001 * (x - 1) + 1, x))
+    raise NotImplementedError(activation)
 
 
 def wrap32(v: torch.Tensor) -> torch.Tensor:

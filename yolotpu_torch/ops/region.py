@@ -33,8 +33,17 @@ def _activate_obj_cls(x: torch.Tensor, spec: RegionSpec):
     return obj, probs
 
 
-def decode_region(head: torch.Tensor, spec: RegionSpec):
-    """head (B, h, w, n*(coords+classes+1)) fp32 raw conv output."""
+def anchors(spec: RegionSpec, device: torch.device | str = "cpu") -> torch.Tensor:
+    """The region's anchor (w, h) pairs, (n, 2) fp32 on ``device``: made
+    once, at model build, since a copy from the host cannot run inside a
+    captured CUDA graph."""
+    return torch.tensor(spec.biases, dtype=torch.float32,
+                        device=device).reshape(spec.num, 2)
+
+
+def decode_region(head: torch.Tensor, spec: RegionSpec, biases: torch.Tensor):
+    """head (B, h, w, n*(coords+classes+1)) fp32 raw conv output; biases the
+    region's ``anchors`` on head's device."""
     bsz, lh, lw, _ = head.shape
     n, coords, classes = spec.num, spec.coords, spec.classes
     x = head.reshape(bsz, lh, lw, n, coords + classes + 1)
@@ -44,8 +53,6 @@ def decode_region(head: torch.Tensor, spec: RegionSpec):
                        device=head.device)[None, None, :, None]
     row = torch.arange(lh, dtype=torch.float32,
                        device=head.device)[None, :, None, None]
-    biases = torch.tensor(spec.biases, dtype=torch.float32,
-                          device=head.device).reshape(n, 2)
 
     bx = (col + torch.sigmoid(tx)) / lw
     by = (row + torch.sigmoid(ty)) / lh
