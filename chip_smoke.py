@@ -7,7 +7,7 @@ for ``sm_90a`` (one nvcc per source, all started together) and drives the
 port's main paths, YOLOv2 at 416x416 with synthetic weights from seed 0 in
 each tier (fp32; int16-exact; int8 w8a8 with the head16 epilogue; w8a16)
 and in two plan slices of the int16 tier, every forward a replay of a CUDA
-graph that the engine captured, in four phases:
+graph that the engine captured, in five phases:
 
 1. card: name and power limit, torch and CUDA versions, kernel build time,
    each kernel's registers and spills (none allowed), each kernel's
@@ -74,7 +74,32 @@ graph that the engine captured, in four phases:
    each alone on the device in CUDA graph replays, and the fused kernel's
    device time in P1's forward; then, for each tier's tensor-core convs
    and P1's fused convs at batch 1 and 8, the device time (CUDA graph
-   replays) of every split of K beside the one ``tc.split`` picks.
+   replays) of every split of K beside the one ``tc.split`` picks;
+5. runtime: ``cli.gpu_check`` (its five checks must pass); then the
+   streaming runtime through ``cli.main``'s own wiring (``load_model``,
+   ``build_engine``, ``labels_of``, ``stream_config`` from a parsed argv:
+   int16, synthetic weights, ``--batch-size 8 --device-nms --topk 845``)
+   over 240 seeded raw 480x640 frames from memory, letterboxed on the card
+   (the raw-frame graph captured by one request first, so the 30 timed
+   batches are steady), and again at ``--batch-size 1`` without device NMS
+   (the host path, with the native letterbox): both JSONL files hold the
+   same frames and per frame the same sorted (class, prob) list, each graph
+   is replayed once per request, each run's StepTimer summary is printed,
+   and the kernel launches of this streaming path, read just after it, are
+   the phase's count; ``predict_layers``/``dump_layers`` of one frame (a
+   path of its own, its launches checked apart), every one of the 32 layers
+   bit-equal to the plain versions' on the card, the region layer to a
+   replay's head, each file c*h*w*itemsize bytes; the watchdog at
+   YOLO2_LAYER_TIMEOUT_MS=200: a call whose first dispatch holds a side
+   stream about 1 s (``torch.cuda._sleep``, then its sync; the engine's
+   stream does not wait on it) recovers on its re-dispatch, one that holds
+   it every time raises TimeoutError, and one that holds the engine's own
+   stream once raises too, its re-dispatch queued behind the hold; once the
+   card drains a request's head is still the plain head; then b=1
+   ``predict`` with the watchdog at its default and off
+   (YOLO2_LAYER_TIMEOUT_MS=0), in turns, 25 runs each, a predict's parts
+   (host prep, handoff to the call, copy in, replay and head out, handoff
+   back) on and off call by call, and the handoff alone.
 
 Any failed check raises, so the exit code is not 0. The line before the
 last is a JSON record of the kernels; the last is
@@ -84,13 +109,16 @@ blocked from import for the whole run: the port must not need them.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import io
 import json
 import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.modules["jax"] = None       # any import of JAX now fails,
@@ -99,6 +127,8 @@ sys.modules["yolotpu"] = None   # and of the JAX package
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from yolotpu_torch.cli import gpu_check  # noqa: E402
+from yolotpu_torch.cli import main as cli_main  # noqa: E402
 from yolotpu_torch.graph import MaxPoolSpec  # noqa: E402
 from yolotpu_torch.image import letterbox_image  # noqa: E402
 from yolotpu_torch.models import engine_plan, zoo  # noqa: E402
@@ -110,6 +140,7 @@ from yolotpu_torch.quant import (calibrate_activations,  # noqa: E402
                                  calibrate_activations_int8, quantize_weights,
                                  quantize_weights_int8, quantize_weights_w8a16)
 from yolotpu_torch.runtime.engine import Engine  # noqa: E402
+from yolotpu_torch.runtime.stream import StreamRunner  # noqa: E402
 from yolotpu_torch.weights import WeightStore  # noqa: E402
 
 BATCH_SHAPES = 2
@@ -2016,6 +2047,355 @@ def phase_split(model: YoloV2Q, dev: torch.device,
         tc.split = choose
 
 
+# phase 5: the streaming runtime's frames (240 raw camera-sized frames, 30
+# batches of 8, enough for a steady p50), the JSONL threshold (the synthetic
+# weights' class scores reach 0.25 rarely; 0.05 keeps some boxes a frame),
+# and the watchdog's deadline and hold
+STREAM_FRAMES = 240
+STREAM_THRESH = 0.05
+WATCHDOG_MS = 200
+HOLD_S = 1.0
+
+
+class MemoryFrames:
+    """A frame source over HWC uint8 frames held in memory."""
+
+    def __init__(self, frames: np.ndarray):
+        self.frames = list(frames)
+
+    def read(self):
+        return self.frames.pop(0) if self.frames else None
+
+    def close(self) -> None:
+        pass
+
+
+def best_classes(path: str) -> tuple[list[int], list[list]]:
+    """The frame indexes of a JSONL file and, per frame, its sorted (class,
+    prob) list."""
+    with open(path) as f:
+        recs = [json.loads(line) for line in f]
+    return ([r["frame_index"] for r in recs],
+            [sorted((d["class_id"], d["prob"]) for d in r["detections"])
+             for r in recs])
+
+
+def same_records(got: list, want: list) -> bool:
+    """One frame's sorted (class, prob) lists: the same classes, and probs
+    within one unit of the JSONL's 6th decimal (the host path decodes in
+    numpy, the device path in PyTorch on the card: a float32 ulp apart, which
+    rounding to 6 decimals can turn into one unit)."""
+    return (len(got) == len(want)
+            and all(g[0] == w[0] and abs(g[1] - w[1]) <= 1.01e-6
+                    for g, w in zip(got, want)))
+
+
+def sleep_cycles(dev: torch.device, seconds: float) -> int:
+    """The torch.cuda._sleep cycles that hold the card about ``seconds``,
+    from one timed sleep."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(100_000_000)
+    end.record()
+    torch.cuda.synchronize(dev)
+    return int(100_000_000 * seconds * 1e3 / start.elapsed_time(end))
+
+
+def check_launches(tag: str, path: str, forwards: int, nms_forwards: int) -> dict:
+    """The launch counts since the last reset, held to an int16 path of
+    ``forwards`` forwards run eagerly or under capture, ``nms_forwards`` of
+    them with the device NMS."""
+    got = launch_counts()
+    want = dict.fromkeys(got, 0)
+    want.update({"mm_q16": 8 * forwards, "conv3x3_q16": 15 * forwards,
+                 "nms_greedy": nms_forwards})
+    if got != want:
+        raise AssertionError(f"{tag} {path} launched {got}; want {want}")
+    say(f"{tag} {path} launched "
+        + ", ".join(f"{k} {v}" for k, v in got.items() if v)
+        + f" ({forwards} forwards run eagerly or under capture)")
+    return got
+
+
+def phase_runtime(dev: torch.device) -> dict:
+    """Phase 5 (see the module's docstring): gpu_check, the streaming
+    runtime built from cli.main's argv both ways, per-layer dumps, the
+    watchdog. Returns the kernel launches of the streaming path."""
+    tag = "[runtime]"
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = gpu_check.main([])
+    for line in out.getvalue().splitlines():
+        say(f"{tag} gpu_check: {line}")
+    if rc != 0:
+        raise AssertionError(f"{tag} gpu_check exited {rc}")
+    frames = np.random.default_rng(7).integers(
+        0, 256, (STREAM_FRAMES, *RAW_SHAPES[0], 3), dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        base = ["--precision", "int16", "--synthetic-weights", "--topk",
+                "845", "--thresh", str(STREAM_THRESH)]
+        parse = cli_main.build_argparser().parse_args
+        args8 = parse(base + ["--batch-size", "8", "--device-nms",
+                              "--output-json", f"{tmp}/b8.jsonl"])
+        args1 = parse(base + ["--batch-size", "1", "--output-json",
+                              f"{tmp}/b1.jsonl"])
+        spec, store = cli_main.load_model(args8)    # one store serves both
+        labels = cli_main.labels_of(args8, spec)
+        say(f"{tag} model and synthetic int16 weights from the argv in "
+            f"{time.perf_counter() - t0:.1f} s")
+        # the streaming path, with the launch counts read around it; the b=8
+        # engine's raw-frame graph is captured by one request before its
+        # stream, so the StepTimer sees steady batches only
+        reset_launches()
+        runs = {}
+        for name, args in (("b8", args8), ("b1", args1)):
+            eng = cli_main.build_engine(args, spec, store)
+            if name == "b8":
+                eng.predict_batch_raw_frames(frames[:8])
+            cfg = cli_main.stream_config(args, labels)
+            cfg.mode, cfg.source = "video", "memory"
+            runner = StreamRunner(eng, cfg)
+            native_lb = runner._native
+            summary = runner.run(MemoryFrames(frames))
+            runs[name] = (eng, summary, best_classes(args.output_json),
+                          native_lb, runner.timer.samples_ms)
+        eng8, eng1 = runs["b8"][0], runs["b1"][0]
+        torch.cuda.synchronize(dev)
+        launches = check_launches(
+            tag, "the streaming path",
+            2 * (len(eng8.graphs) + len(eng1.graphs)), 2 * len(eng8.graphs))
+        (idx8, dets8), (idx1, dets1) = runs["b8"][2], runs["b1"][2]
+        bad = [i for i, (a, b) in enumerate(zip(dets8, dets1))
+               if not same_records(a, b)]
+        if idx8 != list(range(STREAM_FRAMES)) or idx1 != idx8 or bad:
+            raise AssertionError(f"{tag} b=8 device-NMS records != b=1 host "
+                                 f"records: frames {idx8} / {idx1}, differing "
+                                 f"at {bad[:5]}: {dets8[bad[0]] if bad else ''}"
+                                 f" / {dets1[bad[0]] if bad else ''}")
+        rounded = sum(a != b for a, b in zip(dets8, dets1))
+        n_dets = sum(map(len, dets8))
+        if n_dets == 0:
+            raise AssertionError(f"{tag} no detection over {STREAM_THRESH}")
+        net = (spec.net.height, spec.net.width, 3)
+        replays = {"b8 raw": graph_of(eng8, torch.uint8,
+                                      (8, *RAW_SHAPES[0], 3), True).replays,
+                   "b8 warm-up": graph_of(eng8, torch.float32,
+                                          (8, *net)).replays,
+                   "b1": graph_of(eng1, torch.float32, (1, *net)).replays}
+        if (replays != {"b8 raw": STREAM_FRAMES // 8 + 1, "b8 warm-up": 0,
+                        "b1": STREAM_FRAMES}
+                or len(eng8.graphs) != 2 or len(eng1.graphs) != 1):
+            raise AssertionError(f"{tag} replays {replays}, graphs "
+                                 f"{len(eng8.graphs)} / {len(eng1.graphs)}")
+        say(f"{tag} {STREAM_FRAMES} raw {RAW_SHAPES[0]} frames streamed "
+            f"through cli.main's wiring twice: b=8 device NMS (letterbox on "
+            f"the card, K=N=845) and b=1 host path (native letterbox "
+            f"{runs['b1'][3]}): {STREAM_FRAMES} records each, the same "
+            f"frames and per frame the same sorted (class, prob) list "
+            f"({rounded} frames with a prob one unit apart in the 6th "
+            f"decimal), {n_dets} detections over {STREAM_THRESH}; replays "
+            f"{replays} (one per request, b8 raw's first the capture's)")
+        for name, bsz in (("b8", 8), ("b1", 1)):
+            s, steps = runs[name][1], runs[name][4]
+            say(f"{tag} stream {name} StepTimer: {s['count']} steps, p50 "
+                f"{s['median_ms']:.3f} ms per batch of {bsz}, p90 "
+                f"{s['p90_ms']:.3f}, mean {s['mean_ms']:.3f}, {s['fps']:.1f} "
+                f"fps; steps min {min(steps):.2f}, max {max(steps):.2f}, "
+                f"first {' '.join(f'{v:.2f}' for v in steps[:3])} ms")
+
+        # per-layer dumps of one frame against the plain versions: a path of
+        # its own, two eager forwards
+        boxed = letterbox_image((frames[0].astype(np.float32) / np.float32(255))
+                                .transpose(2, 0, 1), spec.net.width,
+                                spec.net.height)
+        reset_launches()
+        layers = eng1.predict_layers(boxed)
+        eng1.dump_layers(boxed, f"{tmp}/dump")
+        torch.cuda.synchronize(dev)
+        check_launches(tag, "predict_layers and dump_layers", 2, 0)
+        plain = PlainYoloV2Q(spec, eng1.qtables, eng1.params, dev, "int16",
+                             None, ("acts",))
+        x = torch.from_numpy(np.ascontiguousarray(
+            boxed.transpose(1, 2, 0)[None])).to(dev)
+        want = {i: a[0].permute(2, 0, 1).cpu().numpy()
+                for i, a in plain(x)["acts"].items()}
+        head = eng1.predict(boxed).head_chw
+        bad = [i for i in want if i not in layers
+               or layers[i].dtype != want[i].dtype
+               or not np.array_equal(layers[i], want[i])]
+        sizes = {l.idx: os.path.getsize(f"{tmp}/dump/layer{l.idx:02d}.bin")
+                 for l in spec.layers}
+        short = [l.idx for l in spec.layers if sizes[l.idx] != l.out_c
+                 * l.out_h * l.out_w * layers[l.idx].itemsize]
+        if (len(layers) != 32 or bad or short
+                or not np.array_equal(layers[spec.n - 1], head)):
+            raise AssertionError(f"{tag} per-layer dumps: {len(layers)} "
+                                 f"layers, differing from the plain versions "
+                                 f"at {bad}, files of the wrong size {short}, "
+                                 "region == replayed head "
+                                 f"{np.array_equal(layers[spec.n - 1], head)}")
+        say(f"{tag} predict_layers: {len(layers)} layers "
+            f"({', '.join(sorted({str(a.dtype) for a in layers.values()}))}) "
+            "bit-equal to the plain versions on the card, the region layer to "
+            f"a replay's head; dump_layers wrote {len(sizes)} files of "
+            f"c*h*w*itemsize bytes ({sum(sizes.values())} in all)")
+
+    # the watchdog, on the b=1 engine's graph
+    x = torch.from_numpy(np.ascontiguousarray(
+        boxed.transpose(1, 2, 0)[None], np.float32))
+    key = (False, x.dtype, tuple(x.shape))
+
+    def drain() -> int:
+        """The parked workers, once the card drained and they ended."""
+        parked = len(eng1._abandoned_threads)
+        torch.cuda.synchronize(dev)
+        for t in list(eng1._abandoned_threads):
+            t.join(timeout=30)
+            if t.is_alive():
+                raise AssertionError(f"{tag} watchdog: a worker outlived "
+                                     "the drained card")
+        return parked
+
+    def guarded(name: str, fn) -> tuple:
+        """fn under the watchdog, as a seen key: its outcome and seconds."""
+        eng1._seen_shapes.add((name, *key))
+        t1 = time.perf_counter()
+        try:
+            got = ("ok", eng1._guarded(fn, x, tag=name, key=key))
+        except TimeoutError as e:
+            got = ("TimeoutError", str(e))
+        return got, time.perf_counter() - t1
+
+    os.environ["YOLO2_LAYER_TIMEOUT_MS"] = str(WATCHDOG_MS)
+    try:
+        cycles = sleep_cycles(dev, HOLD_S)
+        side = torch.cuda.Stream(dev)
+        calls = []
+
+        def fetch(v):
+            return eng1._run(v)["head"][0].permute(2, 0, 1).cpu().numpy()
+
+        def hold_side(v):
+            """Holds a side stream the engine's stream does not wait on,
+            then waits for it: a stall outside the engine's stream."""
+            calls.append(1)
+            if len(calls) == 1 or len(calls) > 2:
+                with torch.cuda.stream(side):
+                    torch.cuda._sleep(cycles)
+                side.synchronize()
+                return None
+            return fetch(v)
+
+        def hold_engine(v):
+            """Holds the engine's own stream once: the replay queues behind
+            the hold, and so does the re-dispatch's."""
+            calls.append(1)
+            if len(calls) == 1:
+                torch.cuda._sleep(cycles)
+            return fetch(v)
+
+        (ok, got), recovered = guarded("hold_side", hold_side)
+        if (ok != "ok" or len(calls) != 2 or not np.array_equal(got, head)
+                or not 2 * WATCHDOG_MS / 1e3 > recovered > WATCHDOG_MS / 1e3):
+            raise AssertionError(f"{tag} watchdog: {ok}, {len(calls)} "
+                                 f"dispatches, head equal "
+                                 f"{ok == 'ok' and np.array_equal(got, head)}, "
+                                 f"{recovered:.3f} s")
+        (raised, msg), raised_s = guarded("hold_side_always", hold_side)
+        parked_side = drain()
+        calls.clear()
+        (raised_eng, msg_eng), raised_eng_s = guarded("hold_engine", hold_engine)
+        parked_eng = drain()
+        for what, m in ((raised, msg), (raised_eng, msg_eng)):
+            if what != "TimeoutError" or "twice" not in m:
+                raise AssertionError(f"{tag} watchdog: {what} {m!r}")
+        if len(calls) != 2:
+            raise AssertionError(f"{tag} watchdog: the engine-stream hold "
+                                 f"ran {len(calls)} dispatches")
+        after = eng1.predict(boxed).head_chw
+        if not np.array_equal(after, want[spec.n - 1]):
+            raise AssertionError(f"{tag} head after the watchdog != plain")
+        say(f"{tag} watchdog at {WATCHDOG_MS} ms, the card held {HOLD_S:.1f} "
+            f"s a dispatch ({cycles} sleep cycles): held on a side stream "
+            f"once, recovered on its re-dispatch in {recovered:.3f} s (head "
+            f"bit-equal); held there every time, raised TimeoutError after "
+            f"{raised_s:.3f} s ({msg.split(' (')[0]}); held once on the "
+            f"engine's own stream, the re-dispatch queued behind the hold "
+            f"and raised TimeoutError after {raised_eng_s:.3f} s; "
+            f"{parked_side} and {parked_eng} workers parked, all ended once "
+            "the card drained; the next request's head is the plain head")
+    finally:
+        del os.environ["YOLO2_LAYER_TIMEOUT_MS"]
+
+    # what the watchdog costs a b=1 request: predict with it at its default
+    # and off, in turns; a predict's parts, on and off call by call; and the
+    # handoff alone (a call that does nothing)
+    def timeout_ms(ms: str, fn):
+        os.environ["YOLO2_LAYER_TIMEOUT_MS"] = ms
+        try:
+            return fn()
+        finally:
+            del os.environ["YOLO2_LAYER_TIMEOUT_MS"]
+
+    def p50(fn, runs: int = 25) -> float:
+        ts = []
+        for _ in range(runs + 5):
+            t1 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t1) * 1e3)
+        return float(np.median(ts[5:]))
+
+    lat = {"60000": [], "0": []}
+    for ms in ("60000", "0", "0", "60000"):
+        lat[ms].append(timeout_ms(ms, lambda: p50(lambda: eng1.predict(boxed))))
+
+    def stamped(v, st):
+        st.append(time.perf_counter())          # the call starts
+        out = eng1._run(v)                      # frame copied in, replay queued
+        st.append(time.perf_counter())
+        head = out["head"].permute(0, 3, 1, 2).cpu().numpy()
+        st.append(time.perf_counter())          # the head on the host
+        return head
+
+    def parts() -> list:
+        """One predict's stamps: start, frame to NHWC float32 (predict's
+        own host work), the call starts, copied in, head on the host,
+        back on the caller."""
+        st = [time.perf_counter()]
+        v = torch.from_numpy(np.ascontiguousarray(
+            boxed.transpose(1, 2, 0)[None].astype(np.float32)))
+        st.append(time.perf_counter())
+        eng1._guarded(stamped, v, st, key=key)
+        st.append(time.perf_counter())
+        return st
+
+    split = {"60000": [], "0": []}
+    for i in range(220):
+        ms = ("60000", "0")[i % 2]
+        st = timeout_ms(ms, parts)
+        if i >= 20:
+            split[ms].append(np.diff(st) * 1e3)
+    names = ("prep", "to the call", "copy in", "replay and head out",
+             "back", "all")
+    med = {ms: [float(v) for v in np.median(np.asarray(d), axis=0)]
+           + [float(np.median(np.asarray(d).sum(axis=1)))]
+           for ms, d in split.items()}
+    noop = {ms: timeout_ms(ms, lambda: p50(lambda: eng1._guarded(
+        lambda v: None, x, tag="noop", key=key), runs=200))
+        for ms in ("60000", "0")}
+    say(f"{tag} b=1 predict p50 (25 runs, in turns): watchdog on (60000 ms) "
+        f"{' / '.join(f'{v:.3f}' for v in lat['60000'])} ms, off (0) "
+        f"{' / '.join(f'{v:.3f}' for v in lat['0'])} ms; its parts, p50 of "
+        "100 calls each, on and off call by call: "
+        + ", ".join(f"{n} {med['60000'][i]:.3f} / {med['0'][i]:.3f}"
+                    for i, n in enumerate(names))
+        + f" ms; the handoff alone (a call doing nothing, p50 of 200) "
+        f"{noop['60000']:.4f} ms on, {noop['0']:.4f} off; phase 5 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs "
@@ -2026,7 +2406,7 @@ def main() -> int:
 
 
 def run(dev: torch.device) -> int:
-    """Phases 1-4 on ``dev``, then the JSON record of the kernels and the
+    """Phases 1-5 on ``dev``, then the JSON record of the kernels and the
     last line."""
     t0 = time.perf_counter()
     smi = phase_card()
@@ -2076,6 +2456,10 @@ def run(dev: torch.device) -> int:
         phase_split(runs[tier]["eng"].model, dev)
     phase_split(runs["P1"]["eng"].model, dev, fused_only=True)
     say(f"[card] phases 1-4 took {time.perf_counter() - t0:.1f} s")
+    runtime = phase_runtime(dev)
+    for k in launches:
+        launches[k] += runtime.get(k, 0)
+    say(f"[card] phases 1-5 took {time.perf_counter() - t0:.1f} s")
 
     def at(f: dict) -> dict:
         return {"ms": f["ms"], "device_ms": f.get("device_ms"),
@@ -2095,9 +2479,10 @@ def run(dev: torch.device) -> int:
     # forward, from the profiler; graph_ms and library_graph_ms, for the 1x1
     # kernels and the fused conv+pool, the kernel and the library calls
     # alone in CUDA graph replays; for nms_greedy phase 2's tables at batch
-    # 8 and 1); launches: the main paths' launches, each path's forwards run
-    # once eagerly and once under capture (launches_per_forward), and
-    # replayed for every request
+    # 8 and 1); launches: the main paths' launches (phases 3 and 5), each
+    # path's forwards run once eagerly and once under capture
+    # (launches_per_forward; phase 5's streaming path: its three graphs),
+    # and replayed for every request
     kernels = []
     for name, (src, rep) in KERNEL_SOURCES.items():
         nms_b8 = nms_times[BATCH_SLICE] if name == "nms_greedy" else None

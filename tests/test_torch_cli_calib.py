@@ -31,6 +31,9 @@ ARGVS = [
      "--net-size", "96", "--precision", "w8a16", "--hier", "0.9", "c.png"],
     ["d.png"],
     ["--topk", "64", "--precision", "fp32", "--thresh", "0.1", "e.png"],
+    ["--dump-layers", "dumps", "--precision", "int16", "f.png"],
+    ["--backend", "cpu", "--precision", "int8", "g.png"],
+    ["--compute", "exact", "--backend", "hls", "--precision", "int16", "h.png"],
 ]
 
 
@@ -45,7 +48,8 @@ def test_detect_argv_parses_as_in_the_jax_cli(argv):
     shared = set(got) & set(want) - DIFFERENT
     assert {"names", "hier", "verbose", "cfg", "model", "input", "output",
             "thresh", "nms", "weights_dir", "synthetic_weights", "seed",
-            "net_size", "positional", "precision", "topk"} == shared
+            "net_size", "positional", "precision", "topk", "dump_layers",
+            "backend", "compute"} == shared
     for dest in shared:
         assert got[dest] == want[dest], dest
     if "--precision" not in argv:

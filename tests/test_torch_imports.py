@@ -6,8 +6,9 @@ kernel path never falls back.
 - A fresh interpreter with JAX and ``yolotpu`` blocked imports every module
   of the port, builds its spec and store from the port alone, and runs the
   slice (the int16 Engine, under the default plan and under
-  YOLO2_Q16_PLAN; the fp32 Engine with device NMS on raw frames; and the
-  detect CLI) at 64x64 on the CPU.
+  YOLO2_Q16_PLAN; the fp32 Engine with device NMS on raw frames; the
+  detect CLI; the golden backend, per-layer dumps, the stream runner with
+  the native library, and the runtime CLIs) at 64x64 on the CPU.
 - With no card, Engine(device="cuda") raises, and a kernel launch raises
   without counting a launch.
 - The nvcc command targets sm_90a and compiles only the port's csrc/*.cu
@@ -61,6 +62,23 @@ assert [t.shape for t in tables] == [(2, 20, 4), (2, 20), (2, 20), (2, 20)]
 rc = main(["--synthetic-weights", "--device", "cpu", "--net-size", "64",
            "--output", sys.argv[2], sys.argv[1]])
 assert rc == 0, rc
+# the runtime: the golden backend, per-layer dumps, the stream runner (its
+# native letterbox included) and the runtime CLIs
+from yolotpu_torch import native
+from yolotpu_torch.cli import gpu_check, main as runtime_main
+from yolotpu_torch.runtime.stream import StreamConfig, StreamRunner
+gold = Engine(spec, store, "int16", backend="golden")
+boxed = frames[0].transpose(2, 0, 1) / np.float32(255)
+assert (gold.predict(boxed).head_chw == eng.predict(boxed).head_chw).all()
+assert len(eng.predict_layers(boxed)) == 32
+class Src:
+    def __init__(self): self.f = list(frames)
+    def read(self): return self.f.pop() if self.f else None
+summary = StreamRunner(eng, StreamConfig(mode="video")).run(Src())
+assert summary["count"] == 2 and native.available()
+assert runtime_main.main(["--profile"]) == 2
+import torch
+assert gpu_check.main(["enumerate"]) == (0 if torch.cuda.is_available() else 1)
 loaded = sorted(n for n, m in sys.modules.items() if m is not None
                 and n.split(".")[0] in ("jax", "jaxlib", "flax", "yolotpu"))
 assert not loaded, loaded
@@ -91,8 +109,13 @@ def test_port_sources_never_import_jax():
                                                    "yolotpu_torch.")}
     assert {"yolotpu_torch.ops.q16", "yolotpu_torch.ops.q8",
             "yolotpu_torch.ops.nms", "yolotpu_torch.ops.letterbox",
-            "yolotpu_torch.models.yolov2",
-            "yolotpu_torch.runtime.engine", "yolotpu_torch.cli.detect"} <= names
+            "yolotpu_torch.models.yolov2", "yolotpu_torch.golden",
+            "yolotpu_torch.native", "yolotpu_torch.runtime.engine",
+            "yolotpu_torch.runtime.stream", "yolotpu_torch.runtime.profiler",
+            "yolotpu_torch.runtime.jsonl", "yolotpu_torch.runtime.camera",
+            "yolotpu_torch.runtime.v4l2", "yolotpu_torch.runtime.video",
+            "yolotpu_torch.runtime.mjpeg", "yolotpu_torch.cli.detect",
+            "yolotpu_torch.cli.main", "yolotpu_torch.cli.gpu_check"} <= names
 
 
 def test_engine_on_cuda_raises_without_a_card():

@@ -2,11 +2,15 @@
 
 The counterpart of ``yolotpu/cli/detect.py``, keeping its flag contract
 (--model --cfg --names --input/positional --output --thresh --nms --hier
---topk --weights-dir --synthetic-weights --seed --net-size --precision
--v/--verbose) and adding --device. --precision takes fp32, int16, int8 and
-w8a16 and defaults to fp32, as the JAX CLI does. --hier is accepted and
-unused and --topk is passed to the engine, as in the JAX CLI; its
---dump-layers, --backend and --compute are not taken.
+--topk --dump-layers --backend --precision --compute --weights-dir
+--synthetic-weights --seed --net-size -v/--verbose) and adding --device.
+--precision takes fp32, int16, int8 and w8a16 and defaults to fp32, as the
+JAX CLI does. --hier is accepted and unused and --topk is passed to the
+engine, as in the JAX CLI. --backend xla (the default) and its alias hls
+run the engine's device backend on --device; cpu and golden the numpy
+oracle on the host. --compute exact implies the golden backend; f32 and
+f32_highest, the TPU's approximate modes, are refused. --dump-layers DIR
+(or env YOLO2_DUMP_LAYERS) writes every layer's output as DIR/layerNN.bin.
 The default output prefix is ``results/<stem>_prediction``; region dumps
 follow YOLO2_DUMP_REGION[_RAW] / YOLO2_NO_DUMP as in the JAX CLI.
 
@@ -35,6 +39,19 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--hier", type=float, default=0.5)
     ap.add_argument("--topk", type=int, default=256,
                     help="the device NMS's candidate cap, passed to the engine")
+    ap.add_argument("--dump-layers", default=None, metavar="DIR",
+                    help="write every layer's output as DIR/layerNN.bin "
+                         "(raw CHW; env YOLO2_DUMP_LAYERS also works)")
+    ap.add_argument("--backend", default="xla",
+                    choices=["xla", "hls", "cpu", "golden"],
+                    help="xla and hls: the engine's device backend on "
+                         "--device; cpu and golden: the numpy oracle")
+    ap.add_argument("--compute", default="int32",
+                    choices=["int32", "pallas", "f32", "f32_highest",
+                             "exact"],
+                    help="int32 and pallas: the exact int32 contract; exact: "
+                         "the golden backend's HLS-core accumulation; f32 "
+                         "and f32_highest (TPU modes) are refused")
     ap.add_argument("--weights-dir", default="weights",
                     help="directory with the .bin artifact set")
     ap.add_argument("--synthetic-weights", action="store_true",
@@ -55,9 +72,21 @@ def build_argparser() -> argparse.ArgumentParser:
     return ap
 
 
+def engine_backend(backend: str, compute: str) -> str:
+    """The engine backend of a CLI --backend (xla/hls -> device, cpu ->
+    golden); --compute exact implies golden, with a note, as in the JAX
+    CLI."""
+    backend = {"xla": "device", "hls": "device", "cpu": "golden"}.get(
+        backend, backend)
+    if compute == "exact" and backend != "golden":
+        print("note: compute=exact implies the golden backend", file=sys.stderr)
+        backend = "golden"
+    return backend
+
+
 def main(argv: list[str] | None = None) -> int:
     from ..graph import NetworkSpec
-    from ..image import load_image, save_image
+    from ..image import letterbox_image, load_image, save_image
     from ..models import zoo
     from ..names import load_names, names_for
     from ..runtime import logging as ylog
@@ -77,17 +106,23 @@ def main(argv: list[str] | None = None) -> int:
                            height=args.net_size))
     spec.describe()
 
+    backend = engine_backend(args.backend, args.compute)
     im = load_image(input_path)
     store = load_or_synthesize(spec, args.weights_dir, args.precision,
                                synthetic=args.synthetic_weights, seed=args.seed)
     t0 = time.time()
     eng = Engine(spec, store, precision=args.precision, device=args.device,
-                 topk=args.topk)
+                 backend=backend, compute=args.compute, topk=args.topk)
     ylog.info(f"engine ready in {time.time() - t0:.1f}s "
-              f"(torch/{args.device}/{args.precision})")
+              f"(torch/{backend}/{args.device}/{args.precision})")
 
     dets, res = eng.detect(im, thresh=args.thresh, nms=args.nms)
     print(f"{os.path.basename(input_path)}: predicted in {res.seconds:.6f} seconds.")
+
+    dump_dir = args.dump_layers or os.environ.get("YOLO2_DUMP_LAYERS")
+    if dump_dir:
+        eng.dump_layers(letterbox_image(im, spec.net.width, spec.net.height),
+                        dump_dir)
 
     names = (load_names(args.names) if args.names
              else names_for(spec.region.classes)

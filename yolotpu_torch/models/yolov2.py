@@ -204,7 +204,14 @@ class YoloV2Q(nn.Module):
     decoded ``boxes``, ``obj`` and ``probs``; ``"detections"``, the top-K
     table of ``nms.topk_decode_nms`` at ``thresh``, ``nms_thresh`` and
     ``topk`` (``det_boxes``, ``det_scores``, ``det_classes``,
-    ``det_valid``, ``det_saturated``).
+    ``det_valid``, ``det_saturated``); ``"acts"``, every layer's output,
+    {layer idx: (B, h, w, c)}, in the tier's own dtype (int16; int8, with
+    int16 for the head16 conv; fp32 in the fp32 tier and at the region
+    layer, which holds the dequantized head). Under ``"acts"`` no conv
+    computes its pool: a conv a plan fuses with its pool runs as
+    conv3x3_q16 (the same planes) and the pool as its own op, so the conv's
+    own output is recorded, as ``yolotpu``'s debug build does (it falls
+    back to the unfused conv for dumps).
 
     In the int8 tier the conv feeding the region runs the head16 epilogue:
     int16 output at an 8-bits-finer scale, dequantized at ``output_q + 8``.
@@ -261,6 +268,9 @@ class YoloV2Q(nn.Module):
         self.plan = None if fp32 else Int16Plan.build(spec, qtables)
         self.kinds = {} if fp32 else engine_plan.plan(spec, overrides)
         self.route = {} if fp32 else engine_plan.kernels(spec, self.kinds)
+        if "acts" in self.outputs:
+            self.route = {i: ("conv3", None) if k == "conv3_pool" else (k, o)
+                          for i, (k, o) in self.route.items()}
         self.folded = {idx + 1 for idx, (k, _) in self.route.items()
                        if k == "conv3_pool"}   # pools a conv computes
         self._needed = {s for l in spec.layers if isinstance(l, RouteSpec)
@@ -339,6 +349,7 @@ class YoloV2Q(nn.Module):
         else:
             cur = convops.quantize_input_int16(x, plan.input_q)
         acts: dict[int, torch.Tensor] = {}
+        every = {} if "acts" in self.outputs else None
         head = None
         for l in self.spec.layers:
             if isinstance(l, ConvSpec):
@@ -359,9 +370,11 @@ class YoloV2Q(nn.Module):
                 cur = head
             if l.idx in self._needed:
                 acts[l.idx] = cur
+            if every is not None:
+                every[l.idx] = cur
         if head is None:   # headless graph
             head = self._dequantize(cur, plan and plan.output_q)
-        out = {}
+        out = {} if every is None else {"acts": every}
         if "head" in self.outputs:
             out["head"] = head
         if self.spec.region is not None and (

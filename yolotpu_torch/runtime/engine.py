@@ -1,21 +1,31 @@
-"""Inference engine on PyTorch: weights + graph + device -> detections.
+"""Inference engine on PyTorch: weights + graph + backend -> detections.
 
-The counterpart of ``yolotpu/runtime/engine.py``'s ``xla`` backend, in the
-four tiers (fp32, int16-exact, int8 w8a8 with the head16 epilogue, w8a16).
-The network runs as ``models.yolov2.YoloV2Q`` on ``device``. On a card each
-forward is one captured CUDA graph, the counterpart of the JAX engine's one
-jitted program: one graph per (entry, batch, input dtype, frame shape),
-captured at first use (at construction for ``warmup_batch`` float frames,
-as the JAX engine compiles then) and replayed for every request, which
-copies its frames into the graph's input. A capture that fails raises. On
-the CPU the forward runs eagerly. With ``device_nms`` the graph also
-decodes and runs the class-wise NMS (``ops.nms``), so only a top-K table
-leaves the card; ``predict_batch_raw_frames`` letterboxes raw uint8 frames
-on the device (``ops.letterbox``) inside the graph. The host steps around
-the network (letterbox, region activation, box decode, NMS, region dumps)
-are the port's copies of the JAX package's numpy code. ``PredictResult``,
-``maybe_dump_region``, ``load_or_synthesize`` and ``_first_existing``
-mirror ``yolotpu/runtime/engine.py``. In the int16 tier
+The counterpart of ``yolotpu/runtime/engine.py``, in the four tiers (fp32,
+int16-exact, int8 w8a8 with the head16 epilogue, w8a16), with its two
+backends:
+
+  "device" — the counterpart of its ``xla`` backend: the network runs as
+             ``models.yolov2.YoloV2Q`` on ``device`` (the card by default)
+  "golden" — the numpy oracle (``golden.GoldenNet``) on the host, with the
+             bit-exact reference-semantics mode ``compute="exact"``
+
+On a card each forward of the device backend is one captured CUDA graph,
+the counterpart of the JAX engine's one jitted program: one graph per
+(entry, batch, input dtype, frame shape), captured at first use (at
+construction for ``warmup_batch`` float frames, as the JAX engine compiles
+then) and replayed for every request, which copies its frames into the
+graph's input. A capture that fails raises. On the CPU the forward runs
+eagerly. With ``device_nms`` the graph also decodes and runs the class-wise
+NMS (``ops.nms``), so only a top-K table leaves the card;
+``predict_batch_raw_frames`` letterboxes raw uint8 frames on the device
+(``ops.letterbox``) inside the graph. Every device call, its copy to the
+host included, runs under the watchdog ``Engine._guarded``
+(``YOLO2_LAYER_TIMEOUT_MS``) on the engine's worker thread.
+``predict_layers``/``dump_layers`` give every layer's output. The host
+steps around the network (letterbox, region activation, box decode, NMS,
+region dumps) are the port's copies of the JAX package's numpy code.
+``PredictResult``, ``maybe_dump_region``, ``load_or_synthesize`` and
+``_first_existing`` mirror ``yolotpu/runtime/engine.py``. In the int16 tier
 ``YOLO2_Q16_PLAN`` ("idx:kind,...") overrides the engine kind of conv
 layers, as it does in ``yolotpu`` (``models.engine_plan``).
 """
@@ -24,12 +34,16 @@ from __future__ import annotations
 
 import functools
 import os
+import queue
+import threading
 import time
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..golden import GoldenNet
 from ..graph import NetworkSpec
 from ..image import letterbox_image
 from ..models import engine_plan
@@ -90,47 +104,238 @@ def capture(fn, inp: torch.Tensor) -> CapturedForward:
         fn(inp)
     here.wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # thread_local: the capture may run on the engine's watchdog worker,
+    # and another thread's CUDA call must not invalidate it
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
         out = fn(inp)
     return CapturedForward(graph, inp, out)
 
 
+class _Worker:
+    """A daemon thread that runs an engine's guarded device calls one at a
+    time, in order, on the engine's card: a graph's static input and outputs
+    serve one call at a time. A call that outlives its deadline abandons the
+    worker: the next call gets a fresh one, calls queued behind the late one
+    are skipped once their callers have given up, and the abandoned thread
+    ends once its call returns (a hung call never does; as a daemon it
+    cannot block the interpreter's exit)."""
+
+    def __init__(self, cuda_index: int | None):
+        self._jobs: queue.SimpleQueue = queue.SimpleQueue()
+        self._cuda_index = cuda_index
+        self.thread = threading.Thread(target=self._loop, daemon=True,
+                                       name="yolo2-watchdog")
+        self.thread.start()
+
+    def _loop(self) -> None:
+        if self._cuda_index is not None:
+            torch.cuda.set_device(self._cuda_index)
+        while True:
+            job = self._jobs.get()
+            if job is None:
+                return
+            self._do(*job)
+            del job     # hold no call (nor its engine) between calls
+
+    @staticmethod
+    def _do(fn, args, box, done) -> None:
+        if done.is_set():   # its caller gave up while it was queued
+            return
+        try:
+            box.append((True, fn(*args)))
+        except BaseException as e:  # raised again by run(), in the caller
+            box.append((False, e))
+        done.set()
+
+    def stop(self) -> None:
+        """End the thread once its current call, if any, returns."""
+        self._jobs.put(None)
+
+    def run(self, fn, args: tuple, seconds: float):
+        """fn(*args) on the worker: (value,), or None when it ran past
+        ``seconds``, its wait behind earlier calls included (the worker is
+        then abandoned). fn's exception is raised here."""
+        box: list = []
+        done = threading.Event()
+        self._jobs.put((fn, args, box, done))
+        if not done.wait(seconds):
+            done.set()      # still queued: the worker skips it
+            if not box:
+                self.stop()
+                return None
+        ok, val = box[0]
+        if not ok:
+            raise val
+        return (val,)
+
+
+def _heads(out: dict) -> np.ndarray:
+    """The (N, oc, h, w) heads of a forward's outputs, on the host."""
+    return out["head"].permute(0, 3, 1, 2).cpu().numpy()
+
+
+def _tables(out: dict) -> dict:
+    """The top-K tables of a device-NMS forward's outputs, on the host."""
+    return {k: out[k].cpu().numpy() for k in (*_DETECTIONS, "det_saturated")}
+
+
 class Engine:
+    """``backend="device"`` runs the network on ``device`` (the card by
+    default; "cpu" runs the kernels' plain versions); ``backend="golden"``
+    runs the numpy oracle ``golden.GoldenNet`` on the host, in the int16
+    tier in ``compute="exact"`` mode (the HLS core's per-4-channel
+    saturating accumulation) or the production ``int32`` contract.
+    ``compute`` "int32" and "pallas" both name the exact int32 contract the
+    port's kernels compute; "exact" is the golden backend's; the TPU MXU's
+    approximate float modes "f32" and "f32_highest" are not carried over and
+    raise. ``device_nms`` applies to the device backend only.
+
+    Every device call runs under the watchdog ``_guarded``, its copy to the
+    host included, as ``yolotpu``'s engine bounds its device calls."""
+
+    # Max abandoned (timed-out, still-parked) watchdog threads before the
+    # engine fails fast instead of dispatching again: a flapping device
+    # must not stack daemon threads silently.
+    WATCHDOG_MAX_ABANDONED = int(os.environ.get(
+        "YOLO2_WATCHDOG_MAX_ABANDONED", "4"))
+
     def __init__(self, spec: NetworkSpec, store: WeightStore,
                  precision: str = "fp32", device: torch.device | str = "cuda",
+                 backend: str = "device", compute: str = "int32",
                  device_nms: bool = False, thresh: float = 0.25,
                  nms: float = 0.45, topk: int = 256, warmup: bool = True,
                  warmup_batch: int = 1):
         if precision not in _TIERS:
             raise ValueError(f"precision {precision!r} (one of "
                              f"{', '.join(_TIERS)})")
+        if backend not in ("device", "golden"):
+            raise ValueError(f"backend {backend!r} (use 'device' or 'golden')")
+        if compute in ("f32", "f32_highest"):
+            raise ValueError(
+                f"compute={compute!r} is the TPU MXU's approximate float "
+                "mode of yolotpu, which the port does not carry over; its "
+                "results would differ from the JAX package's (use 'int32')")
+        if compute not in ("int32", "pallas", "exact"):
+            raise ValueError(f"compute mode {compute!r} (one of int32, "
+                             "pallas, exact)")
+        if compute == "exact" and backend != "golden":
+            raise ValueError("compute='exact' (the HLS core's per-group "
+                             "saturating accumulation) runs on the golden "
+                             "backend only: use backend='golden'")
         weights, qtables, make_params, missing = _TIERS[precision]
         if not getattr(store, weights):
             raise ValueError(missing)
         self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        if (backend == "device" and self.device.type == "cuda"
+                and not torch.cuda.is_available()):
             raise RuntimeError("Engine(device='cuda'): no CUDA device is "
                                "available to this process")
         self.spec = spec
         self.store = store
         self.precision = precision
-        self.device_nms = device_nms
+        self.backend = backend
+        self.compute = compute
+        self.device_nms = device_nms and backend == "device"
         self.qtables = getattr(store, qtables) if qtables else None
+        # (letterboxed on the device?, input dtype, input shape) -> graph
+        self.graphs: dict[tuple, CapturedForward] = {}
+        # the watchdog's state: keys seen (no first-use grace), the worker,
+        # the threads of timed-out calls
+        self._seen_shapes: set = set()
+        self._abandoned_threads: list[threading.Thread] = []
+        self._worker: _Worker | None = None
+        self._guard_lock = threading.Lock()
+        self._cuda_index = None
+        self._debug = None    # the "acts" model of predict_layers
+        if backend == "golden":
+            self._golden = GoldenNet(spec)
+            self.params = self.model = None
+            return
+        if self.device.type == "cuda":
+            self._cuda_index = (self.device.index if self.device.index
+                                is not None else torch.cuda.current_device())
         self.params = make_params(spec, store, self.device)
         # the int16 tier's per-layer engine lever, read as yolotpu's
         # params_q16 reads it; no plan file until one is measured on the card
-        overrides = (engine_plan.plan_overrides() if precision == "int16"
-                     else None)
+        self._overrides = (engine_plan.plan_overrides()
+                           if precision == "int16" else None)
         self.model = YoloV2Q(spec, self.qtables, self.params, self.device,
-                             precision, overrides,
+                             precision, self._overrides,
                              ("head", "detections") if device_nms else ("head",),
                              thresh, nms, topk)
-        # (letterboxed on the device?, input dtype, input shape) -> graph
-        self.graphs: dict[tuple, CapturedForward] = {}
         if warmup and self.device.type == "cuda":
             net = spec.net
             self._graph(torch.zeros((warmup_batch, net.height, net.width,
                                      net.channels)), letterbox=False)
+
+    # ------------------------------------------------------------------
+    def _guarded(self, fn, *args, tag: str = "main", key: tuple | None = None):
+        """Per-call watchdog, the board app's wait_for_idle analog
+        (yolo2_accel_linux.c:266-381): fn(*args) runs on the engine's worker
+        thread, bounded by YOLO2_LAYER_TIMEOUT_MS (default 60000; <= 0 runs
+        it unbounded on the caller's thread). A key seen for the first time,
+        (tag, *key) (by default the args' shapes), gets a deadline of at
+        least 900 s: its call may build the kernels and capture a graph. A
+        call that times out is re-dispatched once on a fresh worker; a
+        second timeout raises TimeoutError. Once WATCHDOG_MAX_ABANDONED
+        timed-out workers are still parked, the engine refuses to dispatch
+        (RuntimeError). Calls run one at a time, in order, on the one worker
+        (a graph's static input and outputs serve one call at a time), so a
+        call's deadline also covers its wait behind earlier calls; the lock
+        guards only the watchdog's own state. fn must not call the engine's
+        guarded methods."""
+        try:
+            ms = float(os.environ.get("YOLO2_LAYER_TIMEOUT_MS", "60000"))
+        except ValueError:
+            ms = 60000.0
+        if ms <= 0:
+            return fn(*args)
+        key = (tag,) + (tuple(key) if key is not None else
+                        tuple(getattr(a, "shape", None) for a in args))
+        with self._guard_lock:
+            if key not in self._seen_shapes:
+                ms = max(ms, 900_000.0)
+            self._abandoned_threads = [t for t in self._abandoned_threads
+                                       if t.is_alive()]
+            if len(self._abandoned_threads) >= self.WATCHDOG_MAX_ABANDONED:
+                raise RuntimeError(
+                    f"watchdog: {len(self._abandoned_threads)} abandoned "
+                    f"device calls still parked (cap "
+                    f"{self.WATCHDOG_MAX_ABANDONED}); refusing to dispatch — "
+                    "the device looks wedged, restart the engine")
+
+        def dispatch():
+            with self._guard_lock:
+                if self._worker is None:
+                    self._worker = _Worker(self._cuda_index)
+                    # the worker holds no reference to the engine: stop it
+                    # when the engine goes
+                    weakref.finalize(self, self._worker.stop)
+                worker = self._worker
+            out = worker.run(fn, args, ms / 1000.0)
+            if out is None:
+                with self._guard_lock:
+                    if self._worker is worker:
+                        self._abandoned_threads.append(worker.thread)
+                        self._worker = None
+            return out
+
+        out = dispatch()
+        if out is None:
+            # one recovery attempt on a fresh worker, as the reference
+            # driver's timeout path resumes once (yolo2_accel_linux.c:
+            # 350-377); a call queued behind a hung one on the card times
+            # out too
+            ylog.info(f"watchdog: inference exceeded {ms:.0f} ms; "
+                      "attempting one re-dispatch")
+            out = dispatch()
+            if out is None:
+                raise TimeoutError(
+                    f"inference exceeded YOLO2_LAYER_TIMEOUT_MS={ms:.0f} ms "
+                    "twice (watchdog; recovery re-dispatch also timed out)")
+            ylog.info("watchdog: recovery re-dispatch succeeded")
+        self._seen_shapes.add(key)
+        return out[0]
 
     def _forward(self, x: torch.Tensor, letterbox: bool) -> dict:
         if letterbox:
@@ -145,11 +350,10 @@ class Engine:
                 torch.zeros_like(x, device=self.device))
         return self.graphs[key]
 
-    def _run(self, frames: np.ndarray, letterbox: bool = False) -> dict:
+    def _run(self, x: torch.Tensor, letterbox: bool = False) -> dict:
         """One forward of host NHWC frames: a replay of its graph on a card
         (the frames copied into the graph's input), an eager run on the CPU.
         Returns the device outputs, which the next replay overwrites."""
-        x = torch.from_numpy(np.ascontiguousarray(frames))
         if self.device.type != "cuda":
             return self._forward(x.to(self.device), letterbox)
         g = self._graph(x, letterbox)
@@ -158,34 +362,102 @@ class Engine:
         g.replays += 1
         return g.out
 
-    def _detections(self, out: dict) -> tuple:
+    def _call(self, frames: np.ndarray, fetch, letterbox: bool = False):
+        """fetch(outputs) of one forward of host NHWC frames, under the
+        watchdog, keyed by the forward's graph key. fetch copies what the
+        caller needs to the host inside the guarded call: a replay returns
+        before the card is done, and the next one overwrites its outputs."""
+        if self.backend != "device":
+            raise ValueError("this call runs on the device backend; the "
+                             "engine was built with backend='golden'")
+        x = torch.from_numpy(np.ascontiguousarray(frames))
+        return self._guarded(lambda v: fetch(self._run(v, letterbox)), x,
+                             key=(letterbox, x.dtype, tuple(x.shape)))
+
+    def _detections(self, frames: np.ndarray, letterbox: bool = False) -> tuple:
         """The top-K tables of a device-NMS forward, on the host."""
-        host = {k: out[k].cpu().numpy() for k in (*_DETECTIONS,
-                                                   "det_saturated")}
+        host = self._call(frames, _tables, letterbox)
         self._warn_saturated(host)
         return tuple(host[k] for k in _DETECTIONS)
+
+    def _golden_forward(self, boxed_chw: np.ndarray,
+                        keep_all: bool = False) -> dict[int, np.ndarray]:
+        """The golden backend's forward of one letterboxed CHW image, in the
+        tier's mode."""
+        if self.precision == "fp32":
+            return self._golden.forward_fp32(boxed_chw, self.store.fp32,
+                                             keep_all=keep_all)
+        weights, qtables = _TIERS[self.precision][:2]
+        mode = (("exact" if self.compute == "exact" else "int32")
+                if self.precision == "int16" else self.precision)
+        return self._golden.forward_int16(
+            boxed_chw, getattr(self.store, weights),
+            getattr(self.store, qtables), keep_all=keep_all, mode=mode)
 
     def predict(self, boxed_chw: np.ndarray) -> PredictResult:
         """One letterboxed (3, H, W) float image -> the raw region head in
         CHW (dump/parity layout)."""
         t0 = time.perf_counter()
-        head = self._run(boxed_chw.transpose(1, 2, 0)[None].astype(np.float32))
-        head = head["head"][0].permute(2, 0, 1).cpu().numpy()
+        if self.backend == "golden":
+            head = self._golden_forward(boxed_chw)[self.spec.n - 1]
+        else:
+            head = self._call(boxed_chw.transpose(1, 2, 0)[None]
+                              .astype(np.float32), _heads)[0]
         return PredictResult(head_chw=np.ascontiguousarray(head),
                              seconds=time.perf_counter() - t0)
 
+    # ------------------------------------------------------------------
+    def predict_layers(self, boxed_chw: np.ndarray) -> dict[int, np.ndarray]:
+        """Every layer's output for one letterboxed (3, H, W) float image,
+        {layer idx: CHW array} in the tier's dtype (the user-facing analog
+        of the reference cosim's per-layer dumps,
+        vitis/yolo2_cosim_tb.cpp:970-979). Golden backend: keep_all acts;
+        device backend: a second model with the "acts" output
+        (``YoloV2Q``), built at first use and run eagerly under the
+        watchdog (tag "debug")."""
+        if self.backend == "golden":
+            return {i: np.asarray(a) for i, a in
+                    self._golden_forward(boxed_chw, keep_all=True).items()}
+        if self._debug is None:
+            self._debug = YoloV2Q(self.spec, self.qtables, self.params,
+                                  self.device, self.precision,
+                                  self._overrides, ("acts",))
+        x = torch.from_numpy(np.ascontiguousarray(
+            boxed_chw.transpose(1, 2, 0)[None], np.float32))
+        return self._guarded(
+            lambda v: {i: a[0].permute(2, 0, 1).cpu().numpy() for i, a in
+                       self._debug(v.to(self.device))["acts"].items()},
+            x, tag="debug", key=(False, x.dtype, tuple(x.shape)))
+
+    def dump_layers(self, boxed_chw: np.ndarray, dirpath: str) -> None:
+        """Write layerNN.bin per layer (raw CHW, exactly c*h*w elements in
+        the tier's dtype: int16/int8/fp32; no arena row alignment)."""
+        os.makedirs(dirpath, exist_ok=True)
+        acts = self.predict_layers(boxed_chw)
+        for idx, a in sorted(acts.items()):
+            np.ascontiguousarray(a).tofile(
+                os.path.join(dirpath, f"layer{idx:02d}.bin"))
+        ylog.info(f"dumped {len(acts)} layer tensors to {dirpath}")
+
+    # ------------------------------------------------------------------
     def predict_batch(self, boxed_nchw: np.ndarray) -> np.ndarray:
         """(N, 3, H, W) letterboxed float frames -> (N, oc, h, w) heads."""
-        out = self._run(boxed_nchw.transpose(0, 2, 3, 1).astype(np.float32))
-        return out["head"].permute(0, 3, 1, 2).cpu().numpy()
+        if self.backend == "golden":
+            return np.stack([self.predict(b).head_chw for b in boxed_nchw])
+        return self._call(boxed_nchw.transpose(0, 2, 3, 1).astype(np.float32),
+                          _heads)
 
     def predict_batch_rgb(self, frames_nhwc_u8: np.ndarray) -> np.ndarray:
         """(N, H, W, 3) net-sized uint8 RGB frames -> (N, oc, h, w) heads;
-        the frames cross to the device as uint8 and /255 runs there."""
+        on the device backend the frames cross to the device as uint8 and
+        /255 runs there."""
         if frames_nhwc_u8.dtype != np.uint8:
             raise TypeError(f"predict_batch_rgb wants uint8 frames, got "
                             f"{frames_nhwc_u8.dtype}")
-        return self._run(frames_nhwc_u8)["head"].permute(0, 3, 1, 2).cpu().numpy()
+        if self.backend == "golden":
+            return self.predict_batch(frames_nhwc_u8.astype(np.float32)
+                                      .transpose(0, 3, 1, 2) / 255.0)
+        return self._call(frames_nhwc_u8, _heads)
 
     def predict_batch_raw_frames(self, frames_nhwc_u8: np.ndarray):
         """(N, H, W, 3) raw uint8 frames of any one size: the darknet-exact
@@ -196,10 +468,9 @@ class Engine:
         if frames_nhwc_u8.dtype != np.uint8:
             raise TypeError(f"predict_batch_raw_frames wants uint8 frames, "
                             f"got {frames_nhwc_u8.dtype}")
-        out = self._run(frames_nhwc_u8, letterbox=True)
         if self.device_nms:
-            return self._detections(out)
-        return out["head"].permute(0, 3, 1, 2).cpu().numpy()
+            return self._detections(frames_nhwc_u8, letterbox=True)
+        return self._call(frames_nhwc_u8, _heads, letterbox=True)
 
     def predict_batch_detections(self, frames: np.ndarray) -> tuple:
         """Batched device decode + NMS (engine built with device_nms=True):
@@ -207,9 +478,9 @@ class Engine:
         (N, 3, H, W) float, letterboxed to the network size."""
         if not self.device_nms:
             raise ValueError("engine built without device_nms=True")
-        x = (frames if frames.dtype == np.uint8
-             else frames.transpose(0, 2, 3, 1).astype(np.float32))
-        return self._detections(self._run(x))
+        return self._detections(
+            frames if frames.dtype == np.uint8
+            else frames.transpose(0, 2, 3, 1).astype(np.float32))
 
     def _warn_saturated(self, out: dict) -> None:
         """Device NMS truncation: more above-threshold candidates than top-K
@@ -250,8 +521,8 @@ class Engine:
         boxed = letterbox_image(image_chw, self.spec.net.width,
                                 self.spec.net.height)
         t0 = time.perf_counter()
-        sb, ss, sc, sv = (t[0] for t in self._detections(self._run(
-            boxed.transpose(1, 2, 0)[None].astype(np.float32))))
+        sb, ss, sc, sv = (t[0] for t in self._detections(
+            boxed.transpose(1, 2, 0)[None].astype(np.float32)))
         seconds = time.perf_counter() - t0
         return (self.detections_from_topk(sb, ss, sc, sv, image_chw.shape[2],
                                           image_chw.shape[1]), seconds)
