@@ -13,7 +13,8 @@ graph that the engine captured, in five phases:
    each kernel's registers and spills (none allowed), each kernel's
    tensor-core MMA count (cuobjdump: the ten instantiations of the
    tensor-core body hold integer wgmma, and the library holds no other
-   kernel but nms_greedy's), and the tile, shared memory and registers of
+   kernel but nms_greedy's two passes, whose registers and shared memory it
+   prints), and the tile, shared memory and registers of
    each operand scheme of the tensor-core body (Q16: mm_q16, conv3x3_q16,
    conv3x3_pool_q16 in its three pool orders; W8A16: mm_w8a16,
    conv3x3_w8a16; S8: mm_s8 with either output, conv3x3_s8, conv3x3_int8),
@@ -39,10 +40,13 @@ graph that the engine captured, in five phases:
    the model's shapes, the bound (the least time the card could take) and
    one library call's time for the same sums; every case keeps most outputs
    unsaturated, so they depend on the sums; nms_greedy, the device NMS's
-   greedy scan, against its plain version (``torch.equal``) on yolov2 416
-   candidate tables (N=845, K=256, C=80) at batch 1 and 8, timed (events and
-   graph replays) beside its plain version and bound, and on tied scores,
-   an empty class, K=N, a saturated crowd and K=1024;
+   class-wise NMS on the candidates' scores and boxes, against its plain
+   version (``torch.equal``) on yolov2 416 candidate tables (N=845, K=256,
+   C=80) at batch 1 and 8, timed (events and graph replays) beside its
+   plain version and bound, and on tied scores, an empty class, K=N, a
+   saturated crowd, K=1024 and pairs of boxes whose IoU lies within a few
+   ulp of the threshold (counted: a case where too few do is refused), then
+   its classes per block swept;
 3. slices: the /255 normalisation and the letterbox of raw frames of three
    shapes, on the card against the CPU, bit for bit; then per tier an
    Engine (3 ``detect`` requests, ``predict_batch_rgb`` at batch 8) and an
@@ -58,8 +62,9 @@ graph that the engine captured, in five phases:
    in turns, and what the device NMS adds to a replay; then the same for the
    int16 tier under the plan slices P1 and P2 (``YOLO2_Q16_PLAN``), whose
    heads must also equal the default plan's, timed beside it;
-4. profile: per path and graph, the replay's device time by kernel and the
-   device's idle share in it (torch.profiler); per integer tier: each conv
+4. profile: per path and graph, the replay's device time by kernel, the
+   device's idle share in it and the device kernels it runs, and how many
+   the decode and the NMS add (torch.profiler); per integer tier: each conv
    alone at batch 8 and 1 (CUDA events) beside
    its plain version, a library call and its bound, summed per kernel over
    one forward (the 1x1 kernel and its library calls also alone on the
@@ -170,7 +175,8 @@ KERNEL_SOURCES = {
                      "yolotpu/ops/pallas_conv.py:123, :85 (K13)"),
     "nms_greedy": ("yolotpu_torch/csrc/nms_greedy.cu",
                    "yolotpu/ops/nms.py:89 (the vmapped lax.scan of "
-                   "greedy_nms_mask, :36-57; no Pallas kernel)"),
+                   "greedy_nms_mask, :36-57, on box_iou_matrix, :21-33 and "
+                   ":87; no Pallas kernel)"),
 }
 KERNEL_MODULE = {name: next(m for m in (q16, q8, nms) if name in m.LAUNCHES)
                  for name in KERNEL_SOURCES}
@@ -221,6 +227,18 @@ PEAK_FP32 = 67e12   # fp32 operations per second outside the tensor cores
 # the COCO classes; the engine's IoU threshold
 NMS_SHAPE = (845, 256, 80)
 NMS_THRESH = 0.45
+# nms_greedy's two functions: the table pass and the walk
+NMS_FUNCTIONS = ("nms_table_kernel", "nms_greedy_kernel")
+# the device kernels that the decode and the NMS added to a replay of the
+# int16 forward at batch 1 and 8 while the IoU matrix was built by PyTorch
+# ops and nms_greedy read it (a copy of this script run with
+# --replay-kernels from the root of a checkout of that tree)
+NMS_REPLAY_KERNELS_IOU = {1: 78, 8: 80}
+# nms_greedy's near-threshold case: how close an IoU counts as near, and the
+# least share of the K/2 pairs that must be that near
+NEAR_ULPS = 4
+NEAR_FLOOR = 0.75
+NMS_WARPS_SWEEP = (1, 2, 4, 8, 16, 32)   # the walk's classes a block, timed
 # the raw frame shapes whose letterbox is held to the CPU's; the first is
 # the main path's
 RAW_SHAPES = ((480, 640), (640, 360), (216, 216))
@@ -615,14 +633,16 @@ def phase_card() -> str:
         say(f"[card]   SASS {fn}: {n} instructions, {mma} tensor-core MMA "
             f"{ops}")
     tc_fns = {fn for fn in sass if "igemm_tc_kernel" in fn}
-    nms_fns = {fn for fn in sass if "nms_greedy_kernel" in fn}
-    if len(tc_fns) != len(TC_INSTANCES) or len(nms_fns) != 1 \
-            or set(sass) != tc_fns | nms_fns or any(
+    nms_fns = {part: [fn for fn in sass if part in fn] for part in NMS_FUNCTIONS}
+    if len(tc_fns) != len(TC_INSTANCES) \
+            or any(len(fns) != 1 for fns in nms_fns.values()) \
+            or set(sass) != tc_fns.union(*nms_fns.values()) or any(
                 "IGMMA" not in sass[fn][2] for fn in tc_fns):
         raise AssertionError(f"the library must hold the {len(TC_INSTANCES)} "
                              "yq::tc kernels, each with integer warpgroup MMA "
-                             "(wgmma: IGMMA in SASS), nms_greedy's kernel and "
-                             f"no other kernel; it holds {sorted(sass)}")
+                             "(wgmma: IGMMA in SASS), nms_greedy's two passes "
+                             f"{NMS_FUNCTIONS} and no other kernel; it holds "
+                             f"{sorted(sass)}")
     spills = [ln.strip() for ln in lib.log.splitlines() if any(
         int(v) for v in re.findall(r"(\d+) bytes spill", ln))]
     if spills:
@@ -650,9 +670,18 @@ def phase_card() -> str:
             f"{planes} weight plane(s), {smem} bytes of dynamic shared memory "
             f"per block, {blocks} blocks per SM ({scheme.wave} in tc.split's "
             f"waves), {regs[fns[0]]} registers")
-    fn, = (fn for fn in regs if "nms_greedy_kernel" in fn)
-    say(f"[card] nms_greedy: {regs[fn]} registers, no spills, one block of "
-        f"K threads per (class, frame), {sass[fn][0]} instructions")
+    table, walk = (next(fn for fn in regs if part in fn)
+                   for part in NMS_FUNCTIONS)
+    k, c = NMS_SHAPE[1:]
+    say(f"[card] nms_greedy: the first pass ({regs[table]} registers, "
+        f"{sass[table][0]} instructions, no shared memory) builds each frame's "
+        f"K x ceil(K/32) bit table, one warp a row; the walk ({regs[walk]} "
+        f"registers, {sass[walk][0]} instructions, no spills) runs one warp per "
+        f"class, {nms.WARPS} classes a block, with {nms.walk_smem(k, nms.WARPS)} "
+        f"bytes of dynamic shared memory a block at K={k} "
+        f"({nms.walk_smem(NMS_SHAPE[0], nms.WARPS)} at K={NMS_SHAPE[0]}, "
+        f"{nms.walk_smem(nms.MAX_K, nms.WARPS)} at K={nms.MAX_K}); "
+        f"{-(-c // nms.WARPS)} blocks a frame at C={c}")
     return smi
 
 
@@ -1058,7 +1087,9 @@ def nms_scene(rng, b: int, n: int, c: int, dev: torch.device,
     scores on coarse grids, as quantized heads give them; "empty", class 7
     never scores and class 0 dominates; "crowd", every candidate over the
     threshold and crowded into a quarter of the frame (a saturated top K,
-    most boxes suppressed)."""
+    most boxes suppressed); "near", near_pairs: pairs of boxes whose IoU is
+    the threshold in exact arithmetic, each pair alone in its cell and of
+    one of 6 classes, its first box ahead of its second by objectness."""
     centers = rng.uniform(0.1, 0.9, (b, n, 2))
     sizes = rng.uniform(0.02, 0.4, (b, n, 2))
     obj = rng.uniform(0, 1, (b, n))
@@ -1076,18 +1107,70 @@ def nms_scene(rng, b: int, n: int, c: int, dev: torch.device,
         centers = rng.uniform(0.4, 0.6, (b, n, 2))
         obj = rng.uniform(0.5, 1.0, (b, n))
     boxes = np.concatenate([centers, sizes], -1)
+    if kind == "near":
+        pairs = n // 2
+        boxes[:, :2 * pairs] = [near_pairs(rng, pairs) for _ in range(b)]
+        first = rng.uniform(0.6, 1.0, (b, pairs))
+        obj = np.zeros((b, n))   # an odd N's last box is no candidate
+        obj[:, 0:2 * pairs:2], obj[:, 1:2 * pairs:2] = first, first - 1e-3
+        probs = np.zeros((b, n, c))
+        cls = np.repeat(rng.integers(0, 6, (b, pairs)), 2, axis=1)
+        np.put_along_axis(probs[:, :2 * pairs], cls[..., None], 1.0, -1)
     return tuple(torch.from_numpy(a.astype(np.float32)).to(dev)
                  for a in (boxes, obj, probs))
 
 
-def nms_bound(cprob: torch.Tensor, ious: torch.Tensor) -> tuple:
-    """(operations ms, bytes ms) of nms_greedy on these inputs: cprob and
-    ious read once and the output written once; per frame and class K^2
-    score comparisons to rank the boxes and K(K-1)/2 IoU tests of the scan,
-    fp32 comparisons outside the tensor cores."""
+def near_pairs(rng, pairs: int) -> np.ndarray:
+    """(2 * pairs, 4) center-format boxes in pairs whose IoU is NMS_THRESH
+    = 0.45 in exact arithmetic: equal heights, widths 29m and the second box
+    shifted by 11m units of 2^-20 ((w - d) / (w + d) = 18/40), every
+    coordinate a multiple of 2^-20 (so the corners and the overlap are
+    exact), each pair alone in its cell of a g x g grid. Only the float32
+    roundings of the products, the union and the quotient then decide
+    whether iou > thresh: the pairs' IoUs fall within a few ulp of it, on
+    both sides (as tests/test_torch_nms.py's _near_scene)."""
+    unit = 2.0 ** -20
+    g = int(np.ceil(np.sqrt(pairs)))
+    cell = int(0.8 / g / unit)        # the room a pair may take, in units
+    cells = np.arange(pairs)
+    cx = np.round(((cells % g) + 0.1) / g / unit)
+    cy = np.round(((cells // g) + 0.5) / g / unit)
+    m = rng.integers(cell // 80, cell // 40, pairs)
+    w, d = 29 * m, 11 * m             # the pair spans 40m <= cell
+    h = 2 * rng.integers(cell // 8, cell // 2, pairs)
+    a = np.stack([cx, cy, w, h], 1)
+    b = np.stack([cx + d, cy, w, h], 1)
+    return np.stack([a, b], 1).reshape(-1, 4) * unit
+
+
+# fp32 operations of one IoU test: the overlap's 2 min, 2 max, 2 subtractions
+# and 2 clamps, inter's product, the union's sum and difference, its clamp,
+# the quotient and the comparison
+IOU_OPS = 14
+
+
+def nms_bound(cprob: torch.Tensor, cboxes: torch.Tensor) -> tuple:
+    """(operations ms, bytes ms) of nms_greedy on these inputs: cboxes and
+    cprob read once and the output written once; per frame K(K-1)/2 IoU
+    tests (IOU_OPS each), and per frame and class n^2 score comparisons to
+    rank its n live boxes (this run's data), fp32 operations outside the
+    tensor cores."""
     b, k, c = cprob.shape
-    nbytes = 4 * (2 * cprob.numel() + ious.numel())
-    return (b * c * 1.5 * k * k / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3)
+    live = (cprob > 0).sum(dim=1).double()
+    ops = b * k * (k - 1) / 2 * IOU_OPS + float((live * live).sum())
+    nbytes = 4 * (2 * cprob.numel() + cboxes.numel())
+    return (ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3)
+
+
+def near_threshold_pairs(cprob: torch.Tensor, cboxes: torch.Tensor) -> tuple:
+    """(pairs of candidates live in one class whose IoU lies within NEAR_ULPS
+    ulp of NMS_THRESH, of them over it), from box_iou_matrix on the card."""
+    ious = nms.box_iou_matrix(cboxes, cboxes)
+    ulp = float(np.spacing(np.float32(NMS_THRESH)))
+    live = cprob > 0
+    same = (live[:, :, None, :] & live[:, None, :, :]).any(-1)
+    near = (((ious - NMS_THRESH).abs() <= NEAR_ULPS * ulp) & same).triu(1)
+    return int(near.sum()), int((near & (ious > NMS_THRESH)).sum())
 
 
 def phase_kernels_nms(check: KernelCheck, dev: torch.device) -> dict:
@@ -1095,26 +1178,30 @@ def phase_kernels_nms(check: KernelCheck, dev: torch.device) -> dict:
     tables that topk_decode_nms hands it: at yolov2 416's shape (N=845,
     K=256, C=80) at batch 1 and 8, timed (CUDA events around the wrapper,
     and alone on the device in CUDA graph replays) beside the plain version
-    and the bound; then at edge cases. Returns, per batch, the kernel's
-    numbers for the JSON line."""
+    and the bound; then at edge cases, among them pairs of boxes whose IoU
+    lies within a few ulp of the threshold (where an FMA in the kernel's
+    IoU would show); then the walk's classes per block swept. Returns, per
+    batch, the kernel's numbers for the JSON line."""
     rng = np.random.default_rng(21)
     n, k, c = NMS_SHAPE
     say(f"[kernels] nms_greedy: yolov2 416 tables (N={n}, K={k}, C={c}, "
         f"IoU threshold {NMS_THRESH}) at batch 1 and {BATCH_SLICE}, then "
-        "tied scores, an empty class, K=N, a saturated crowd and K=1024")
+        "tied scores, an empty class, K=N, a saturated crowd, K=1024 and "
+        "pairs at the threshold")
     out = {}
 
     def one(label: str, scene: tuple, topk: int, timed: bool = False):
-        _, cprob, ious, sat = nms.candidates(*scene, 0.25, topk)
-        got = nms.nms_greedy(cprob, ious, NMS_THRESH)
-        want = nms.nms_greedy_plain(cprob, ious, NMS_THRESH)
+        cboxes, cprob, sat = nms.candidates(*scene, 0.25, topk)
+        got = nms.nms_greedy(cprob, cboxes, NMS_THRESH)
+        want = nms.nms_greedy_plain(cprob, cboxes, NMS_THRESH)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         check.max_abs_err["nms_greedy"] = max(check.max_abs_err["nms_greedy"],
                                               err)
         if not torch.equal(got, want):
             raise AssertionError(f"nms_greedy {label}: kernel != plain (max "
-                                 f"abs err {err})")
+                                 f"abs err {err}, {int((got != want).sum())} "
+                                 "scores differ)")
         scored = int((cprob > 0).sum())
         kept = int((want > 0).sum())
         if not 0 < kept < scored:
@@ -1123,13 +1210,13 @@ def phase_kernels_nms(check: KernelCheck, dev: torch.device) -> dict:
         line = (f"  nms_greedy {label:34s} equal, {kept} of {scored} class "
                 f"scores kept, saturated {sat.tolist()}")
         if timed:
-            f = {"ms": cuda_ms(lambda: nms.nms_greedy(cprob, ious, NMS_THRESH),
-                               reps=20),
-                 "graph_ms": graph_ms(lambda: nms.nms_greedy(cprob, ious,
+            f = {"ms": cuda_ms(lambda: nms.nms_greedy(cprob, cboxes,
+                                                      NMS_THRESH), reps=20),
+                 "graph_ms": graph_ms(lambda: nms.nms_greedy(cprob, cboxes,
                                                              NMS_THRESH)),
                  "plain_ms": cuda_ms(lambda: nms.nms_greedy_plain(
-                     cprob, ious, NMS_THRESH), reps=2)}
-            part = nms_bound(cprob, ious)
+                     cprob, cboxes, NMS_THRESH), reps=2)}
+            part = nms_bound(cprob, cboxes)
             f["bound"] = [max(part), part[0] if part[0] >= part[1] else 0.0,
                           part[1] if part[1] > part[0] else 0.0]
             out[cprob.shape[0]] = f
@@ -1138,18 +1225,63 @@ def phase_kernels_nms(check: KernelCheck, dev: torch.device) -> dict:
                      f"{f['plain_ms']:.3f} ms, bound {max(part):.5f} ms "
                      f"({bound_by(f['bound'])}), no library call")
         say(line)
+        return cboxes, cprob
 
-    for bsz in (1, BATCH_SLICE):
-        one(f"b={bsz} N={n} K={k} C={c}", nms_scene(rng, bsz, n, c, dev), k,
-            timed=True)
+    tables = {f"b={bsz}": one(f"b={bsz} N={n} K={k} C={c}",
+                              nms_scene(rng, bsz, n, c, dev), k, timed=True)
+              for bsz in (1, BATCH_SLICE)}
     one(f"ties b=3 N={n} K={k}", nms_scene(rng, 3, n, c, dev, "ties"), k)
     one(f"an empty class b=2 N={n} K={k}", nms_scene(rng, 2, n, c, dev,
                                                       "empty"), k)
-    one(f"K=N b=2 N={n} K={n}", nms_scene(rng, 2, n, c, dev), n)
+    tables["K=N"] = one(f"K=N b=2 N={n} K={n}", nms_scene(rng, 2, n, c, dev),
+                        n)
     one(f"saturated crowd b=2 N={n} K={k}", nms_scene(rng, 2, n, c, dev,
                                                        "crowd"), k)
     one("K=1024 b=1 N=1100 C=20", nms_scene(rng, 1, 1100, 20, dev), 1024)
+    for topk in (k, n):
+        cboxes, cprob = one(f"near the threshold b=2 N={n} K={topk}",
+                            nms_scene(rng, 2, n, c, dev, "near"), topk)
+        near, over = near_threshold_pairs(cprob, cboxes)
+        if near < NEAR_FLOOR * topk // 2 or not 10 <= over <= near - 10:
+            raise AssertionError(
+                f"nms_greedy near the threshold, K={topk}: blind case, {near} "
+                f"pairs of one class within {NEAR_ULPS} ulp of {NMS_THRESH}, "
+                f"{over} of them over it")
+        say(f"  nms_greedy near the threshold K={topk}: {near} pairs of one "
+            f"class within {NEAR_ULPS} ulp of the threshold ({over} over it), "
+            "every one decided as box_iou_matrix decides it")
+    phase_nms_warps(tables)
     return out
+
+
+
+def phase_nms_warps(tables: dict) -> None:
+    """The walk's classes per block (nms.WARPS) against the others that fit
+    a block's shared memory: each alone on the device (graph_ms) on phase
+    2's yolov2 416 tables at batch 1 and 8 and at K=N, each also held to the
+    plain version."""
+    chosen = nms.WARPS
+    for label, (cboxes, cprob) in tables.items():
+        b, k, _ = cprob.shape
+        want = nms.nms_greedy_plain(cprob, cboxes, NMS_THRESH)
+        times = {}
+        try:
+            for w in NMS_WARPS_SWEEP:
+                if nms.walk_smem(k, w) > nms.SMEM_MAX:
+                    continue
+                nms.WARPS = w
+                if not torch.equal(nms.nms_greedy(cprob, cboxes, NMS_THRESH),
+                                   want):
+                    raise AssertionError(f"nms_greedy {label} with {w} "
+                                         "classes a block: != plain")
+                times[w] = graph_ms(lambda: nms.nms_greedy(cprob, cboxes,
+                                                           NMS_THRESH))
+        finally:
+            nms.WARPS = chosen
+        say(f"  nms_greedy {label} (B={b}, K={k}), classes a block: "
+            + ", ".join(f"{w} {ms:.4f}" for w, ms in times.items())
+            + f" ms alone on the device (nms.WARPS = {chosen}; the fastest "
+            f"{min(times, key=times.get)})")
 
 
 def quantized_store(spec) -> WeightStore:
@@ -1468,6 +1600,29 @@ def phase_slice(spec, store: WeightStore, tier: str,
             "det": det, "plain": plain}
 
 
+def replay_kernels(dev: torch.device) -> None:
+    """``chip_smoke.py --replay-kernels``: the int16 tier's head-only and
+    device-NMS forwards at batch 1 and BATCH_SLICE, captured by the engine
+    as phase 3 captures them, and the device kernels one replay of each
+    runs. It uses only the engine's device-NMS path and its graphs, so a
+    copy of this script counts them on an older tree too."""
+    spec = zoo.build("yolov2")
+    store = quantized_store(spec)
+    net = (spec.net.height, spec.net.width, 3)
+    batch = np.random.default_rng(0).integers(0, 256, (BATCH_SLICE, *net),
+                                              dtype=np.uint8)
+    eng = Engine(spec, store, "int16", dev)
+    det = Engine(spec, store, "int16", dev, device_nms=True)
+    eng.predict_batch_rgb(batch)
+    det.predict_batch_detections(batch)
+    for bsz, dt in ((1, torch.float32), (BATCH_SLICE, torch.uint8)):
+        h, d = (device_ms_by_kernel(graph_of(e, dt, (bsz, *net)).graph.replay,
+                                    {})[2] for e in (eng, det))
+        say(f"[replay kernels] int16 b={bsz}: {d:g} device kernels a "
+            f"device-NMS replay, {h:g} head only: {d - h:+g} for the decode "
+            "and the NMS")
+
+
 def latency_ms(fn) -> np.ndarray:
     """p50 and p90 of 25 fn() calls (host clock; fn ends with the head on
     the host), after 5 warm-up calls."""
@@ -1633,10 +1788,10 @@ def kernel_names(dev: torch.device) -> dict[str, str]:
     # the operands exist before the profiler starts: only the kernel runs
     # (at these shapes K is not split, so the tensor-core kernels launch
     # alone, with no workspace memset)
-    cprob, ious = torch.rand((2, 64, 8), device=dev), torch.rand((2, 64, 64),
-                                                                 device=dev)
+    cprob, cboxes = torch.rand((2, 64, 8), device=dev), torch.rand((2, 64, 4),
+                                                                   device=dev)
     calls = [
-        ("nms_greedy", lambda: nms.nms_greedy(cprob, ious, 0.5)),
+        ("nms_greedy", lambda: nms.nms_greedy(cprob, cboxes, 0.5)),
         ("mm_q16", lambda: q16.mm_q16(x16, w16, b, 3, True, planes=p16)),
         ("conv3x3_q16", lambda: q16.conv3x3_q16(c16, k16, b, 3, True,
                                                 planes=pk16)),
@@ -1661,19 +1816,21 @@ def kernel_names(dev: torch.device) -> dict[str, str]:
             torch.cuda.synchronize()
         keys = {e.key for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and not is_memset(e.key)}
-        if len(keys) != 1:
+        # nms_greedy launches its two passes
+        if len(keys) != (len(NMS_FUNCTIONS) if name == "nms_greedy" else 1):
             say(f"[profile] {name}: the profiler saw kernels {sorted(keys)}")
             continue
-        names[keys.pop()] = name
+        names.update(dict.fromkeys(keys, name))
     return names
 
 
 def device_ms_by_kernel(fn, names: dict[str, str],
-                        reps: int = 10) -> tuple[dict, tuple]:
+                        reps: int = 10) -> tuple[dict, tuple, float]:
     """The device time of one fn() call by kernel (torch.profiler over reps
     calls, kernels known by their full names): ms per call of each kernel of
     KERNEL_SOURCES, of the split-K workspace's memsets and of everything
-    else ("glue"), and the largest glue kernel as (name, ms)."""
+    else ("glue"), the largest glue kernel as (name, ms), and the device
+    kernels one call runs (memsets and copies left out)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1684,6 +1841,7 @@ def device_ms_by_kernel(fn, names: dict[str, str],
         torch.cuda.synchronize()
     by = dict.fromkeys(KERNEL_SOURCES, 0.0) | {"glue": 0.0, "memset": 0.0}
     glue_top = ("", 0.0)
+    kernels = 0
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -1695,7 +1853,9 @@ def device_ms_by_kernel(fn, names: dict[str, str],
         by[kind] += ms
         if kind == "glue" and ms > glue_top[1]:
             glue_top = (e.key[:60], ms)
-    return by, glue_top
+        if kind != "memset" and not e.key.lower().startswith("memcpy"):
+            kernels += e.count
+    return by, glue_top, kernels / reps
 
 
 def phase_profile_replay(tag: str, graphs: dict, names: dict[str, str]) -> None:
@@ -1703,10 +1863,13 @@ def phase_profile_replay(tag: str, graphs: dict, names: dict[str, str]) -> None:
     graph (label -> CapturedForward), its ms per replay (CUDA events) and
     its device busy time by kernel (torch.profiler over replays, kernels
     known by their full names), and so the device's idle share in a
-    replay."""
+    replay; and the device kernels a replay runs, and how many of them a
+    device-NMS graph adds to the head-only one of its batch."""
+    count = {}
     for label, g in graphs.items():
         fwd_ms = cuda_ms(g.graph.replay, reps=20)
-        by, glue_top = device_ms_by_kernel(g.graph.replay, names)
+        by, glue_top, count[label] = device_ms_by_kernel(g.graph.replay,
+                                                         names)
         busy = sum(by.values())
         if busy == 0:
             say(f"{tag} {label} replay: {fwd_ms:.3f} ms; the profiler saw no "
@@ -1718,7 +1881,15 @@ def phase_profile_replay(tag: str, graphs: dict, names: dict[str, str]) -> None:
             f"busy {busy:.3f} ms (profiler): {ours or 'no kernel of ours'}, "
             f"memsets {by['memset']:.3f}, glue {by['glue']:.3f} (largest "
             f"{glue_top[0]!r} {glue_top[1]:.3f}); device idle "
-            f"{100 * max(0.0, 1 - busy / fwd_ms):.1f}%")
+            f"{100 * max(0.0, 1 - busy / fwd_ms):.1f}%; {count[label]:g} "
+            "device kernels a replay")
+    for label, n in count.items():
+        head = label.removeprefix("device NMS ")
+        if head != label and head in count:
+            bsz = int(head.removeprefix("b="))
+            say(f"{tag} {head}: the decode and the NMS add {n - count[head]:+g} "
+                "device kernels to a replay (with the IoU matrix of PyTorch "
+                f"ops, int16: {NMS_REPLAY_KERNELS_IOU[bsz]:+g})")
 
 
 def new_forward() -> dict:
@@ -1816,7 +1987,7 @@ def phase_profile(model: YoloV2Q, plain: YoloV2Q, dev: torch.device,
                 0, 256, (bsz, spec.net.height, spec.net.width, 3),
                 dtype=np.uint8)).to(dev)
             fwd_ms = cuda_ms(lambda: model(xb), reps=20)   # noqa: B023
-            by, glue_top = device_ms_by_kernel(
+            by, glue_top, _ = device_ms_by_kernel(
                 lambda: model(xb), names)   # noqa: B023
             dev_ms = sum(by.values())
             if dev_ms == 0:
@@ -1942,7 +2113,7 @@ def phase_profile_pool(model: YoloV2Q, p1_model: YoloV2Q, dev: torch.device,
         xb = torch.from_numpy(rng.integers(
             0, 256, (bsz, model.spec.net.height, model.spec.net.width, 3),
             dtype=np.uint8)).to(dev)
-        by, _ = device_ms_by_kernel(lambda: p1_model(xb), names)   # noqa: B023
+        by, _, _ = device_ms_by_kernel(lambda: p1_model(xb), names)   # noqa: B023
         if not sum(by.values()):
             say(f"[profile pool] b={bsz}: the profiler saw no device time")
             continue
@@ -2402,6 +2573,9 @@ def main() -> int:
               "an NVIDIA GPU", file=sys.stderr)
         return 2
     os.environ.setdefault("YOLO2_NO_DUMP", "1")   # no region text dumps
+    if sys.argv[1:] == ["--replay-kernels"]:
+        replay_kernels(torch.device("cuda", 0))
+        return 0
     return run(torch.device("cuda", 0))
 
 
@@ -2434,8 +2608,9 @@ def run(dev: torch.device) -> int:
         f"{per_forward}")
     say(f"[card] phases 1-3 took {time.perf_counter() - t0:.1f} s")
     names = kernel_names(dev)
-    say(f"[profile] kernels by full name: {len(names)} of 11 functions seen "
-        "by the profiler")
+    say(f"[profile] kernels by full name: {len(names)} of "
+        f"{len(TC_INSTANCES) + len(NMS_FUNCTIONS)} functions seen by the "
+        "profiler")
     net = (spec.net.height, spec.net.width, 3)
     for path, r in runs.items():
         engines = [("", r["eng"])] + ([("device NMS ", r["det"])]

@@ -8,15 +8,16 @@ each class, boxes in descending score order; a box's class score is zeroed
 when a higher-scoring surviving box of the same class overlaps it with
 IoU > thresh.
 
-The per-class greedy scan, a ``vmap`` of a K-step ``lax.scan`` in the JAX
-package, is the hand-written kernel ``nms_greedy`` (``csrc/nms_greedy.cu``);
-as eager ops it would be K dependent steps of several launches each. The
-candidate selection, the IoU matrix, the argmax and the final ordering stay
-torch ops. Every sort is stable and descending, which is ``lax.top_k``'s
-and ``jnp.argsort(-x)``'s order: equal values in index order (quantized
-heads give equal scores). ``nms_greedy`` on CPU tensors runs its plain
-version; on CUDA tensors it launches the kernel or raises.
-``LAUNCHES`` counts kernel launches, and only those.
+The class-wise NMS, a ``vmap`` of a K-step ``lax.scan`` over the IoU matrix
+in the JAX package, is the hand-written kernel ``nms_greedy``
+(``csrc/nms_greedy.cu``): it takes the candidate boxes, tests every pair
+once per frame into a bit table and walks each class's live boxes with one
+warp, so the IoU matrix never exists on the card. The candidate selection,
+the argmax and the final ordering stay torch ops. Every sort is stable and
+descending, which is ``lax.top_k``'s and ``jnp.argsort(-x)``'s order: equal
+values in index order (quantized heads give equal scores). ``nms_greedy``
+on CPU tensors runs its plain version; on CUDA tensors it launches the
+kernel or raises. ``LAUNCHES`` counts kernel launches, and only those.
 """
 
 from __future__ import annotations
@@ -26,7 +27,9 @@ import torch
 from . import _build
 
 LAUNCHES = {"nms_greedy": 0}
-MAX_K = 1024   # the kernel's threads per block: one per candidate
+MAX_K = 1024   # the walk's removed mask: one 32-bit word per lane of a warp
+WARPS = 4      # classes (warps) per block of the walk: chip_smoke.py's sweep
+SMEM_MAX = 232448   # dynamic shared memory one block may have on sm_90
 
 
 def reset_launches() -> None:
@@ -65,12 +68,13 @@ def greedy_nms_mask(ious: torch.Tensor, scores: torch.Tensor,
     return keep
 
 
-def nms_greedy_plain(cprob: torch.Tensor, ious: torch.Tensor,
+def nms_greedy_plain(cprob: torch.Tensor, cboxes: torch.Tensor,
                      thresh: float) -> torch.Tensor:
     """The per-class greedy NMS (``nms.py:89-98``) as torch ops: cprob (B, K,
-    C), ious (B, K, K) -> (B, K, C), cprob where a box survives in its class
-    and 0 where it does not. A stable per-class sort, then
-    ``greedy_nms_mask`` over all frames and classes at once."""
+    C), cboxes (B, K, 4) -> (B, K, C), cprob where a box survives in its
+    class and 0 where it does not. The IoU matrix, a stable per-class sort,
+    then ``greedy_nms_mask`` over all frames and classes at once."""
+    ious = box_iou_matrix(cboxes, cboxes)
     scores = cprob.transpose(1, 2)                          # (B, C, K)
     order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
     s_sorted = scores.gather(-1, order)
@@ -82,37 +86,62 @@ def nms_greedy_plain(cprob: torch.Tensor, ious: torch.Tensor,
     return torch.where(keep, scores, 0.0).transpose(1, 2)
 
 
-def _check(cprob: torch.Tensor, ious: torch.Tensor) -> None:
-    if cprob.dtype != torch.float32 or ious.dtype != torch.float32:
-        raise TypeError(f"nms_greedy: want float32 cprob and ious; got "
-                        f"{cprob.dtype}, {ious.dtype}")
-    if cprob.ndim != 3 or ious.shape != (*cprob.shape[:2], cprob.shape[1]):
+def _check(cprob: torch.Tensor, cboxes: torch.Tensor) -> None:
+    if cprob.dtype != torch.float32 or cboxes.dtype != torch.float32:
+        raise TypeError(f"nms_greedy: want float32 cprob and cboxes; got "
+                        f"{cprob.dtype}, {cboxes.dtype}")
+    if cprob.ndim != 3 or cboxes.shape != (*cprob.shape[:2], 4):
         raise ValueError(f"nms_greedy: cprob{tuple(cprob.shape)} and "
-                         f"ious{tuple(ious.shape)}; want (B, K, C), (B, K, K)")
-    if cprob.device != ious.device or cprob.device.type not in ("cpu",
-                                                                "cuda"):
+                         f"cboxes{tuple(cboxes.shape)}; want (B, K, C), "
+                         "(B, K, 4)")
+    if cprob.device != cboxes.device or cprob.device.type not in ("cpu",
+                                                                  "cuda"):
         raise ValueError(f"nms_greedy: operands on {cprob.device}, "
-                         f"{ious.device}")
+                         f"{cboxes.device}")
 
 
-def nms_greedy(cprob: torch.Tensor, ious: torch.Tensor,
+def row_stride(k: int) -> int:
+    """32-bit words of one row of the kernel's suppression table in memory:
+    ceil(K/32) rounded up to 4, so that every row is 16-byte aligned."""
+    return ((k + 31) // 32 + 3) // 4 * 4
+
+
+def walk_smem(k: int, warps: int) -> int:
+    """Bytes of dynamic shared memory of one block of the walk: the frame's
+    table, and per warp its class's scores by box (an odd stride), its live
+    boxes' scores, their box indices and order (u16) and its kept mask."""
+    return 4 * k * row_stride(k) + warps * (4 * (k | 1) + 8 * k + 128)
+
+
+def nms_greedy(cprob: torch.Tensor, cboxes: torch.Tensor,
                thresh: float) -> torch.Tensor:
-    """cprob (B, K, C) f32 (class scores, already thresholded), ious (B, K,
-    K) f32 -> (B, K, C) f32: cprob where the box survives class c's greedy
-    NMS at IoU ``thresh``, else 0. On the card: the ``nms_greedy`` kernel,
-    K <= MAX_K, contiguous operands."""
-    _check(cprob, ious)
+    """cprob (B, K, C) f32 (class scores, already thresholded), cboxes (B,
+    K, 4) f32 (center format) -> (B, K, C) f32: cprob where the box survives
+    class c's greedy NMS at IoU ``thresh``, else 0. On the card: the
+    ``nms_greedy`` kernel, K <= MAX_K, contiguous operands, WARPS classes a
+    block of its walk (C where C is smaller)."""
+    _check(cprob, cboxes)
     if cprob.device.type == "cpu":
-        return nms_greedy_plain(cprob, ious, thresh)
+        return nms_greedy_plain(cprob, cboxes, thresh)
     b, k, c = cprob.shape
     if not 1 <= k <= MAX_K:
         raise ValueError(f"nms_greedy: K={k}; the kernel takes 1 to {MAX_K}")
-    if not (cprob.is_contiguous() and ious.is_contiguous()):
+    if not (cprob.is_contiguous() and cboxes.is_contiguous()):
         raise ValueError("nms_greedy: the kernel needs contiguous operands")
+    if cboxes.data_ptr() % 16:
+        raise ValueError("nms_greedy: the kernel reads each box as 16 bytes; "
+                         "cboxes must be 16-byte aligned")
+    warps = min(WARPS, c)
+    if walk_smem(k, warps) > SMEM_MAX:
+        raise ValueError(f"nms_greedy: K={k} with {warps} classes a block "
+                         f"needs {walk_smem(k, warps)} bytes of shared memory;"
+                         f" a block has {SMEM_MAX}")
+    table = torch.empty((b, k, row_stride(k)), dtype=torch.int32,
+                        device=cprob.device)
     out = torch.empty_like(cprob)
     return _build.launch("nms_greedy", "yq_nms_greedy", out, cprob.data_ptr(),
-                         ious.data_ptr(), out.data_ptr(), b, k, c,
-                         float(thresh), counts=LAUNCHES)
+                         cboxes.data_ptr(), table.data_ptr(), out.data_ptr(),
+                         b, k, c, warps, float(thresh), counts=LAUNCHES)
 
 
 def candidates(boxes: torch.Tensor, obj: torch.Tensor, probs: torch.Tensor,
@@ -120,8 +149,7 @@ def candidates(boxes: torch.Tensor, obj: torch.Tensor, probs: torch.Tensor,
     """The NMS's inputs: darknet's threshold rule on the top-K objectness
     candidates (``nms.py:76-87``). boxes (B, N, 4), obj (B, N), probs (B,
     N, C) -> cboxes (B, K, 4), cprob (B, K, C) = obj * p zeroed unless
-    > thresh, their IoU matrix (B, K, K) and saturated (B,), K = min(topk,
-    N)."""
+    > thresh, and saturated (B,), K = min(topk, N)."""
     k = min(topk, obj.shape[1])
     obj_gated = torch.where(obj > thresh, obj, 0.0)
     saturated = (obj_gated > 0).sum(dim=1) > k
@@ -131,7 +159,7 @@ def candidates(boxes: torch.Tensor, obj: torch.Tensor, probs: torch.Tensor,
     cprob = probs.gather(1, idx[..., None].expand(-1, -1, probs.shape[2]))
     cprob = cprob * top_obj[..., None]
     cprob = torch.where(cprob > thresh, cprob, 0.0)
-    return cboxes, cprob, box_iou_matrix(cboxes, cboxes), saturated
+    return cboxes, cprob, saturated
 
 
 def topk_decode_nms(boxes: torch.Tensor, obj: torch.Tensor,
@@ -147,9 +175,8 @@ def topk_decode_nms(boxes: torch.Tensor, obj: torch.Tensor,
     objectness candidates. ``saturated[b]`` is True when frame b had more
     than K candidates over the threshold, where the host path, which takes
     all N, may differ."""
-    cboxes, cprob, ious, saturated = candidates(boxes, obj, probs, thresh,
-                                                topk)
-    cprob_nms = nms_greedy(cprob, ious, nms_thresh)
+    cboxes, cprob, saturated = candidates(boxes, obj, probs, thresh, topk)
+    cprob_nms = nms_greedy(cprob, cboxes, nms_thresh)
     best_c = cprob_nms.argmax(dim=2)                         # the first max
     best_p = cprob_nms.gather(2, best_c[..., None])[..., 0]
     valid = best_p > thresh
