@@ -7,7 +7,7 @@ for ``sm_90a`` (one nvcc per source, all started together) and drives the
 port's main paths, YOLOv2 at 416x416 with synthetic weights from seed 0 in
 each tier (fp32; int16-exact; int8 w8a8 with the head16 epilogue; w8a16)
 and in two plan slices of the int16 tier, every forward a replay of a CUDA
-graph that the engine captured, in five phases:
+graph that the engine captured, in six phases:
 
 1. card: name and power limit, torch and CUDA versions, kernel build time,
    each kernel's registers and spills (none allowed), each kernel's
@@ -106,6 +106,27 @@ graph that the engine captured, in five phases:
    (host prep, handoff to the call, copy in, replay and head out, handoff
    back) on and off call by call, and the handoff alone.
 
+6. artifacts, profile, report, pipeline (from a temporary directory): a
+   seeded full-width yolov2 darknet blob (BN on every conv but the last, u64
+   ``seen``; its size checked) through ``cli.weight_gen`` (--from-darknet
+   --reorg-out, then ``from_darknet`` with one seeded calibration image for
+   the int16 set), reloaded from the reorg files; the int16 and fp32
+   engines' detect heads from the reloaded store equal (``torch.equal``)
+   those of the same store built in memory and never written, the int16
+   ones also the plain versions on the card; ``profile_layers`` and
+   ``profile_prefix`` (int16, b=8, default plan) with the H100 roofline of
+   each (a row for all 32 layers, every conv row above 0 ms; no reading
+   faster than 1.05 of its bound: each row of ``profile_layers``, and each
+   prefix's own time, not its rows, which are differences of two readings),
+   the whole forward's time beside phase 3's replayed ms and the prefix
+   rows' sum;
+   ``cli.report`` run int16 (with its per-layer rows) and int8 at b=8, 10
+   steps, their bundles' three files, ``compare`` of the two and
+   ``parse-log`` of the detect requests' log; ``cli.pipeline`` over its six
+   stages (synthetic weights, batch 8, 5 steps), exit 0; the launches of
+   ``mm_q16``, ``conv3x3_q16``, ``mm_s8`` and ``conv3x3_s8`` in this phase,
+   read just after it, join the kernels' counts.
+
 Any failed check raises, so the exit code is not 0. The line before the
 last is a JSON record of the kernels; the last is
 ``{"ok": true, "device": {...}}``. JAX and the JAX package ``yolotpu`` are
@@ -132,8 +153,10 @@ sys.modules["yolotpu"] = None   # and of the JAX package
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from yolotpu_torch import darknet  # noqa: E402
 from yolotpu_torch.cli import gpu_check  # noqa: E402
 from yolotpu_torch.cli import main as cli_main  # noqa: E402
+from yolotpu_torch.cli import pipeline, report, weight_gen  # noqa: E402
 from yolotpu_torch.graph import MaxPoolSpec  # noqa: E402
 from yolotpu_torch.image import letterbox_image  # noqa: E402
 from yolotpu_torch.models import engine_plan, zoo  # noqa: E402
@@ -144,7 +167,11 @@ from yolotpu_torch.ops import (_build, convops, letterbox, nms, pool,  # noqa: E
 from yolotpu_torch.quant import (calibrate_activations,  # noqa: E402
                                  calibrate_activations_int8, quantize_weights,
                                  quantize_weights_int8, quantize_weights_w8a16)
-from yolotpu_torch.runtime.engine import Engine  # noqa: E402
+from yolotpu_torch.runtime.engine import Engine, load_or_synthesize  # noqa: E402
+from yolotpu_torch.runtime.profiler import (H100_CHIP,  # noqa: E402
+                                            prefix_alive_sets, profile_layers,
+                                            profile_prefix, render_roofline,
+                                            roofline_table)
 from yolotpu_torch.runtime.stream import StreamRunner  # noqa: E402
 from yolotpu_torch.weights import WeightStore  # noqa: E402
 
@@ -215,14 +242,15 @@ TC_INSTANCES = (("mm_q16", "", "3Q16", "MmTcIs"),
                 *(("conv3x3_pool_q16", f" (order {o})", f"7Q16PoolILi{i}E",
                    "ConvTcIsLb1E") for i, o in enumerate(q16.POOL_ORDERS)))
 INT8_KERNELS = ("mm_s8", "conv3x3_s8", "conv3x3_int8")   # int8 x int8
-# the card's peaks (NVIDIA H100 SXM data sheet, dense): 8-bit tensor-core
-# multiply-adds per second (1,979 T int8 ops) and device memory bytes per
-# second. A bound counts 4 8-bit products per MAC for int16 x int16, 2 for
-# int16 x int8 and 1 for int8 x int8, and each input, weight and output byte
-# once.
-PEAK_MAC8 = 1979e12 / 2
-PEAK_BYTES = 3.35e12
-PEAK_FP32 = 67e12   # fp32 operations per second outside the tensor cores
+# the card's peaks, one definition with the profiler's roofline
+# (runtime.profiler.H100_CHIP, the NVIDIA H100 SXM data sheet, dense): 8-bit
+# tensor-core multiply-adds per second (1,979 T int8 ops), device memory
+# bytes per second and fp32 operations per second outside the tensor cores.
+# A bound counts 4 8-bit products per MAC for int16 x int16, 2 for int16 x
+# int8 and 1 for int8 x int8, and each input, weight and output byte once.
+PEAK_MAC8 = H100_CHIP["peak_s8_tops"] * 1e12 / 2
+PEAK_BYTES = H100_CHIP["hbm_gbs"] * 1e9
+PEAK_FP32 = H100_CHIP["peak_fp32_tops"] * 1e12
 # nms_greedy at yolov2 416: N = 13*13*5 candidates, the engine's top K, and
 # the COCO classes; the engine's IoU threshold
 NMS_SHAPE = (845, 256, 80)
@@ -1597,7 +1625,7 @@ def phase_slice(spec, store: WeightStore, tier: str,
             f"{' / '.join(f'{t:.3f}' for t in v['head'])} ms head only: "
             f"+{np.mean(v['nms']) - np.mean(v['head']):.3f} ms per forward")
     return {"launches": launches, "per_forward": per_forward, "eng": eng,
-            "det": det, "plain": plain}
+            "det": det, "plain": plain, "replay_ms": float(np.mean(ms["replay"]))}
 
 
 def replay_kernels(dev: torch.device) -> None:
@@ -2567,6 +2595,240 @@ def phase_runtime(dev: torch.device) -> dict:
     return launches
 
 
+# phase 6: the artifact-to-report flow
+ARTIFACT_FRAMES = 2        # detect requests held across the stores
+PROFILE_BATCH = 8
+BOUND_SLACK = 1.05         # no profile reading may be faster than its bound
+REPORT_STEPS = 10
+PIPELINE_CONFIG = """\
+model: yolov2
+precision: int16
+compute: int32
+weights_dir: weights
+synthetic_weights: true
+report_label: p6_pipeline
+batch: 8
+steps: 5
+"""
+P6_KERNELS = ("mm_q16", "conv3x3_q16", "mm_s8", "conv3x3_s8")
+
+
+def darknet_layers(spec, rng) -> dict:
+    """Seeded darknet parameters for every conv of ``spec``: He-scaled
+    weights and, where the cfg says batch_normalize, BN statistics near the
+    identity, so the folded weights keep activations in a trained-like
+    range."""
+    layers = {}
+    for l in spec.conv_layers():
+        w = (rng.standard_normal((l.n, l.c, l.size, l.size), dtype=np.float32)
+             * np.float32(np.sqrt(2.0 / (l.c * l.size * l.size))))
+        b = (rng.standard_normal(l.n, dtype=np.float32) * np.float32(0.05))
+        bn = {}
+        if l.batch_normalize:
+            bn = {"scales": rng.uniform(0.8, 1.2, l.n).astype(np.float32),
+                  "rolling_mean": (rng.standard_normal(l.n, dtype=np.float32)
+                                   * np.float32(0.05)),
+                  "rolling_variance": rng.uniform(0.6, 1.4, l.n).astype(
+                      np.float32)}
+        layers[l.idx] = darknet.ConvParams(w, b, **bn)
+    return layers
+
+
+def check_rows(tag: str, what: str, report, doc: dict, spec) -> float:
+    """A row for every layer, every conv row above 0 ms, and no reading
+    faster than BOUND_SLACK of its bound (a reading faster than the card's
+    peak is a broken timer). A row of ``profile_layers`` is a reading. A
+    row of ``profile_prefix`` is the difference of two prefixes' readings
+    and carries both readings' noise, so there each prefix's own time
+    (``prefix_ms``) is held to the sum of the bounds of the layers it
+    runs. Returns the least reading over its bound."""
+    idx = [t.idx for t in report.timings]
+    zero = [t.idx for t in report.timings
+            if t.type == "convolutional" and not t.ms > 0]
+    floor = {r["idx"]: max(r["floor_mxu_ms"], r["floor_hbm_ms"])
+             for r in doc["rows"]}
+    if report.prefix_ms:
+        alive = prefix_alive_sets(spec)
+        readings = [(i, ms, sum(floor[j] for j in alive[i]))
+                    for i, ms in report.prefix_ms.items()]
+    else:
+        readings = [(t.idx, t.ms, floor[t.idx]) for t in report.timings]
+    fast = [(i, round(ms, 4), round(b, 4)) for i, ms, b in readings
+            if ms * BOUND_SLACK < b]
+    if idx != [l.idx for l in spec.layers] or zero or fast:
+        raise AssertionError(f"{tag} {what}: rows {idx}, conv rows at 0 ms "
+                             f"{zero}, readings faster than {BOUND_SLACK} "
+                             f"of their bound (idx, ms, bound ms) {fast}")
+    return min(ms / b for _, ms, b in readings if b > 0)
+
+
+def phase_artifacts(dev: torch.device, smi: str,
+                    replay_ms: float | None) -> dict:
+    """Phase 6 (see the module's docstring): darknet blob -> weight_gen ->
+    reload -> Engine, the profiler and its roofline, report bundles and the
+    pipeline, all at yolov2 416. Returns the phase's kernel launches."""
+    tag = "[artifacts]"
+    t0 = time.perf_counter()
+    spec = zoo.build("yolov2")
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) a seeded darknet blob -> the artifact contract -> reloaded
+        blob, wdir = f"{tmp}/yolov2.weights", f"{tmp}/weights"
+        darknet.write_darknet(blob, spec, darknet_layers(
+            spec, np.random.default_rng(6)), darknet.DarknetHeader(0, 2, 0))
+        floats = sum(l.n * (4 if l.batch_normalize else 1) + l.nweights
+                     for l in spec.conv_layers())
+        size = os.path.getsize(blob)
+        if size != 20 + 4 * floats:
+            raise AssertionError(f"{tag} blob of {size} bytes; want 20 + 4 x "
+                                 f"{floats}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = weight_gen.main(["--from-darknet", blob, "--out-dir", wdir,
+                                  "--reorg-out"])
+        if rc != 0:
+            raise AssertionError(f"{tag} weight_gen exited {rc}")
+        calib = [np.random.default_rng(0).random(
+            (3, spec.net.height, spec.net.width), dtype=np.float32)]
+        with contextlib.redirect_stdout(out):
+            weight_gen.from_darknet(spec, blob, wdir, calib, reorg_out=True)
+        files = sorted(os.listdir(wdir))
+        # the same store in memory, never written
+        mem = darknet.load_darknet_weights(spec, blob)
+        quantize_weights(mem, calibrate_activations(spec, mem, calib))
+        re16 = load_or_synthesize(spec, wdir, "int16")
+        re32 = load_or_synthesize(spec, wdir, "fp32")
+        say(f"{tag} darknet blob {size} bytes (20 + 4 x {floats} floats, u64 "
+            f"seen); weight_gen --from-darknet --reorg-out and its int16 set "
+            f"from one seeded image: {', '.join(files)}; reloaded from the "
+            f"reorg files in {time.perf_counter() - t0:.1f} s")
+        rng = np.random.default_rng(3)
+        frames = [rng.random((3, 480, 640), dtype=np.float32)
+                  for _ in range(ARTIFACT_FRAMES)]
+        heads = {}
+        for tier, stores in (("int16", (re16, mem)), ("fp32", (re32, mem))):
+            for name, store in zip(("reloaded", "in memory"), stores):
+                eng = Engine(spec, store, tier, dev)
+                results = [eng.detect(im) for im in frames]
+                heads[tier, name] = [torch.from_numpy(r.head_chw)
+                                     for _, r in results]
+                if tier == "int16" and name == "reloaded":
+                    plain = PlainYoloV2Q(spec, eng.qtables, eng.params, dev,
+                                         tier)
+                    hold_detect_heads(f"{tag} int16 reloaded", spec, frames,
+                                      results, plain, dev, False)
+                    log = "".join(f"frame {i}: inference time: "
+                                  f"{r.seconds * 1e3:.2f} ms\n"
+                                  for i, (_, r) in enumerate(results))
+                    del plain
+                del eng
+            got, want = heads[tier, "reloaded"], heads[tier, "in memory"]
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"{tag} {tier} heads of the reloaded "
+                                     "store != the in-memory store's")
+            say(f"{tag} {tier}: the {ARTIFACT_FRAMES} detect heads from the "
+                "reloaded reorg artifacts equal (torch.equal) those of the "
+                "in-memory store")
+        torch.cuda.empty_cache()
+
+        # (b) the profiler, int16 at b=8 under the default plan
+        t1 = time.perf_counter()
+        layers = profile_layers(spec, re16, "int16", batch=PROFILE_BATCH,
+                                device=dev)
+        prefix = profile_prefix(spec, re16, "int16", batch=PROFILE_BATCH,
+                                device=dev)
+        for what, rep in (("profile_layers", layers),
+                          ("profile_prefix", prefix)):
+            doc = roofline_table(rep, spec, PROFILE_BATCH, "int16")
+            say(f"{tag} {what} int16 b={PROFILE_BATCH}, {smi}:")
+            for line in render_roofline(doc).splitlines():
+                say(f"{tag}   {line}")
+            least = check_rows(tag, what, rep, doc, spec)
+            say(f"{tag}   the least of its "
+                + ("prefixes' times" if rep.prefix_ms else "rows")
+                + f" is {least:.2f}x its bound")
+        rows = sum(t.ms for t in prefix.timings)
+        say(f"{tag} the whole forward's replay (the last prefix) "
+            f"{prefix.total_ms:.3f} ms per batch of {PROFILE_BATCH}; phase "
+            "3's replayed int16 forward "
+            + (f"{replay_ms:.3f}" if replay_ms is not None else "not run")
+            + f" ms; the prefix rows sum to {rows:.3f} ms (the whole "
+            "forward's, but for deltas clamped at 0); each layer alone "
+            f"{layers.total_ms:.3f} ms; profiles took "
+            f"{time.perf_counter() - t1:.1f} s")
+
+        # (c) report bundles, int16 (with its per-layer rows) and int8
+        rd = f"{tmp}/reports"
+        bundles = []
+        for tier, extra in (("int16", ["--profile-layers"]), ("int8", [])):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = report.main(["--report-dir", rd, "run", "--label",
+                                  f"p6_{tier}", "--precision", tier,
+                                  "--batch", str(PROFILE_BATCH), "--steps",
+                                  str(REPORT_STEPS), "--synthetic-weights",
+                                  *extra])
+            bundle = out.getvalue().strip().splitlines()[-1]
+            missing = [f for f in ("meta.json", "metrics.json", "summary.md")
+                       if not os.path.exists(os.path.join(bundle, f))]
+            if rc != 0 or missing:
+                raise AssertionError(f"{tag} report run {tier}: exit {rc}, "
+                                     f"{bundle} lacks {missing}")
+            m = json.load(open(os.path.join(bundle, "metrics.json")))
+            lat = m["latency"]
+            if (lat["count"] != REPORT_STEPS or m["platform"] != "gpu"
+                    or len(m.get("per_layer", [])) != (
+                        spec.n if extra else 0)):
+                raise AssertionError(f"{tag} report run {tier}: {m}")
+            bundles.append(os.path.basename(bundle))
+            say(f"{tag} report run {tier} b={PROFILE_BATCH}: "
+                f"{lat['median_ms']:.3f} ms p50 a step ({lat['fps']:.1f} "
+                f"fps), b=1 replay p50 {m['batch1_device_p50_ms']} ms, build "
+                f"{m['build_seconds']} s, capture {m['capture_seconds']} s, "
+                f"peak {m['memory']['max_memory_allocated_bytes'] / 1e6:.0f} "
+                f"MB, {m['device']} {m['power_limit_w']} W"
+                + (f", {len(m['per_layer'])} per-layer rows" if extra else ""))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = report.main(["--report-dir", rd, "compare", *bundles])
+            with open(f"{tmp}/run.log", "w") as f:
+                f.write(log)
+            rc_log = report.main(["parse-log", f"{tmp}/run.log"])
+        stats = report.parse_inference_log(f"{tmp}/run.log")
+        if rc != 0 or rc_log != 0 or stats["count"] != ARTIFACT_FRAMES:
+            raise AssertionError(f"{tag} compare exited {rc}, parse-log "
+                                 f"{rc_log} with {stats}")
+        say(f"{tag} compare {bundles[0]} {bundles[1]}: "
+            f"{len(out.getvalue().splitlines())} lines; parse-log of the "
+            f"detect requests' log: {stats}")
+
+        # (d) the pipeline, its six stages, in the tempdir
+        with open(f"{tmp}/pipe.yaml", "w") as f:
+            f.write(PIPELINE_CONFIG)
+        out = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.chdir(tmp), contextlib.redirect_stdout(out):
+            rc = pipeline.main(["--config", "pipe.yaml"])
+        for line in out.getvalue().splitlines():
+            say(f"{tag} pipeline: {line}")
+        if rc != 0:
+            raise AssertionError(f"{tag} pipeline exited {rc}")
+        say(f"{tag} pipeline: all {len(pipeline.STAGES)} stages in "
+            f"{time.perf_counter() - t1:.1f} s")
+    torch.cuda.synchronize(dev)
+    launches = launch_counts()
+    if any(not launches[k] for k in P6_KERNELS) or any(
+            v for k, v in launches.items() if k not in P6_KERNELS):
+        raise AssertionError(f"{tag} launched {launches}; want each of "
+                             f"{P6_KERNELS} and no other")
+    say(f"{tag} launched " + ", ".join(f"{k} {v}" for k, v in launches.items()
+                                       if v)
+        + f"; phase 6 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs "
@@ -2580,7 +2842,7 @@ def main() -> int:
 
 
 def run(dev: torch.device) -> int:
-    """Phases 1-5 on ``dev``, then the JSON record of the kernels and the
+    """Phases 1-6 on ``dev``, then the JSON record of the kernels and the
     last line."""
     t0 = time.perf_counter()
     smi = phase_card()
@@ -2635,6 +2897,13 @@ def run(dev: torch.device) -> int:
     for k in launches:
         launches[k] += runtime.get(k, 0)
     say(f"[card] phases 1-5 took {time.perf_counter() - t0:.1f} s")
+    replay_ms = runs["int16"]["replay_ms"]
+    del runs
+    torch.cuda.empty_cache()
+    artifacts = phase_artifacts(dev, smi, replay_ms)
+    for k in launches:
+        launches[k] += artifacts.get(k, 0)
+    say(f"[card] phases 1-6 took {time.perf_counter() - t0:.1f} s")
 
     def at(f: dict) -> dict:
         return {"ms": f["ms"], "device_ms": f.get("device_ms"),
@@ -2654,10 +2923,11 @@ def run(dev: torch.device) -> int:
     # forward, from the profiler; graph_ms and library_graph_ms, for the 1x1
     # kernels and the fused conv+pool, the kernel and the library calls
     # alone in CUDA graph replays; for nms_greedy phase 2's tables at batch
-    # 8 and 1); launches: the main paths' launches (phases 3 and 5), each
+    # 8 and 1); launches: the main paths' launches (phases 3, 5 and 6), each
     # path's forwards run once eagerly and once under capture
-    # (launches_per_forward; phase 5's streaming path: its three graphs),
-    # and replayed for every request
+    # (launches_per_forward; phase 5's streaming path: its three graphs;
+    # phase 6's engines, profiles, report bundles and pipeline), and
+    # replayed for every request
     kernels = []
     for name, (src, rep) in KERNEL_SOURCES.items():
         nms_b8 = nms_times[BATCH_SLICE] if name == "nms_greedy" else None

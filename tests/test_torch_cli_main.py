@@ -2,8 +2,10 @@
 and its gpu_check against yolotpu's cli.main and cli.tpu_check, on the CPU:
 the same argv parses to the same values; image mode and video mode on a
 small cfg write the same JSONL records and annotated PNG as yolotpu's;
---profile exits 2 (the profiler comes with M11); gpu_check fails without a
+--profile prints a row per layer in each mode; gpu_check fails without a
 card."""
+
+import os
 
 import numpy as np
 import pytest
@@ -11,6 +13,8 @@ import torch
 
 from yolotpu.cli import main as jmain
 from yolotpu_torch.cli import gpu_check, main
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # the port's parser's own destination
 DIFFERENT = {"device"}
@@ -131,9 +135,28 @@ def test_video_mode_equals_yolotpu(tmp_path, monkeypatch):
     assert len(got["port"][1]) == 5
 
 
-def test_profile_exits_2_before_any_model_work(capsys):
-    assert main.main(["--profile", "--model", "no-such-model"]) == 2
-    assert "M11" in capsys.readouterr().err
+@pytest.mark.parametrize("mode,compute,printed", [
+    ("layer", "int32", "layer"), ("prefix", "int32", "prefix"),
+    ("auto", "int32", "layer"), ("auto", "pallas", "prefix")])
+def test_profile_prints_a_row_per_layer(tmp_path, monkeypatch, capsys, mode,
+                                        compute, printed):
+    """--profile on the CPU at 64x64: a row per layer in each mode (auto:
+    prefix for --compute pallas, layer otherwise, as yolotpu picks), the
+    top-10 table, then the run."""
+    from yolotpu_torch.models import zoo
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("YOLO2_NO_DUMP", "1")
+    (tmp_path / "y.cfg").write_text(zoo.to_cfg("yolov2").replace(
+        "width=416", "width=64").replace("height=416", "height=64"))
+    image = os.path.join(REPO, "examples", "small.png")
+    assert main.main(["-c", "y.cfg", "--synthetic-weights", "--device", "cpu",
+                      "--profile", "--profile-mode", mode, "--profile-batch",
+                      "1", "--compute", compute, "-i", image]) == 0
+    out = capsys.readouterr().out
+    rows = [l for l in out.splitlines() if l.startswith(f"  {printed} ")]
+    assert [int(l.split()[1]) for l in rows] == (
+        list(range(32)) if printed == "layer" else list(range(1, 33)))
+    assert "Top 10 slowest layers:" in out and "inference time:" in out
     assert main.main(["-i", "a.png", "--video", "b.mp4"]) == 2
 
 

@@ -8,7 +8,9 @@ kernel path never falls back.
   slice (the int16 Engine, under the default plan and under
   YOLO2_Q16_PLAN; the fp32 Engine with device NMS on raw frames; the
   detect CLI; the golden backend, per-layer dumps, the stream runner with
-  the native library, and the runtime CLIs) at 64x64 on the CPU.
+  the native library, and the runtime CLIs; a darknet blob through
+  weight_gen and back, the runtime CLI's --profile, a report bundle and the
+  pipeline) at 64x64 on the CPU.
 - With no card, Engine(device="cuda") raises, and a kernel launch raises
   without counting a launch.
 - The nvcc command targets sm_90a and compiles only the port's csrc/*.cu
@@ -76,9 +78,43 @@ class Src:
     def read(self): return self.f.pop() if self.f else None
 summary = StreamRunner(eng, StreamConfig(mode="video")).run(Src())
 assert summary["count"] == 2 and native.available()
-assert runtime_main.main(["--profile"]) == 2
 import torch
 assert gpu_check.main(["enumerate"]) == (0 if torch.cuda.is_available() else 1)
+# the artifact-to-report flow: a darknet blob through weight_gen, reloaded;
+# main --profile; a report bundle; the pipeline
+from yolotpu_torch import darknet
+from yolotpu_torch.cli import pipeline, report, weight_gen
+cfg = os.path.join(sys.argv[2] + "_w", "yolov2_64.cfg")
+os.makedirs(os.path.dirname(cfg))
+open(cfg, "w").write(zoo.to_cfg("yolov2").replace("width=416", "width=64")
+                     .replace("height=416", "height=64"))
+blob = cfg.replace(".cfg", ".weights")
+darknet.write_darknet(blob, spec, {l.idx: darknet.ConvParams(
+    *store.fp32[l.idx], *((np.ones(l.n, np.float32), np.zeros(l.n, np.float32),
+                          np.ones(l.n, np.float32)) if l.batch_normalize
+                         else ())) for l in spec.conv_layers()})
+wdir = os.path.dirname(cfg)
+assert weight_gen.main(["--cfg", cfg, "--from-darknet", blob, "--out-dir",
+                        wdir, "--reorg-out"]) == 0
+mem = weight_gen.from_darknet(spec, blob, wdir, [boxed], reorg_out=True)
+back = load_or_synthesize(spec, wdir, "int16")
+assert back.qtables == mem.qtables and all(
+    (back.int16[i][0] == mem.int16[i][0]).all() for i in back.int16)
+assert runtime_main.main(["-c", cfg, "-w", wdir, "--device", "cpu",
+                          "--profile", "--profile-mode", "layer",
+                          "--profile-batch", "1", "-i", sys.argv[1]]) == 0
+try:
+    runtime_main.main(["-c", cfg, "--synthetic-weights", "--profile"])
+    raise AssertionError("--profile ran with no card")
+except RuntimeError as e:
+    assert torch.cuda.is_available() or "no CUDA device" in str(e), e
+assert report.main(["--report-dir", wdir + "/reports", "run", "--width", "64",
+                    "--height", "64", "--batch", "1", "--steps", "1",
+                    "--synthetic-weights", "--device", "cpu",
+                    "--no-batch1-p50"]) == 0
+assert pipeline.main(["--to", "host_sanity"]) == 0
+assert pipeline.main(["--from", "gpu_build", "--to", "gpu_build"]) == (
+    0 if torch.cuda.is_available() else 1)
 loaded = sorted(n for n, m in sys.modules.items() if m is not None
                 and n.split(".")[0] in ("jax", "jaxlib", "flax", "yolotpu"))
 assert not loaded, loaded
@@ -115,7 +151,9 @@ def test_port_sources_never_import_jax():
             "yolotpu_torch.runtime.jsonl", "yolotpu_torch.runtime.camera",
             "yolotpu_torch.runtime.v4l2", "yolotpu_torch.runtime.video",
             "yolotpu_torch.runtime.mjpeg", "yolotpu_torch.cli.detect",
-            "yolotpu_torch.cli.main", "yolotpu_torch.cli.gpu_check"} <= names
+            "yolotpu_torch.cli.main", "yolotpu_torch.cli.gpu_check",
+            "yolotpu_torch.darknet", "yolotpu_torch.cli.weight_gen",
+            "yolotpu_torch.cli.report", "yolotpu_torch.cli.pipeline"} <= names
 
 
 def test_engine_on_cuda_raises_without_a_card():

@@ -10,8 +10,11 @@ the board app, ``linux_app/src/main.c:242-277``): -i image, --camera <dev>,
 --video-width/height/fps, --save-annotated-dir, --output-json,
 --stream-mjpeg[-quality|-fps], --profile[-mode|-batch]; and --device (cuda
 by default; cpu runs the kernels' plain versions). --backend xla runs the
-engine's device backend, golden the numpy oracle. --profile parses, and
-exits 2: the per-layer profiler comes with ROADMAP.md Queue 1, M11.
+engine's device backend, golden the numpy oracle. --profile prints the
+per-layer table (``runtime.profiler``) on --device before the run:
+``--profile-mode prefix`` times the real forward's prefixes, ``layer``
+each layer alone, and ``auto`` picks prefix for --compute pallas, as
+``yolotpu`` does.
 
 The accelerator init sequence (mmap /dev/mem, udmabuf, chunked uncached
 copies — main.c:559-735) becomes: build the engine, its weights on the card
@@ -76,10 +79,12 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--stream-mjpeg-quality", type=int, default=80)
     ap.add_argument("--stream-mjpeg-fps", type=int, default=15)
     ap.add_argument("--profile", action="store_true",
-                    help="per-layer timing table before the run (comes with "
-                         "the profiler, ROADMAP.md M11; exits 2 until then)")
+                    help="per-layer timing table before the run")
     ap.add_argument("--profile-mode", default="auto",
-                    choices=["auto", "prefix", "layer"])
+                    choices=["auto", "prefix", "layer"],
+                    help="prefix = the real forward's prefixes, one captured "
+                         "graph each; layer = each layer alone; auto picks "
+                         "prefix for --compute pallas")
     ap.add_argument("--profile-batch", type=int, default=8)
     return ap
 
@@ -152,15 +157,25 @@ def main(argv: list[str] | None = None) -> int:
     if len(modes) > 1:
         print("error: -i/--camera/--video are mutually exclusive", file=sys.stderr)
         return 2
-    if args.profile:
-        print("error: --profile needs the per-layer profiler, which the "
-              "PyTorch port does not have yet (ROADMAP.md, Queue 1, M11)",
-              file=sys.stderr)
-        return 2
 
     spec, store = load_model(args)
     eng = build_engine(args, spec, store)
     labels = labels_of(args, spec)
+
+    if args.profile:
+        from ..runtime.profiler import profile_layers, profile_prefix
+        mode = args.profile_mode
+        if mode == "auto":
+            mode = "prefix" if args.compute == "pallas" else "layer"
+        if mode == "prefix":
+            rep = profile_prefix(spec, store, args.precision, args.compute,
+                                 batch=args.profile_batch, progress=True,
+                                 device=args.device)
+        else:
+            rep = profile_layers(spec, store, args.precision, args.compute,
+                                 batch=args.profile_batch, progress=True,
+                                 device=args.device)
+        print(rep.render())
 
     # ---------------- image mode (main.c:769-876) ----------------------
     if args.camera is None and args.video is None:

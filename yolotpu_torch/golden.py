@@ -137,6 +137,25 @@ def reorg_darknet(x: np.ndarray, stride: int) -> np.ndarray:
 # INT16 fixed-point primitives (bit-exact vs. hls/core/core_compute.cpp)
 # ---------------------------------------------------------------------------
 
+def reorg_index_math(x: np.ndarray, w: int, h: int, c: int, stride: int) -> np.ndarray:
+    """Literal transcription of the reference index formula
+    (``yolo2_model.cpp:112-129``) for cross-checking ``reorg_darknet``."""
+    xf = np.ascontiguousarray(x).reshape(-1)
+    out = np.empty_like(xf)
+    out_c = c // (stride * stride)
+    for k in range(c):
+        c2 = k % out_c
+        offset = k // out_c
+        for j in range(h):
+            h2 = j * stride + offset // stride
+            for i in range(w):
+                in_index = i + w * (j + h * k)
+                w2 = i * stride + offset % stride
+                out_index = w2 + w * stride * (h2 + h * stride * c2)
+                out[in_index] = xf[out_index]
+    return out
+
+
 def sat16(x: np.ndarray) -> np.ndarray:
     return np.clip(x, -32768, 32767)
 

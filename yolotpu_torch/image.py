@@ -81,6 +81,37 @@ def resize_image(im: np.ndarray, w: int, h: int) -> np.ndarray:
     return out.astype(np.float32)
 
 
+def resize_image_scalar(im: np.ndarray, w: int, h: int) -> np.ndarray:
+    """Literal loop transcription of resize_image (yolo_image.cpp:84-127)
+    for cross-checking the vectorized version in tests."""
+    c, src_h, src_w = im.shape
+    part = np.zeros((c, src_h, w), np.float32)
+    w_scale = np.float32(src_w - 1) / np.float32(w - 1) if w > 1 else np.float32(0)
+    h_scale = np.float32(src_h - 1) / np.float32(h - 1) if h > 1 else np.float32(0)
+    for k in range(c):
+        for r in range(src_h):
+            for col in range(w):
+                if col == w - 1 or src_w == 1:
+                    val = im[k, r, src_w - 1]
+                else:
+                    sx = np.float32(np.float32(col) * w_scale)
+                    ix = int(sx)
+                    dx = np.float32(sx - np.float32(ix))
+                    val = (1 - dx) * im[k, r, ix] + dx * im[k, r, ix + 1]
+                part[k, r, col] = val
+    out = np.zeros((c, h, w), np.float32)
+    for k in range(c):
+        for r in range(h):
+            sy = np.float32(np.float32(r) * h_scale)
+            iy = int(sy)
+            dy = np.float32(sy - np.float32(iy))
+            out[k, r, :] = (1 - dy) * part[k, iy, :]
+            if r == h - 1 or src_h == 1:
+                continue
+            out[k, r, :] += dy * part[k, iy + 1, :]
+    return out
+
+
 def letterbox_image(im: np.ndarray, w: int, h: int) -> np.ndarray:
     """Aspect-preserving resize into a 0.5-gray (w,h) canvas.
 

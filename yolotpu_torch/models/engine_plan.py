@@ -79,6 +79,18 @@ def plan_overrides() -> dict[int, str]:
     return _parse_plan_items(os.environ.get("YOLO2_Q16_PLAN", ""))
 
 
+def tier_overrides(spec: NetworkSpec, precision: str) -> dict[int, str] | None:
+    """The overrides a tier's model over ``spec`` is built with:
+    ``plan_overrides()`` for int16 (None for the other tiers), less a kind
+    that folds the pool after ``spec``'s last layer, which ``spec`` does not
+    hold (a prefix of the network ending at that conv)."""
+    if precision != "int16":
+        return None
+    last = spec.layers[-1].idx
+    return {i: k for i, k in plan_overrides().items()
+            if i != last or k not in POOL_ORDER}
+
+
 def next_is_pool22(spec: NetworkSpec, idx: int) -> bool:
     """True when the layer after ``idx`` is a darknet 2x2/s2 maxpool whose
     effective padding is zero (darknet's default padding=size-1 pads only

@@ -337,43 +337,56 @@ class YoloV2Q(nn.Module):
     def _dequantize(self, x: torch.Tensor, q: int | None) -> torch.Tensor:
         return x if self.plan is None else convops.dequantize_int16(x, q)
 
-    @torch.no_grad()
-    def forward(self, x: torch.Tensor) -> dict:
+    def quantize_input(self, x: torch.Tensor) -> torch.Tensor:
+        """Frames as the first layer takes them: uint8 /255, then the
+        tier's input quantization (fp32: as they are)."""
         plan = self.plan
         if x.dtype == torch.uint8:
             x = convops.normalize_u8(x)
         if plan is None:
-            cur = x.to(torch.float32)
-        elif self.precision == "int8":
-            cur = convops.quantize_input_int8(x, plan.input_q)
-        else:
-            cur = convops.quantize_input_int16(x, plan.input_q)
+            return x.to(torch.float32)
+        if self.precision == "int8":
+            return convops.quantize_input_int8(x, plan.input_q)
+        return convops.quantize_input_int16(x, plan.input_q)
+
+    def step(self, l, cur: torch.Tensor,
+             acts: dict[int, torch.Tensor]) -> torch.Tensor:
+        """Layer ``l`` of the walk: its output from ``cur``, the previous
+        layer's output, and ``acts``, the outputs that routes read (a pool
+        that a conv computes passes ``cur`` on; the region layer
+        dequantizes the head)."""
+        if isinstance(l, ConvSpec):
+            return self._conv(l, cur)
+        if isinstance(l, MaxPoolSpec):
+            return (cur if l.idx in self.folded
+                    else pool.maxpool(cur, l.size, l.stride, l.padding))
+        if isinstance(l, ReorgSpec):
+            cur = reorg.reorg(cur, l.stride)
+            sh = 0 if self.plan is None else self.plan.reorg_realign.get(l.idx, 0)
+            return convops.realign_int16(cur, sh) if sh else cur
+        if isinstance(l, RouteSpec):
+            return (acts[l.layers[0]] if len(l.layers) == 1 else
+                    torch.cat([acts[s] for s in l.layers], dim=-1))
+        if isinstance(l, RegionSpec):
+            return self._dequantize(cur, self._head_q)
+        return cur
+
+    @torch.no_grad()
+    def forward(self, x: torch.Tensor) -> dict:
+        cur = self.quantize_input(x)
         acts: dict[int, torch.Tensor] = {}
         every = {} if "acts" in self.outputs else None
         head = None
         for l in self.spec.layers:
-            if isinstance(l, ConvSpec):
-                cur = self._conv(l, cur)
-            elif isinstance(l, MaxPoolSpec):
-                if l.idx not in self.folded:
-                    cur = pool.maxpool(cur, l.size, l.stride, l.padding)
-            elif isinstance(l, ReorgSpec):
-                cur = reorg.reorg(cur, l.stride)
-                sh = 0 if plan is None else plan.reorg_realign.get(l.idx, 0)
-                if sh:
-                    cur = convops.realign_int16(cur, sh)
-            elif isinstance(l, RouteSpec):
-                cur = (acts[l.layers[0]] if len(l.layers) == 1 else
-                       torch.cat([acts[s] for s in l.layers], dim=-1))
-            elif isinstance(l, RegionSpec):
-                head = self._dequantize(cur, self._head_q)
-                cur = head
+            cur = self.step(l, cur, acts)
+            if isinstance(l, RegionSpec):
+                head = cur
             if l.idx in self._needed:
                 acts[l.idx] = cur
             if every is not None:
                 every[l.idx] = cur
         if head is None:   # headless graph
-            head = self._dequantize(cur, plan and plan.output_q)
+            head = self._dequantize(cur, self.plan and self.plan.output_q)
         out = {} if every is None else {"acts": every}
         if "head" in self.outputs:
             out["head"] = head

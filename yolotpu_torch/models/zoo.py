@@ -9,6 +9,8 @@ its own copy and imports nothing of ``yolotpu``.
 
 from __future__ import annotations
 
+import io
+
 from ..cfg import Section
 from ..graph import NetworkSpec
 
@@ -94,3 +96,17 @@ def build(name: str, batch: int = 1, width: int | None = None,
     for i, (t, opts) in enumerate(m["layers"], start=1):
         sections.append(Section(type=t, line=i, options=dict(opts)))
     return NetworkSpec.from_sections(sections, batch=batch)
+
+
+def to_cfg(name: str) -> str:
+    """Emit a darknet-compatible cfg for interop with darknet tooling."""
+    m = MODELS[name]
+    buf = io.StringIO()
+    buf.write(f"[net]\nbatch=1\nsubdivisions=1\nwidth={m['width']}\n"
+              f"height={m['height']}\nchannels=3\n\n")
+    for t, opts in m["layers"]:
+        buf.write(f"[{t}]\n")
+        for k, v in opts.items():
+            buf.write(f"{k}={v}\n")
+        buf.write("\n")
+    return buf.getvalue()

@@ -122,3 +122,9 @@ def load_names(path: str) -> list[str]:
     """One class name per line of ``path``."""
     with open(path) as f:
         return [l.rstrip("\n") for l in f]
+
+
+def write_names(names: list[str], path: str) -> None:
+    with open(path, "w") as f:
+        for n in names:
+            f.write(n + "\n")

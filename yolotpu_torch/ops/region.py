@@ -64,3 +64,16 @@ def decode_region(head: torch.Tensor, spec: RegionSpec, biases: torch.Tensor):
     boxes = torch.stack([bx, by, bw, bh], dim=-1).reshape(bsz, lh * lw * n, 4)
     return (boxes, obj.reshape(bsz, -1),
             probs.reshape(bsz, lh * lw * n, classes))
+
+
+def activated_head(head: torch.Tensor, spec: RegionSpec) -> torch.Tensor:
+    """forward_region_layer equivalent: the full activated tensor in NHWC
+    (sigmoid x/y/obj, softmax classes, w/h raw), for dump parity."""
+    bsz, lh, lw, _ = head.shape
+    n, coords, classes = spec.num, spec.coords, spec.classes
+    x = head.reshape(bsz, lh, lw, n, coords + classes + 1)
+    xy = torch.sigmoid(x[..., :2])
+    wh = x[..., 2:coords]
+    obj, cls = _activate_obj_cls(x, spec)
+    out = torch.cat([xy, wh, obj[..., None], cls], dim=-1)
+    return out.reshape(bsz, lh, lw, n * (coords + classes + 1))

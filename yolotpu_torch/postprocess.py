@@ -136,6 +136,21 @@ def get_region_detections(activated: np.ndarray, spec: RegionSpec,
             for k in range(keep_a.size)]
 
 
+def box_iou(a, b) -> float:
+    def overlap(x1, w1, x2, w2):
+        l1, l2 = x1 - w1 / 2, x2 - w2 / 2
+        r1, r2 = x1 + w1 / 2, x2 + w2 / 2
+        return min(r1, r2) - max(l1, l2)
+
+    w = overlap(a[0], a[2], b[0], b[2])
+    h = overlap(a[1], a[3], b[1], b[3])
+    if w < 0 or h < 0:
+        return 0.0
+    inter = w * h
+    union = a[2] * a[3] + b[2] * b[3] - inter
+    return inter / union if union else 0.0
+
+
 def do_nms_sort(dets: list[Detection], classes: int, thresh: float) -> list[Detection]:
     """Class-wise greedy NMS, exactly do_nms_sort (yolo_post.cpp:54-85):
     compact zero-objectness entries away, then per class sort by that class's

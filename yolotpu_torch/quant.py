@@ -35,6 +35,10 @@ def quantize_tensor(x: np.ndarray, q: int) -> np.ndarray:
     return np.clip(r, -32768, 32767).astype(np.int16)
 
 
+def dequantize_tensor(x: np.ndarray, q: int) -> np.ndarray:
+    return x.astype(np.float32) * np.float32(np.ldexp(1.0, -q))
+
+
 def quantize_weights(store: WeightStore, act_q: list[int],
                      margin: float = 1.0,
                      max_shift_out: int = 12) -> WeightStore:

@@ -222,9 +222,7 @@ class Engine:
             raise ValueError("compute='exact' (the HLS core's per-group "
                              "saturating accumulation) runs on the golden "
                              "backend only: use backend='golden'")
-        weights, qtables, make_params, missing = _TIERS[precision]
-        if not getattr(store, weights):
-            raise ValueError(missing)
+        self.qtables = tier_qtables(store, precision)
         self.device = torch.device(device)
         if (backend == "device" and self.device.type == "cuda"
                 and not torch.cuda.is_available()):
@@ -236,7 +234,6 @@ class Engine:
         self.backend = backend
         self.compute = compute
         self.device_nms = device_nms and backend == "device"
-        self.qtables = getattr(store, qtables) if qtables else None
         # (letterboxed on the device?, input dtype, input shape) -> graph
         self.graphs: dict[tuple, CapturedForward] = {}
         # the watchdog's state: keys seen (no first-use grace), the worker,
@@ -254,11 +251,10 @@ class Engine:
         if self.device.type == "cuda":
             self._cuda_index = (self.device.index if self.device.index
                                 is not None else torch.cuda.current_device())
-        self.params = make_params(spec, store, self.device)
+        self.params = tier_params(spec, store, precision, self.device)
         # the int16 tier's per-layer engine lever, read as yolotpu's
         # params_q16 reads it; no plan file until one is measured on the card
-        self._overrides = (engine_plan.plan_overrides()
-                           if precision == "int16" else None)
+        self._overrides = engine_plan.tier_overrides(spec, precision)
         self.model = YoloV2Q(spec, self.qtables, self.params, self.device,
                              precision, self._overrides,
                              ("head", "detections") if device_nms else ("head",),
@@ -361,6 +357,34 @@ class Engine:
         g.graph.replay()
         g.replays += 1
         return g.out
+
+    def forward_ms(self, frames: np.ndarray, n: int) -> list[float]:
+        """ms of each of ``n`` forwards of host NHWC ``frames``: on a card
+        the device time, CUDA events around each replay of the graph that
+        serves them (captured at first use, the frames copied in once); on
+        the CPU the host clock around each eager forward."""
+        if self.backend != "device":
+            raise ValueError("forward_ms times the device backend; the "
+                             "engine was built with backend='golden'")
+        x = torch.from_numpy(np.ascontiguousarray(frames))
+        ts = []
+        if self.device.type != "cuda":
+            for _ in range(n):
+                t0 = time.perf_counter()
+                self._forward(x, letterbox=False)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            return ts
+        g = self._graph(x, letterbox=False)
+        g.inp.copy_(x)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        for _ in range(n):
+            start.record()
+            g.graph.replay()
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end))
+        g.replays += n
+        return ts
 
     def _call(self, frames: np.ndarray, fetch, letterbox: bool = False):
         """fetch(outputs) of one forward of host NHWC frames, under the
@@ -543,6 +567,24 @@ class Engine:
                                      net_w=net_w, net_h=net_h, thresh=thresh)
         dets = do_nms_sort(dets, self.spec.region.classes, nms)
         return dets, res
+
+
+def tier_qtables(store: WeightStore, precision: str):
+    """The store's Q tables of a precision tier (None for fp32);
+    ValueError when the store lacks the tier's weights."""
+    weights, qtables, _, missing = _TIERS[precision]
+    if not getattr(store, weights):
+        raise ValueError(missing)
+    return getattr(store, qtables) if qtables else None
+
+
+def tier_params(spec: NetworkSpec, store: WeightStore, precision: str,
+                device: torch.device | str) -> dict:
+    """The parameters of a precision tier on ``device``, from the store, as
+    the engine's device backend takes them; ValueError when the store lacks
+    the tier's weights."""
+    tier_qtables(store, precision)
+    return _TIERS[precision][2](spec, store, device)
 
 
 def maybe_dump_region(values: np.ndarray, raw: bool) -> None:

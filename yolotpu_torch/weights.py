@@ -13,8 +13,10 @@ Formats (reference ``weights/README.md:193-221``, ``yolo2_model.cpp:158-227``):
 - ``weight_int16_Q.bin`` / ``bias_int16_Q.bin``  int32 Q per conv layer
 - ``iofm_Q.bin``             int32, n_convs+1 activation Qs (in/out per conv)
 
-Mirrors ``yolotpu/weights.py`` (only what the port uses); the port keeps
-its own copy and imports nothing of ``yolotpu``.
+The reorg format is supported both ways (read via the inverse transform,
+written via the forward transform), so artifacts made for the FPGA flow
+stay usable. Mirrors ``yolotpu/weights.py``; the port keeps its own copy
+and imports nothing of ``yolotpu``.
 """
 
 from __future__ import annotations
@@ -45,6 +47,11 @@ class QTables:
     bias_q: list[int] = field(default_factory=list)
     act_q: list[int] = field(default_factory=list)
 
+    def save(self, dirpath: str) -> None:
+        np.asarray(self.weight_q, np.int32).tofile(os.path.join(dirpath, "weight_int16_Q.bin"))
+        np.asarray(self.bias_q, np.int32).tofile(os.path.join(dirpath, "bias_int16_Q.bin"))
+        np.asarray(self.act_q, np.int32).tofile(os.path.join(dirpath, "iofm_Q.bin"))
+
     @classmethod
     def load(cls, dirpath: str) -> "QTables":
         return cls(
@@ -52,6 +59,27 @@ class QTables:
             bias_q=np.fromfile(os.path.join(dirpath, "bias_int16_Q.bin"), np.int32).tolist(),
             act_q=np.fromfile(os.path.join(dirpath, "iofm_Q.bin"), np.int32).tolist(),
         )
+
+
+def weight_reorg(w: np.ndarray, tm: int = DEFAULT_TM, tn: int = DEFAULT_TN) -> np.ndarray:
+    """Darknet (n, c, k, k) -> FPGA streaming order, one flat array.
+
+    Per (m-block of tm, n-block of tn): kk-major, then tm, then tn
+    (``yolov2_weight_gen.cpp:43-67``). Ragged edge blocks keep their reduced
+    TM_MIN/TN_MIN extents.
+    """
+    n, c, k, _ = w.shape
+    out = np.empty(w.size, dtype=w.dtype)
+    pos = 0
+    wk = w.reshape(n, c, k * k)
+    for m0 in range(0, n, tm):
+        m1 = min(m0 + tm, n)
+        for c0 in range(0, c, tn):
+            c1 = min(c0 + tn, c)
+            block = wk[m0:m1, c0:c1, :].transpose(2, 0, 1)   # (kk, tm, tn)
+            out[pos:pos + block.size] = block.reshape(-1)
+            pos += block.size
+    return out
 
 
 def weight_unreorg(flat: np.ndarray, n: int, c: int, k: int,
@@ -109,6 +137,39 @@ class WeightStore:
         if len(store.qtables.act_q) < n_convs + 1:
             raise ValueError("iofm_Q.bin must have n_convs+1 entries")
         return store
+
+    # -- saving (reference-compatible artifacts) ----------------------------
+    def save_fp32(self, dirpath: str, reorg: bool = False,
+                  tm: int = DEFAULT_TM, tn: int = DEFAULT_TN) -> None:
+        os.makedirs(dirpath, exist_ok=True)
+        ws, bs = [], []
+        for l in self.spec.conv_layers():
+            w, b = self.fp32[l.idx]
+            ws.append(weight_reorg(w, tm, tn) if reorg else w.reshape(-1))
+            bs.append(b)
+        name = "weights_reorg.bin" if reorg else "weights.bin"
+        np.concatenate(ws).astype(np.float32).tofile(os.path.join(dirpath, name))
+        np.concatenate(bs).astype(np.float32).tofile(os.path.join(dirpath, "bias.bin"))
+
+    def save_int16(self, dirpath: str, reorg: bool = False,
+                   tm: int = DEFAULT_TM, tn: int = DEFAULT_TN) -> None:
+        """Write int16 artifacts with the reference's odd-count padding."""
+        os.makedirs(dirpath, exist_ok=True)
+        ws, bs = [], []
+        for l in self.spec.conv_layers():
+            w, b = self.int16[l.idx]
+            wf = weight_reorg(w, tm, tn) if reorg else w.reshape(-1)
+            ws.append(wf)
+            if wf.size & 1:
+                ws.append(np.zeros(1, np.int16))
+            bs.append(b)
+            if b.size & 1:
+                bs.append(np.zeros(1, np.int16))
+        wname = "weights_reorg_int16.bin" if reorg else "weight_int16.bin"
+        np.concatenate(ws).astype(np.int16).tofile(os.path.join(dirpath, wname))
+        np.concatenate(bs).astype(np.int16).tofile(os.path.join(dirpath, "bias_int16.bin"))
+        if self.qtables is not None:
+            self.qtables.save(dirpath)
 
     # -- synthetic weights ---------------------------------------------------
     @classmethod
