@@ -7,7 +7,8 @@ for ``sm_90a`` (one nvcc per source, all started together) and drives the
 port's main paths, YOLOv2 at 416x416 with synthetic weights from seed 0 in
 each tier (fp32; int16-exact; int8 w8a8 with the head16 epilogue; w8a16)
 and in two plan slices of the int16 tier, every forward a replay of a CUDA
-graph that the engine captured, in six phases:
+graph that the engine captured, then trains it and scores the trained
+weights through the integer tiers, in seven phases:
 
 1. card: name and power limit, torch and CUDA versions, kernel build time,
    each kernel's registers and spills (none allowed), each kernel's
@@ -121,11 +122,36 @@ graph that the engine captured, in six phases:
    the whole forward's time beside phase 3's replayed ms and the prefix
    rows' sum;
    ``cli.report`` run int16 (with its per-layer rows) and int8 at b=8, 10
-   steps, their bundles' three files, ``compare`` of the two and
+   steps, their bundles' three files (each bundle's accuracy block the
+   tier's evidence in ``yolotpu_torch/plans/`` at 416, where there is
+   one), ``compare`` of the two and
    ``parse-log`` of the detect requests' log; ``cli.pipeline`` over its six
    stages (synthetic weights, batch 8, 5 steps), exit 0; the launches of
    ``mm_q16``, ``conv3x3_q16``, ``mm_s8`` and ``conv3x3_s8`` in this phase,
    read just after it, join the kernels' counts.
+
+7. training and the accuracy protocol, yolov2 416 (published widths and
+   depth): (a) one train step (region loss, backward, SGD with momentum,
+   the global-norm clip) on the card, with cuDNN's TF32 flag at PyTorch's
+   default, against the same step on the CPU (b=2, random frames with two
+   protocol scenes' truths, one flipped): the loss, each conv's clipped
+   gradient (and the median conv's) and the new params within their
+   tolerances; with cuDNN's deterministic algorithms the step with the
+   flag on equals the step with it off throughout, bit for bit; the same
+   step once with TF32 on in the backward differs and lands outside the
+   median's tolerance; (b) train_flagship_store,
+   b=8, 200 steps on the protocol's 2048 scenes: the loss falls, the steps a
+   second and the ms a step (CUDA events), and forward + loss + backward
+   alone; (c) a checkpoint of (a)'s state reloaded bit for bit and resumed
+   one step, and the trained store exported and reloaded bit for bit; (d)
+   the trained store quantized per tier and scored on the 64 eval scenes
+   through ``eval.evaluate_engine_batched``: int16 (default plan and P1),
+   int8 and w8a16 on their kernels, each with heads bit-equal to the plain
+   path's on the card on every scene and the same mAP, and fp32; the mAP_50
+   of each and its delta against fp32 (200 steps: not evidence); the
+   kernel launches of that run, counted from 0, join the kernels' counts;
+   (e) ``cli.train`` on the card: synthetic steps with checkpoints, a
+   resume, the export, loaded by an fp32 Engine.
 
 Any failed check raises, so the exit code is not 0. The line before the
 last is a JSON record of the kernels; the last is
@@ -146,6 +172,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import unittest.mock
 
 sys.modules["jax"] = None       # any import of JAX now fails,
 sys.modules["yolotpu"] = None   # and of the JAX package
@@ -153,14 +180,17 @@ sys.modules["yolotpu"] = None   # and of the JAX package
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from yolotpu_torch import darknet  # noqa: E402
+from yolotpu_torch import accuracy, checkpoint, darknet, train  # noqa: E402
+from yolotpu_torch import eval as yeval  # noqa: E402
 from yolotpu_torch.cli import gpu_check  # noqa: E402
 from yolotpu_torch.cli import main as cli_main  # noqa: E402
 from yolotpu_torch.cli import pipeline, report, weight_gen  # noqa: E402
+from yolotpu_torch.cli import train as train_cli  # noqa: E402
 from yolotpu_torch.graph import MaxPoolSpec  # noqa: E402
 from yolotpu_torch.image import letterbox_image  # noqa: E402
 from yolotpu_torch.models import engine_plan, zoo  # noqa: E402
-from yolotpu_torch.models.yolov2 import YoloV2Q  # noqa: E402
+from yolotpu_torch.models.yolov2 import (YoloV2Q, head_fp32,  # noqa: E402
+                                         params_fp32)
 from yolotpu_torch.names import names_for  # noqa: E402
 from yolotpu_torch.ops import (_build, convops, letterbox, nms, pool,  # noqa: E402
                                q8, q16, tc)
@@ -169,10 +199,12 @@ from yolotpu_torch.quant import (calibrate_activations,  # noqa: E402
                                  quantize_weights_int8, quantize_weights_w8a16)
 from yolotpu_torch.runtime.engine import Engine, load_or_synthesize  # noqa: E402
 from yolotpu_torch.runtime.profiler import (H100_CHIP,  # noqa: E402
+                                            layer_ops_bytes,
                                             prefix_alive_sets, profile_layers,
                                             profile_prefix, render_roofline,
                                             roofline_table)
 from yolotpu_torch.runtime.stream import StreamRunner  # noqa: E402
+from yolotpu_torch.tools import accuracy_protocol  # noqa: E402
 from yolotpu_torch.weights import WeightStore  # noqa: E402
 
 BATCH_SHAPES = 2
@@ -2776,9 +2808,13 @@ def phase_artifacts(dev: torch.device, smi: str,
                                      f"{bundle} lacks {missing}")
             m = json.load(open(os.path.join(bundle, "metrics.json")))
             lat = m["latency"]
+            # the tier's committed accuracy evidence at 416, if any, is
+            # the bundle's accuracy block (report.accuracy_evidence)
+            evidence = report.accuracy_evidence(tier, spec.net.width)
             if (lat["count"] != REPORT_STEPS or m["platform"] != "gpu"
                     or len(m.get("per_layer", [])) != (
-                        spec.n if extra else 0)):
+                        spec.n if extra else 0)
+                    or m.get("accuracy") != evidence):
                 raise AssertionError(f"{tag} report run {tier}: {m}")
             bundles.append(os.path.basename(bundle))
             say(f"{tag} report run {tier} b={PROFILE_BATCH}: "
@@ -2787,7 +2823,11 @@ def phase_artifacts(dev: torch.device, smi: str,
                 f"{m['build_seconds']} s, capture {m['capture_seconds']} s, "
                 f"peak {m['memory']['max_memory_allocated_bytes'] / 1e6:.0f} "
                 f"MB, {m['device']} {m['power_limit_w']} W"
-                + (f", {len(m['per_layer'])} per-layer rows" if extra else ""))
+                + (f", {len(m['per_layer'])} per-layer rows" if extra else "")
+                + (f"; accuracy block: mAP_50 {evidence['mAP_50_mean']}, "
+                   f"{evidence['delta_vs_fp32_mean']:+} against fp32 "
+                   f"(yolotpu_torch/plans/accuracy_{tier}.json)"
+                   if evidence else "; no accuracy evidence"))
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
             rc = report.main(["--report-dir", rd, "compare", *bundles])
@@ -2829,6 +2869,398 @@ def phase_artifacts(dev: torch.device, smi: str,
 
 
 
+# phase 7: training and the accuracy protocol
+STEP_BATCH = 2          # (a) the card's train step against the CPU's
+LOSS_TOL = 1e-5         # (a) card vs CPU, the loss, relative
+STEP_TOL = 1e-3         # (a) card vs CPU, norm-wise, each conv's gradient
+STEP_TOL_MEDIAN = 3e-4  # (a) card vs CPU, the median conv's
+TRAIN_STEPS = 200       # (b) train_flagship_store at 416
+TRAIN_BATCH = 8
+TRAIN_TIMED = 10        # (b) fwd+bwd alone, CUDA events
+EVAL_BATCH = 16         # (d) evaluate_engine_batched's batch
+EVAL_THRESH = 0.05      # the protocol tool's
+CLI_STEPS = 4           # (e) cli.train, then --resume to CLI_STEPS + 2
+P7_KERNELS = ("mm_q16", "conv3x3_q16", "conv3x3_pool_q16", "mm_s8",
+              "conv3x3_s8", "mm_w8a16", "conv3x3_w8a16")
+
+
+class Conv2dTF32Backward(convops.Conv2dNoTF32):
+    """The fp32 conv as a plain ``F.conv2d`` under the forward's flags
+    would train: the forward with TF32 off, the backward under the flags
+    that hold when autograd runs it (PyTorch's default: TF32 on). Only to
+    show how far that lands from the CPU."""
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        gx, gw, _ = torch.ops.aten.convolution_backward(
+            grad, x, w, None, [ctx.stride] * 2, [0, 0], [1, 1], False,
+            [0, 0], 1, [*ctx.needs_input_grad[:2], False])
+        return gx, gw, None
+
+
+def grad_err(got: dict, want: dict) -> tuple[float, str, float]:
+    """The worst leaf's norm-wise relative error ||got - want|| / ||want||,
+    that leaf's name, and the median leaf's error (on the host, in
+    float64)."""
+    def host(t):
+        return t.cpu().double()
+    errs = {f"{k}/{leaf}": float((host(got[k][leaf]) - host(want[k][leaf]))
+                                 .norm() / host(want[k][leaf]).norm())
+            for k in want for leaf in want[k]}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst, float(np.median(list(errs.values())))
+
+
+def update_ulps(p_got: dict, p_want: dict, v_got: dict, v_want: dict) -> float:
+    """How far the new params are apart beyond their velocities' difference,
+    in ulps of the params, the worst element: p + v rounds once, so an
+    update that is the CPU's gives at most 1."""
+    worst = 0.0
+    for k in p_want:
+        for leaf in p_want[k]:
+            pg, pw = p_got[k][leaf].cpu().numpy(), p_want[k][leaf].numpy()
+            dv = np.abs(v_got[k][leaf].cpu().numpy().astype(np.float64)
+                        - v_want[k][leaf].numpy())
+            ulp = np.spacing(np.maximum(np.abs(pg), np.abs(pw)))
+            beyond = np.abs(pg.astype(np.float64) - pw) - dv
+            worst = max(worst, float((beyond / ulp).max()))
+    return worst
+
+
+class PlainEngine:
+    """What ``evaluate_engine_batched`` reads of an engine (``spec``,
+    ``predict_batch_rgb``), running ``PlainYoloV2Q`` eagerly on the card:
+    the plain path of a tier whose kernels an Engine runs."""
+
+    def __init__(self, eng: Engine):
+        self.spec, self.device = eng.spec, eng.device
+        self.model = PlainYoloV2Q(eng.spec, eng.qtables, eng.params,
+                                  eng.device, eng.precision, eng._overrides,
+                                  ("head",))
+
+    def predict_batch_rgb(self, frames: np.ndarray) -> np.ndarray:
+        x = torch.from_numpy(frames).to(self.device)
+        return self.model(x)["head"].permute(0, 3, 1, 2).cpu().numpy()
+
+
+class Recorder:
+    """An engine whose batches' heads are kept, in order."""
+
+    def __init__(self, eng):
+        self.eng, self.spec, self.heads = eng, eng.spec, []
+
+    def predict_batch_rgb(self, frames: np.ndarray) -> np.ndarray:
+        heads = self.eng.predict_batch_rgb(frames)
+        self.heads.append(heads.copy())
+        return heads
+
+
+def fwd_bwd_ms(spec, params: dict, batch: dict, reps: int) -> list[float]:
+    """CUDA-event ms of the forward (``head_fp32``), the region loss and
+    its backward (``torch.autograd.grad``) alone, reps times."""
+    leaves = [v.detach().requires_grad_(True) for p in params.values()
+              for v in p.values()]
+    it = iter(leaves)
+    p = {k: {leaf: next(it) for leaf in params[k]} for k in params}
+    cfg = train.LossConfig(rescore=False)
+    ts = []
+    for _ in range(reps + 1):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        loss = train.region_loss(
+            head_fp32(spec, p, batch["images"]), batch["boxes"],
+            batch["classes"], batch["mask"], spec.region, cfg)
+        torch.autograd.grad(loss, leaves)
+        end.record()
+        end.synchronize()
+        ts.append(start.elapsed_time(end))
+    return ts[1:]   # the first builds cuDNN's plans
+
+
+def step_vs_cpu(spec, init: WeightStore, step, dev: torch.device) -> tuple:
+    """(a) One train step on the card against the same step on the CPU:
+    seeded random frames with two protocol scenes' truths, the second
+    flipped. Random frames, not the scenes' flat rectangles: a pool window
+    whose conv outputs tie on one device and round apart on the other sends
+    the gradient another way (with the scenes the worst conv's gradient read
+    1.9e-3 off the CPU's; PERF.md §6).
+
+    cuDNN (Winograd and other orders) and oneDNN round differently, and a
+    conv's gradient carries the rounding of every backward conv between it
+    and the loss, so the early convs' gradients differ most: with cuDNN's
+    flags at PyTorch's defaults (TF32 on), each conv's gradient is held
+    within STEP_TOL of its norm and the median conv's within
+    STEP_TOL_MEDIAN, the loss within LOSS_TOL and the new params within 1
+    ulp beyond their velocities' difference. On the card, with cuDNN's
+    deterministic algorithms (so that two runs are bit-equal), the step
+    with the TF32 flag on equals the step with it off throughout, bit for
+    bit: no backward conv read the flag. The same step with TF32 on in the
+    backward (Conv2dTF32Backward) must differ from it and land outside
+    STEP_TOL_MEDIAN. Returns the card's (params, velocity, batch) after the
+    step at the defaults."""
+    tag = "[train]"
+    size = spec.net.width
+    scenes = accuracy.make_scenes(STEP_BATCH, size, 21)
+    host = accuracy.batch_builder(scenes, size)(list(range(STEP_BATCH)))
+    host["images"] = np.random.default_rng(21).random(
+        host["images"].shape, dtype=np.float32)
+    host["images"][1] = host["images"][1][:, ::-1]
+    host["boxes"][1, :, 0] = 1.0 - host["boxes"][1, :, 0]
+    on = {d: {k: torch.from_numpy(np.ascontiguousarray(v)).to(d)
+              for k, v in host.items()} for d in ("cpu", dev)}
+    params = {d: params_fp32(spec, init, d) for d in ("cpu", dev)}
+    vel = {d: train.zeros_like_velocity(params[d]) for d in ("cpu", dev)}
+    t1 = time.perf_counter()
+    p_cpu, v_cpu, l_cpu = step(params["cpu"], vel["cpu"], on["cpu"])
+    cpu_s = time.perf_counter() - t1
+    flag = torch.backends.cudnn.allow_tf32
+    if not flag:
+        raise AssertionError(f"{tag} cuDNN's allow_tf32 is {flag}, not "
+                             "PyTorch's default; (a) must run under it")
+    p_dev, v_dev, l_dev = step(params[dev], vel[dev], on[dev])
+    loss_err = abs(float(l_dev) - float(l_cpu)) / abs(float(l_cpu))
+    g_err, g_leaf, g_med = grad_err(v_dev, v_cpu)
+    ulps = update_ulps(p_dev, p_cpu, v_dev, v_cpu)
+
+    def deterministic(tf32: bool, backward=convops.Conv2dNoTF32) -> tuple:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=tf32), \
+                unittest.mock.patch.object(convops, "Conv2dNoTF32", backward):
+            return step(params[dev], vel[dev], on[dev])
+    on_flag, off_flag = deterministic(True), deterministic(False)
+    same = all(torch.equal(a[k][leaf], b[k][leaf])
+               for a, b in zip(on_flag[:2], off_flag[:2])
+               for k in a for leaf in a[k]) and torch.equal(on_flag[2],
+                                                            off_flag[2])
+    tf32 = deterministic(True, Conv2dTF32Backward)
+    tf_err, tf_leaf, tf_med = grad_err(tf32[1], v_cpu)
+    tf_off, tf_off_leaf, tf_off_med = grad_err(tf32[1], off_flag[1])
+    say(f"{tag} (a) a train step, yolov2 {size}x{size} b={STEP_BATCH} "
+        f"(clip 1.0, one sample flipped), the card against the CPU "
+        f"({cpu_s:.1f} s), cuDNN's flags at PyTorch's defaults (allow_tf32="
+        f"{flag}): loss {float(l_dev):.6f} vs {float(l_cpu):.6f} (relative "
+        f"error {loss_err:.2e}, tolerance {LOSS_TOL}); each conv's clipped "
+        f"gradient (the velocity, -lr g) within {g_err:.2e} of its norm (the "
+        f"worst, {g_leaf}; tolerance {STEP_TOL}), the median conv's "
+        f"{g_med:.2e} (tolerance {STEP_TOL_MEDIAN}); the new params at most "
+        f"{ulps:.2f} ulp beyond their velocities' difference (tolerance 1); "
+        f"with cuDNN's deterministic algorithms the step with the TF32 flag "
+        f"on {'equals' if same else 'DIFFERS FROM'} the step with it off, "
+        f"bit for bit")
+    say(f"{tag} (a) the same step with TF32 on in the backward "
+        f"(Conv2dTF32Backward, deterministic algorithms): against the CPU "
+        f"the worst conv's gradient {tf_err:.2e} ({tf_leaf}), the median "
+        f"conv's {tf_med:.2e}; against the card's step with TF32 off "
+        f"{tf_off:.2e} ({tf_off_leaf}), the median {tf_off_med:.2e}")
+    if loss_err > LOSS_TOL or g_err > STEP_TOL or g_med > STEP_TOL_MEDIAN \
+            or ulps > 1.0 or not same:
+        raise AssertionError(
+            f"{tag} (a) the card's step is off: loss {loss_err}, gradient "
+            f"{g_err} ({g_leaf}), median {g_med}, update {ulps} ulp, the "
+            f"TF32 flag {'not ' if same else ''}ignored")
+    if tf_med <= STEP_TOL_MEDIAN or tf_off == 0:
+        raise AssertionError(f"{tag} (a) TF32 in the backward lands within "
+                             f"the tolerance (median {tf_med:.2e}, against "
+                             f"TF32 off {tf_off:.2e}): it cannot be told "
+                             "apart")
+    return p_dev, v_dev, on[dev]
+
+
+def checkpoint_roundtrip(params: dict, vel: dict, batch: dict, step,
+                         dev: torch.device) -> None:
+    """(c) Save, reload bit for bit, resume one step."""
+    tag = "[train]"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = checkpoint.save_checkpoint(f"{tmp}/ck", 1, params, vel)
+        n, p_back, v_back = checkpoint.load_checkpoint(
+            checkpoint.latest_checkpoint(f"{tmp}/ck"))
+    if n != 1 or not all(
+            np.array_equal(t[k][leaf].cpu().numpy(), back[k][leaf])
+            for t, back in ((params, p_back), (vel, v_back))
+            for k in t for leaf in t[k]):
+        raise AssertionError(f"{tag} (c) {path} reloaded != in memory")
+
+    def on_card(tree):
+        return {k: {leaf: torch.from_numpy(v).to(dev) for leaf, v in p.items()}
+                for k, p in tree.items()}
+    p2, _, loss = step(on_card(p_back), on_card(v_back), batch)
+    if not torch.isfinite(loss) or not all(
+            torch.isfinite(v).all() for p in p2.values() for v in p.values()):
+        raise AssertionError(f"{tag} (c) the resumed step is not finite")
+    say(f"{tag} (c) checkpoint {os.path.basename(path)} reloaded equal to the "
+        f"params and velocity in memory, bit for bit; a resumed step to loss "
+        f"{float(loss):.6f}")
+
+
+def train_protocol(spec, dev: torch.device, smi: str) -> WeightStore:
+    """(b) train_flagship_store on the protocol scenes: the loss falls; the
+    steps a second and the ms a step; then (c) the trained store exported
+    and reloaded bit for bit."""
+    tag = "[train]"
+    size = spec.net.width
+    t1 = time.perf_counter()
+    ms: list[float] = []
+    store, losses = accuracy.train_flagship_store(
+        spec, seed=0, size=size, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+        device=dev, step_ms=ms)
+    wall = time.perf_counter() - t1
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in accuracy.batch_builder(
+        accuracy.make_scenes(TRAIN_BATCH, size, 5), size)(
+        list(range(TRAIN_BATCH))).items()}
+    fb = fwd_bwd_ms(spec, params_fp32(spec, store, dev), batch, TRAIN_TIMED)
+    # the convs' operations: forward, the weights' gradient, and the
+    # inputs' gradient of every conv but the first (the frames take none)
+    convs = [layer_ops_bytes(l, TRAIN_BATCH, 4)[0] for l in spec.conv_layers()]
+    ops = 3 * sum(convs) - convs[0]
+    bound_ms = ops / PEAK_FP32 * 1e3
+    say(f"{tag} (b) train_flagship_store yolov2 {size}x{size}, b={TRAIN_BATCH}, "
+        f"{TRAIN_STEPS} steps on the protocol scenes in {wall:.1f} s "
+        f"(rendering and staging the {accuracy.PROTOCOL['train_scenes']} "
+        f"scenes included): {TRAIN_STEPS / (sum(ms) / 1e3):.2f} steps/s on "
+        f"the device's time, a step (gather, flip, forward, backward, "
+        f"update) {np.median(ms[1:]):.3f} ms at the median (p90 "
+        f"{np.percentile(ms[1:], 90):.3f}, first {ms[0]:.1f}); forward + "
+        f"loss + backward alone {np.median(fb):.3f} ms (min {min(fb):.3f}, "
+        f"{TRAIN_TIMED} runs, CUDA events), against a bound of "
+        f"{bound_ms:.3f} ms ({ops / 1e9:.1f} GFLOP of convs, forward and "
+        f"backward, over the fp32 peak, {PEAK_FP32 / 1e12:.0f} TFLOP/s: "
+        f"{np.median(fb) / bound_ms:.1f}x); {smi}")
+    say(f"{tag} (b) losses every {max(1, TRAIN_STEPS // 8)} steps: "
+        + ", ".join(f"{v:.3f}" for v in losses))
+    if not losses[-1] < losses[0] or not np.isfinite(losses).all():
+        raise AssertionError(f"{tag} (b) the loss did not fall: {losses}")
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint.export_weight_artifacts(params_fp32(spec, store), spec, tmp)
+        back = WeightStore.load_fp32(spec, f"{tmp}/weights.bin",
+                                     f"{tmp}/bias.bin")
+    if not all(np.array_equal(a, b) for l in spec.conv_layers()
+               for a, b in zip(back.fp32[l.idx], store.fp32[l.idx])):
+        raise AssertionError(f"{tag} (c) exported artifacts != the store")
+    say(f"{tag} (c) export_weight_artifacts then WeightStore.load_fp32: the "
+        "trained arrays, bit for bit")
+    return store
+
+
+def score_tiers(spec, store: WeightStore, dev: torch.device) -> dict:
+    """(d) The trained store quantized per tier as the protocol tool does
+    and scored on the 64 eval scenes through evaluate_engine_batched: the
+    integer engines on their kernels (int16 under the default plan and P1,
+    int8, w8a16), each held to the same tier's plain path on the card (heads
+    bit-equal, mAP identical), and fp32. Returns the kernel launches of the
+    engines' run, the counts set to 0 just before it."""
+    tag = "[train]"
+    size = spec.net.width
+    t1 = time.perf_counter()
+    tiers = ("int16", "int8", "w8a16")
+    with tempfile.TemporaryDirectory() as tmp:
+        pairs = accuracy.write_eval_set(tmp, size)
+        accuracy_protocol.quantize_tiers(spec, store, accuracy.calib_images(
+            size), tiers)
+        say(f"{tag} (d) {len(pairs)} eval scenes written and the store "
+            f"quantized for {', '.join(tiers)} in "
+            f"{time.perf_counter() - t1:.1f} s")
+
+        def score(eng) -> dict:
+            return yeval.evaluate_engine_batched(
+                eng, pairs, num_classes=spec.region.classes,
+                thresh=EVAL_THRESH, batch=EVAL_BATCH)
+        scores = {"fp32": score(Engine(spec, store, "fp32", dev,
+                                       warmup=False))}
+        recorders = {}
+        reset_launches()
+        for path in (*tiers, "P1"):
+            plan = {"YOLO2_Q16_PLAN": PLANS["P1"][0]} if path == "P1" else {}
+            with unittest.mock.patch.dict(os.environ, plan):
+                eng = Engine(spec, store, "int16" if path == "P1" else path,
+                             dev, warmup=False)
+            recorders[path] = Recorder(eng)
+            scores[path] = score(recorders[path])
+        torch.cuda.synchronize(dev)
+        launches = launch_counts()
+        if any(not launches[k] for k in P7_KERNELS) or any(
+                v for k, v in launches.items() if k not in P7_KERNELS):
+            raise AssertionError(f"{tag} (d) launched {launches}; want each "
+                                 f"of {P7_KERNELS} and no other")
+        for path, rec in recorders.items():
+            plain = Recorder(PlainEngine(rec.eng))
+            want = score(plain)
+            got = np.concatenate(rec.heads)
+            if not np.array_equal(got, np.concatenate(plain.heads)) \
+                    or scores[path] != want:
+                raise AssertionError(f"{tag} (d) {path}: the kernels' heads "
+                                     "or mAP != the plain path's on the card")
+            say(f"{tag} (d) {path}: the {got.shape[0]} heads through the "
+                "kernels bit-equal to the plain path's on the card, mAP "
+                "identical")
+    f32 = scores["fp32"]["mAP_50"]
+    say(f"{tag} (d) mAP_50 on the {len(pairs)} eval scenes at {size}x{size} "
+        f"after {TRAIN_STEPS} steps (not evidence): "
+        + ", ".join(f"{p} {r['mAP_50']:.4f}"
+                    + ("" if p == "fp32" else f" ({r['mAP_50'] - f32:+.4f})")
+                    for p, r in scores.items())
+        + "; launched " + ", ".join(f"{k} {v}" for k, v in launches.items()
+                                    if v)
+        + f"; (d) took {time.perf_counter() - t1:.1f} s")
+    return launches
+
+
+def train_cli_run(spec, dev: torch.device) -> None:
+    """(e) cli.train on the card: synthetic steps with checkpoints, a
+    resume, the export, and the exported set loaded by Engine."""
+    tag = "[train]"
+    size = spec.net.width
+    with tempfile.TemporaryDirectory() as tmp:
+        out = io.StringIO()
+        # the CLI takes no clip (as the JAX package's): at full width its
+        # default lr of 1e-3 on the He init reached NaN by step 3 on the
+        # card; 1e-5 keeps these few steps finite
+        args = ["--synthetic-data", "--batch", str(STEP_BATCH), "--lr",
+                "1e-5", "--ckpt-every", "2", "--ckpt-dir", f"{tmp}/ck",
+                "--export-weights", f"{tmp}/w"]
+        with contextlib.redirect_stdout(out):
+            rcs = [train_cli.main([*args, "--steps", str(CLI_STEPS)]),
+                   train_cli.main([*args, "--steps", str(CLI_STEPS + 2),
+                                   "--resume"])]
+        text = out.getvalue()
+        for line in text.splitlines():
+            say(f"{tag} (e) cli.train: {line}")
+        ckpts = sorted(os.listdir(f"{tmp}/ck"))
+        eng = Engine(spec, load_or_synthesize(spec, f"{tmp}/w", "fp32"),
+                     "fp32", dev, warmup=False)
+        head = eng.predict_batch_rgb(np.zeros((1, size, size, 3), np.uint8))
+    if rcs != [0, 0] or "resumed from" not in text or ckpts != [
+            f"ckpt_{i:08d}.npz" for i in (2, 4, 6)] or not np.isfinite(
+            head).all():
+        raise AssertionError(f"{tag} (e) cli.train: exits {rcs}, checkpoints "
+                             f"{ckpts}, head finite {np.isfinite(head).all()}")
+    say(f"{tag} (e) cli.train ran {CLI_STEPS} steps, resumed to "
+        f"{CLI_STEPS + 2}, kept {ckpts}, exported weights.bin/bias.bin; the "
+        f"fp32 Engine on them gives a finite head {head.shape}")
+
+
+def phase_train(dev: torch.device, smi: str) -> dict:
+    """Phase 7 (see the module's docstring): training and the accuracy
+    protocol at yolov2 416. Returns the kernel launches of (d)."""
+    t0 = time.perf_counter()
+    spec = zoo.build("yolov2")
+    step = train.make_train_step(spec, lr=1e-3, momentum=0.9,
+                                 cfg=train.LossConfig(rescore=False),
+                                 clip_norm=1.0)
+    params, vel, batch = step_vs_cpu(spec, WeightStore.synthetic(spec, seed=0),
+                                     step, dev)
+    checkpoint_roundtrip(params, vel, batch, step, dev)
+    del params, vel, batch
+    torch.cuda.empty_cache()
+    store = train_protocol(spec, dev, smi)
+    launches = score_tiers(spec, store, dev)
+    del store
+    torch.cuda.empty_cache()
+    train_cli_run(spec, dev)
+    say(f"[train] phase 7 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs "
@@ -2842,7 +3274,7 @@ def main() -> int:
 
 
 def run(dev: torch.device) -> int:
-    """Phases 1-6 on ``dev``, then the JSON record of the kernels and the
+    """Phases 1-7 on ``dev``, then the JSON record of the kernels and the
     last line."""
     t0 = time.perf_counter()
     smi = phase_card()
@@ -2904,6 +3336,11 @@ def run(dev: torch.device) -> int:
     for k in launches:
         launches[k] += artifacts.get(k, 0)
     say(f"[card] phases 1-6 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    training = phase_train(dev, smi)
+    for k in launches:
+        launches[k] += training.get(k, 0)
+    say(f"[card] phases 1-7 took {time.perf_counter() - t0:.1f} s")
 
     def at(f: dict) -> dict:
         return {"ms": f["ms"], "device_ms": f.get("device_ms"),
@@ -2923,10 +3360,11 @@ def run(dev: torch.device) -> int:
     # forward, from the profiler; graph_ms and library_graph_ms, for the 1x1
     # kernels and the fused conv+pool, the kernel and the library calls
     # alone in CUDA graph replays; for nms_greedy phase 2's tables at batch
-    # 8 and 1); launches: the main paths' launches (phases 3, 5 and 6), each
+    # 8 and 1); launches: the main paths' launches (phases 3, 5, 6 and 7), each
     # path's forwards run once eagerly and once under capture
     # (launches_per_forward; phase 5's streaming path: its three graphs;
-    # phase 6's engines, profiles, report bundles and pipeline), and
+    # phase 6's engines, profiles, report bundles and pipeline; phase 7's
+    # four engines scoring the trained store, one graph each), and
     # replayed for every request
     kernels = []
     for name, (src, rep) in KERNEL_SOURCES.items():

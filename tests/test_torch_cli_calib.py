@@ -188,3 +188,46 @@ def test_calibrator_groups_the_route_scales(scale):
     quant.quantize_weights(store, table)
     plan = Int16Plan.build(spec, store.qtables)
     assert plan.reorg_realign.get(27, 0) == 0
+
+
+# the training CLI: the port adds --device (cuda by default)
+TRAIN_ARGVS = [
+    [],
+    ["--synthetic-data", "--steps", "20", "--batch", "2", "--lr", "5e-4",
+     "--momentum", "0.8"],
+    ["--cfg", "net.cfg", "--train-list", "train.txt", "--ckpt-dir", "ck",
+     "--ckpt-every", "5", "--resume", "--export-weights", "out"],
+    ["--model", "yolov2-tiny", "--width", "96", "--height", "128", "--seed",
+     "3", "--mesh"],
+]
+
+
+class _Parsed(Exception):
+    pass
+
+
+@pytest.mark.parametrize("argv", TRAIN_ARGVS,
+                         ids=[" ".join(a) or "defaults" for a in TRAIN_ARGVS])
+def test_train_argv_parses_as_in_the_jax_cli(argv, monkeypatch):
+    """An argv the JAX training CLI parses, the port's parses to the same
+    values at every destination, defaults included; the port's --device
+    defaults to cuda."""
+    import argparse
+
+    from yolotpu.cli import train as jtrain_cli
+    from yolotpu_torch.cli import train as train_cli
+    real = argparse.ArgumentParser.parse_args
+
+    def grab(self, args=None, namespace=None):
+        raise _Parsed(real(self, args, namespace))
+    with monkeypatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args", grab)
+        with pytest.raises(_Parsed) as parsed:
+            jtrain_cli.main(argv)
+    want = vars(parsed.value.args[0])
+    got = vars(train_cli.parser().parse_args(argv))
+    assert set(got) - set(want) == {"device"}
+    assert set(want) <= set(got) and len(want) == 16
+    for dest in want:
+        assert got[dest] == want[dest], dest
+    assert got["device"] == "cuda"

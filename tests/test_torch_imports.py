@@ -10,7 +10,8 @@ kernel path never falls back.
   detect CLI; the golden backend, per-layer dumps, the stream runner with
   the native library, and the runtime CLIs; a darknet blob through
   weight_gen and back, the runtime CLI's --profile, a report bundle and the
-  pipeline) at 64x64 on the CPU.
+  pipeline; a step of the training CLI with its checkpoint and export, and
+  the accuracy protocol's hash and metrics) at 64x64 on the CPU.
 - With no card, Engine(device="cuda") raises, and a kernel launch raises
   without counting a launch.
 - The nvcc command targets sm_90a and compiles only the port's csrc/*.cu
@@ -115,6 +116,22 @@ assert report.main(["--report-dir", wdir + "/reports", "run", "--width", "64",
 assert pipeline.main(["--to", "host_sanity"]) == 0
 assert pipeline.main(["--from", "gpu_build", "--to", "gpu_build"]) == (
     0 if torch.cuda.is_available() else 1)
+# training and the accuracy protocol: a step of cli.train with a
+# checkpoint and an export, the protocol's hash and its metrics
+from yolotpu_torch import accuracy, eval as yeval
+from yolotpu_torch.cli import train as train_cli
+from yolotpu_torch.weights import WeightStore
+assert accuracy.protocol_hash() == "b50b290992cfde91"
+assert train_cli.main(["--cfg", cfg, "--synthetic-data", "--steps", "1",
+                       "--batch", "1", "--device", "cpu", "--ckpt-dir",
+                       wdir + "/ck", "--export-weights", wdir + "/trained"]) == 0
+trained = WeightStore.load_fp32(spec, wdir + "/trained/weights.bin",
+                                wdir + "/trained/bias.bin")
+assert len(trained.fp32) == 23
+gt = yeval.GroundTruth(np.array([[0.5, 0.5, 0.2, 0.2]], np.float32),
+                       np.array([1], np.int32))
+pred = yeval.Prediction(gt.boxes, gt.classes, np.ones(1, np.float32))
+assert yeval.map_coco([pred], [gt], 2)["mAP_50_95"] == 1.0
 loaded = sorted(n for n, m in sys.modules.items() if m is not None
                 and n.split(".")[0] in ("jax", "jaxlib", "flax", "yolotpu"))
 assert not loaded, loaded
@@ -153,7 +170,12 @@ def test_port_sources_never_import_jax():
             "yolotpu_torch.runtime.mjpeg", "yolotpu_torch.cli.detect",
             "yolotpu_torch.cli.main", "yolotpu_torch.cli.gpu_check",
             "yolotpu_torch.darknet", "yolotpu_torch.cli.weight_gen",
-            "yolotpu_torch.cli.report", "yolotpu_torch.cli.pipeline"} <= names
+            "yolotpu_torch.cli.report", "yolotpu_torch.cli.pipeline",
+            "yolotpu_torch.train", "yolotpu_torch.checkpoint",
+            "yolotpu_torch.eval", "yolotpu_torch.accuracy",
+            "yolotpu_torch.cli.train", "yolotpu_torch.tools.accuracy_protocol",
+            "yolotpu_torch.tools.int8_accuracy_sweep",
+            "yolotpu_torch.tools.roofline"} <= names
 
 
 def test_engine_on_cuda_raises_without_a_card():

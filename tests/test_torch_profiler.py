@@ -219,3 +219,27 @@ def test_tier_overrides_leave_out_a_pool_kind_at_the_prefix_end(monkeypatch):
                           ("head",))
         out = tp._prefix_forward(model, pspec, alive[n - 1])(x)
         assert out.shape[1] == pspec.layers[-1].out_h, n
+
+
+def test_roofline_tool_writes_its_table_on_cpu(tmp_path, monkeypatch, capsys):
+    """``python -m yolotpu_torch.tools.roofline --device cpu`` at 64x64:
+    one row per layer in the file it writes (named for the device), the
+    table printed; with no card it raises by default and writes nothing."""
+    import json
+
+    from yolotpu_torch.tools import roofline
+
+    monkeypatch.setattr(tp, "PREFIX_ROUNDS", 1)
+    out = tmp_path / "plans"
+    assert roofline.main(["--device", "cpu", "--width", "64", "--height",
+                          "64", "--batch", "1", "--out-dir", str(out)]) == 0
+    doc = json.load(open(out / "roofline_int16_cpu.json"))
+    assert len(doc["rows"]) == zoo.build("yolov2").n
+    assert doc["chip"] == tp.H100_CHIP["name"] and doc["device_kind"] == "cpu"
+    assert doc["power_limit_w"] is None
+    assert "Roofline: NVIDIA H100 SXM int16 b1" in capsys.readouterr().out
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            roofline.main(["--width", "64", "--height", "64",
+                           "--out-dir", str(tmp_path / "never")])
+        assert not (tmp_path / "never").exists()

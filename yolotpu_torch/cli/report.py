@@ -24,8 +24,10 @@ Mirrors ``yolotpu/cli/report.py``: ``list``, ``compare``, ``parse-log``,
 ``_flatten`` and ``parse_inference_log`` are its own; ``run`` measures the
 card in place of XLA (``build_seconds`` and ``capture_seconds`` for
 ``compile_seconds``, ``memory`` for ``memory_analysis``, no
-``rpc_floor_ms``). Its ``accuracy`` block waits for the accuracy protocol
-(ROADMAP.md, M12).
+``rpc_floor_ms``). Its ``accuracy`` block is the port's accuracy evidence
+of the tier (``yolotpu_torch/plans/accuracy_<precision>.json``, written by
+``python -m yolotpu_torch.tools.accuracy_protocol``) when that file's
+protocol hash and resolution are the run's; stale evidence is left out.
 
     python -m yolotpu_torch.cli.report run --label int16_b8 --batch 8 \\
         --synthetic-weights --profile-layers
@@ -43,6 +45,24 @@ import time
 from datetime import datetime
 
 REPORT_DIR = "reports"
+PLANS_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "plans")
+
+
+def accuracy_evidence(precision: str, resolution: int) -> dict | None:
+    """The port's accuracy evidence for a tier at a resolution
+    (``accuracy_<precision>.json`` in ``PLANS_DIR``), or None where there is
+    none or it is stale: another protocol hash or another resolution."""
+    from ..accuracy import protocol_hash
+    path = os.path.join(PLANS_DIR, f"accuracy_{precision}.json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        doc = json.load(f)
+    if (doc.get("protocol_hash") != protocol_hash()
+            or doc.get("resolution") != resolution):
+        return None
+    return doc
 
 
 def power_limit_w() -> float | None:
@@ -120,9 +140,13 @@ def _metrics_run(args) -> dict:
                              device=device)
         per_layer = rep.as_dicts()
 
+    # the tier's accuracy evidence at this resolution: the bundle then holds
+    # fps, latency and the mAP delta of one configuration
+    accuracy = accuracy_evidence(args.precision, spec.net.width)
     return {
         **b1,
         **({"per_layer": per_layer} if per_layer else {}),
+        **({"accuracy": accuracy} if accuracy else {}),
         "model": args.model,
         "precision": args.precision,
         "compute": args.compute,
@@ -167,6 +191,18 @@ def _render_summary(meta: dict, metrics: dict) -> str:
             f"- single-frame device p50: {metrics['batch1_device_p50_ms']}"
             f" ms ({metrics.get('batch1_chain')} runs of the batch-1"
             f" {'graph' if metrics['platform'] == 'gpu' else 'forward'})")
+    acc = metrics.get("accuracy")
+    if acc:
+        lines += [
+            "",
+            "## Accuracy (protocol evidence, same tier/resolution)",
+            f"- mAP_50: {acc['mAP_50_mean']} ±{acc.get('mAP_50_ci95')}"
+            f" ({acc['train']['seeds']} seeds, {acc['eval_scenes']} scenes,"
+            f" {acc['classes']} classes)",
+            f"- delta vs fp32: {acc['delta_vs_fp32_mean']:+}"
+            f" ±{acc.get('delta_vs_fp32_ci95')}"
+            f" (protocol {acc['protocol']} {acc['protocol_hash']})",
+        ]
     lines += [
         "",
         "## Memory (device)",

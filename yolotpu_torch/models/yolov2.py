@@ -194,6 +194,38 @@ def params_from_jax(jax_params: dict, device: torch.device | str = "cpu") -> dic
 # Forward
 # ---------------------------------------------------------------------------
 
+def head_fp32(spec: NetworkSpec, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """The fp32 head of a parameter tree, differentiable: ``build_forward(
+    spec, "fp32", outputs=("head",))``'s ``head``, for training. params
+    {"conv{idx}": {"w": HWIO, "b"}} fp32 tensors (``params_fp32``'s tree;
+    leaves that require grad get their gradients), x (B, H, W, 3) uint8 or
+    float NHWC letterboxed to the network size -> (B, h, w, n*(5+C)) fp32,
+    the region layer's input. The walk of ``YoloV2Q``'s fp32 tier:
+    ``convops.conv_fp32`` (TF32 off, the backward too), ``pool.maxpool``
+    (JAX's gradient on ties), ``reorg.reorg`` and the route concats."""
+    cur = convops.normalize_u8(x) if x.dtype == torch.uint8 else x.float()
+    needed = {s for l in spec.layers if isinstance(l, RouteSpec)
+              for s in l.layers}
+    acts: dict[int, torch.Tensor] = {}
+    for l in spec.layers:
+        if isinstance(l, RegionSpec):
+            return cur
+        if isinstance(l, ConvSpec):
+            p = params[f"conv{l.idx}"]
+            cur = convops.conv_fp32(cur, p["w"], p["b"], l.stride, l.pad,
+                                    l.activation)
+        elif isinstance(l, MaxPoolSpec):
+            cur = pool.maxpool(cur, l.size, l.stride, l.padding)
+        elif isinstance(l, ReorgSpec):
+            cur = reorg.reorg(cur, l.stride)
+        elif isinstance(l, RouteSpec):
+            cur = (acts[l.layers[0]] if len(l.layers) == 1 else
+                   torch.cat([acts[s] for s in l.layers], dim=-1))
+        if l.idx in needed:
+            acts[l.idx] = cur
+    return cur   # headless graph
+
+
 class YoloV2Q(nn.Module):
     """The network of one precision tier ("fp32", "int16", "int8" or
     "w8a16"). ``forward(x)`` takes (B, H, W, 3) uint8 frames (normalised by

@@ -40,21 +40,53 @@ def pad_same_darknet(x: torch.Tensor, pad: int, value: float) -> torch.Tensor:
     return F.pad(x, (0, 0, pad, pad, pad, pad), value=value)
 
 
+def no_tf32():
+    """cuDNN's flags as the caller has them, with TF32 off, for a ``with``
+    block; the caller's flags come back after it."""
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
+
+
+class Conv2dNoTF32(torch.autograd.Function):
+    """``F.conv2d`` whose backward also runs with TF32 off. Autograd runs
+    the backward convs after the forward's ``with`` block has ended, under
+    whatever flags hold then, and PyTorch's default for cuDNN is TF32 on: a
+    plain ``F.conv2d`` under ``no_tf32`` would train on TF32 gradients
+    (about three decimal digits, against JAX's HIGHEST). The backward is
+    the one autograd runs for a conv, ``aten.convolution_backward``, under
+    ``no_tf32``. x NCHW, w OIHW, no bias, no padding."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride: int):
+        ctx.save_for_backward(x, w)
+        ctx.stride = stride
+        with no_tf32():
+            return F.conv2d(x, w, stride=stride)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        with no_tf32():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                grad, x, w, None, [ctx.stride] * 2, [0, 0], [1, 1], False,
+                [0, 0], 1, [*ctx.needs_input_grad[:2], False])
+        return gx, gw, None
+
+
 def conv_fp32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int,
               pad: int, activation: str) -> torch.Tensor:
     """fp32 conv + bias + activation: x (B, H, W, Cin) f32, w (k, k, Cin,
     Cout) HWIO, b (Cout,) -> (B, Ho, Wo, Cout) f32 (``convops.conv_fp32``
     at HIGHEST precision). cuDNN runs it with TF32 off for this call only
     (cuDNN's own default is TF32, about three decimal digits); the flags of
-    the caller are restored after it. A weight that is an HWIO view of a
-    contiguous (Cout, k, k, Cin) tensor reaches cuDNN as a channels-last
-    filter with no copy, as the NHWC input does."""
+    the caller are restored after it; the conv is ``Conv2dNoTF32``, whose
+    backward, where a gradient is wanted, keeps TF32 off too. A weight that
+    is an HWIO view of a contiguous (Cout, k, k, Cin) tensor reaches cuDNN
+    as a channels-last filter with no copy, as the NHWC input does."""
     xp = pad_same_darknet(x, pad, 0.0)
-    cudnn = torch.backends.cudnn
-    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                     deterministic=cudnn.deterministic, allow_tf32=False):
-        out = F.conv2d(xp.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                       stride=stride)
+    out = Conv2dNoTF32.apply(xp.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                             stride)
     return activate_fp32(out.permute(0, 2, 3, 1) + b, activation)
 
 
