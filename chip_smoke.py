@@ -8,7 +8,8 @@ port's main paths, YOLOv2 at 416x416 with synthetic weights from seed 0 in
 each tier (fp32; int16-exact; int8 w8a8 with the head16 epilogue; w8a16)
 and in two plan slices of the int16 tier, every forward a replay of a CUDA
 graph that the engine captured, then trains it and scores the trained
-weights through the integer tiers, in seven phases:
+weights through the integer tiers, and runs the multi-GPU path in eight
+ranks on the one card, in eight phases:
 
 1. card: name and power limit, torch and CUDA versions, kernel build time,
    each kernel's registers and spills (none allowed), each kernel's
@@ -153,6 +154,34 @@ weights through the integer tiers, in seven phases:
    (e) ``cli.train`` on the card: synthetic steps with checkpoints, a
    resume, the export, loaded by an fp32 Engine.
 
+8. multi-GPU (M13), yolov2 416 (published widths and depth), eight ranks
+   sharing the card (``parallel.dryrun.dryrun_multichip(8, "cuda", "gloo",
+   416, root=...)``: the kernel library built here first, the ranks load
+   it; gloo takes the CUDA tensors through the host, NCCL refuses two ranks
+   on one card): the dryrun's five stages over meshes (dp=2, tp=4) and
+   (dp=2, sp=4) at b=8, 4 frames a dp rank: one sharded train step, int16
+   dp, int16 and int8 tp-sharded (head and detections ``torch.equal`` to
+   the replicated run), int16 sp-sharded (head), ``mm_q16`` on each rank's
+   rows; then the dp run's head and detections against the one-process
+   forward on the card, the dp, tp and sp heads, the dp and tp detections
+   and the int8 tp head and detections against the plain path on the card
+   (``torch.equal``), and the sharded step against one process's step on
+   the card, both with cuDNN's deterministic algorithms, within (a)'s
+   tolerances, and against a second witness within 1e-5 of each conv's
+   gradient norm: one process's step as two b=4 halves with their gradients
+   averaged (each dp rank's frames, so only the dp and tp sums and the Cout
+   blocks differ), itself read against the b=8 step; each rank shows JAX
+   and ``yolotpu`` blocked; per stage the seconds, the ms of a sharded
+   forward (or the step) and the bytes each collective kind received, all
+   of it eight ranks time-sliced on one card with host-staged gloo
+   collectives, which says nothing of scaling across cards; then the same
+   stages in a world of one rank on NCCL (a mesh of 1 x 1: only size-1
+   gathers reach NCCL, the batch gathers and stage 5's int16 gather as
+   uint8; no tp, sp or dp collective runs there); the ranks' launches of
+   ``mm_q16``, ``conv3x3_q16``, ``nms_greedy``, ``mm_s8`` and
+   ``conv3x3_s8`` (each above 0, no other kernel) join the kernels' counts;
+   the phase must end within 120 s.
+
 Any failed check raises, so the exit code is not 0. The line before the
 last is a JSON record of the kernels; the last is
 ``{"ok": true, "device": {...}}``. JAX and the JAX package ``yolotpu`` are
@@ -194,6 +223,8 @@ from yolotpu_torch.models.yolov2 import (YoloV2Q, head_fp32,  # noqa: E402
 from yolotpu_torch.names import names_for  # noqa: E402
 from yolotpu_torch.ops import (_build, convops, letterbox, nms, pool,  # noqa: E402
                                q8, q16, tc)
+from yolotpu_torch.parallel import dryrun, launch  # noqa: E402
+from yolotpu_torch.parallel.dryrun import launch_counts  # noqa: E402
 from yolotpu_torch.quant import (calibrate_activations,  # noqa: E402
                                  calibrate_activations_int8, quantize_weights,
                                  quantize_weights_int8, quantize_weights_w8a16)
@@ -325,10 +356,6 @@ class PlainYoloV2Q(YoloV2Q):
                "int8": (q8.mm_s8_plain, q8.conv3x3_s8_plain),
                "w8a16": (q8.mm_w8a16_plain, q8.conv3x3_w8a16_plain)}
     pooled = {"int16": q16.conv3x3_pool_q16_plain}
-
-
-def launch_counts() -> dict:
-    return {**q16.LAUNCHES, **q8.LAUNCHES, **nms.LAUNCHES}
 
 
 def reset_launches() -> None:
@@ -3261,6 +3288,170 @@ def phase_train(dev: torch.device, smi: str) -> dict:
     return launches
 
 
+# phase 8: multi-GPU (M13), eight ranks on one card
+RANKS = 8
+P8_BUDGET_S = 120.0
+# the sharded step against one process's two halves of the batch (each dp
+# rank's frames, cuDNN's deterministic algorithms on both), each conv's
+# gradient norm-wise: the same frames a conv call, so only the dp and tp
+# sums and the convs' Cout blocks differ (an H100 read 1.40e-6 at worst,
+# 1.49e-7 the median); the b=8 step itself differs from the halves by
+# cuDNN's rounding for 8 frames against 4 (2.95e-4, 1.85e-4), which only
+# phase 7 (a)'s tolerances cover
+SPLIT_TOL = 1e-5
+P8_KERNELS = ("mm_q16", "conv3x3_q16", "nms_greedy", "mm_s8", "conv3x3_s8")
+
+
+def sum_launches(recs: list) -> dict:
+    """Every rank's kernel launches over every stage, summed."""
+    out = {}
+    for rec in recs:
+        for counts in rec["launches"].values():
+            for k, v in counts.items():
+                out[k] = out.get(k, 0) + v
+    return out
+
+
+def say_stages(tag: str, recs: list, what: str) -> None:
+    """Per stage: seconds, ms per forward (the slowest and fastest rank) and
+    the bytes each collective kind moved, per rank (rank 0) and in all."""
+    r0 = recs[0]
+    for name, sec in r0["seconds"].items():
+        key = {"tp": [k for k in r0["ms"] if k.startswith("tp_")]}.get(
+            name, [name] if name in r0["ms"] else [])
+        for k in key:
+            ms = [rec["ms"][k] for rec in recs]
+            moved = {kind: (b, sum(rec["bytes"].get(k, {}).get(kind, 0)
+                                   for rec in recs))
+                     for kind, b in r0["bytes"].get(k, {}).items()}
+            say(f"{tag} {what}: stage {name} ({k}) {sec:.1f} s; "
+                f"{'the step' if k == 'train' else 'a forward'} "
+                f"{max(ms):.1f} ms (slowest rank; fastest {min(ms):.1f}); "
+                "bytes received per rank / all ranks, by collective: "
+                + (", ".join(f"{kind} {b} / {tot}"
+                             for kind, (b, tot) in moved.items()) or "none"))
+        if not key:
+            say(f"{tag} {what}: stage {name} {sec:.1f} s")
+
+
+def phase_multirank(dev: torch.device, smi: str) -> dict:
+    """Phase 8 (see the module's docstring): multi-GPU at yolov2 416,
+    eight ranks sharing the card. Returns the ranks' kernel launches."""
+    tag = "[multirank]"
+    t0 = time.perf_counter()
+    what = (f"{RANKS} ranks time-sliced on one card ({smi}) with host-staged "
+            "gloo collectives; these numbers say nothing of scaling across "
+            "cards")
+    spec = zoo.build("yolov2")
+    with tempfile.TemporaryDirectory() as tmp:
+        run = dryrun.dryrun_multichip(RANKS, "cuda", "gloo", size=416,
+                                      root=tmp)
+        job, recs = run["job"], run["ranks"]
+        out = recs[0]["outputs"]
+        bad = [(r["rank"], r["loaded"]) for r in recs
+               if not r["blocked"] or r["loaded"]]
+        if bad:
+            raise AssertionError(f"{tag} ranks with JAX or yolotpu not "
+                                 f"blocked, or loaded: {bad}")
+        # the plain path on the card, the whole batch at once
+        x = torch.from_numpy(job.x).to(dev)
+        for tier, key in (("int16", "int16"), ("int16", "tp_int16"),
+                          ("int8", "tp_int8")):
+            plain = PlainYoloV2Q(spec, job.qtables[tier], job.params(tier),
+                                 dev, tier, outputs=dryrun.OUTPUTS)(x)
+            diff = [k for k in plain if not torch.equal(
+                plain[k].cpu(), torch.from_numpy(out[key][k]))]
+            if tier == "int16" and not torch.equal(
+                    plain["head"].cpu(), torch.from_numpy(out["sp"]["head"])):
+                diff.append("sp head")
+            if diff:
+                raise AssertionError(f"{tag} {key}: {diff} differ from the "
+                                     "plain path")
+        del plain, x
+        say(f"{tag} the dp, tp and sp int16 heads and the dp and tp "
+            f"detections of {dryrun.BATCH} frames, and the int8 tp head and "
+            "detections, equal the plain path on the card (torch.equal)")
+        # the sharded train step against one process's on the card, and
+        # a second witness: the one-process step as two halves of the
+        # batch (each dp rank's frames), their gradients averaged
+        params = {k: {leaf: v.to(dev) for leaf, v in p.items()}
+                  for k, p in job.params("fp32").items()}
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in job.batch.items()}
+        step, half = train.make_train_step(spec), dryrun.BATCH // 2
+        zeros = train.zeros_like_velocity(params)
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True):
+            p1, v1, l1 = step(params, zeros, batch)
+            halves = [step(params, zeros, {k: v[i * half:(i + 1) * half]
+                                           for k, v in batch.items()})[1]
+                      for i in (0, 1)]
+        del params, batch, zeros
+        host = lambda tree: {k: {leaf: v.cpu() for leaf, v in p.items()}
+                             for k, p in tree.items()}
+        cpu = host(p1), host(v1)
+        v_halves = {k: {leaf: (halves[0][k][leaf] + halves[1][k][leaf]).cpu()
+                        / 2 for leaf in p} for k, p in v1.items()}
+        del p1, v1, halves
+        got = out["train"]
+        as_t = [{k: {leaf: torch.from_numpy(v) for leaf, v in p.items()}
+                 for k, p in got[t].items()} for t in ("params", "velocity")]
+        loss_err = abs(got["loss"] - float(l1)) / abs(float(l1))
+        g_err, g_leaf, g_med = grad_err(as_t[1], cpu[1])
+        h_err, h_leaf, h_med = grad_err(v_halves, cpu[1])
+        s_err, s_leaf, s_med = grad_err(as_t[1], v_halves)
+        ulps = update_ulps(as_t[0], cpu[0], as_t[1], cpu[1])
+        say(f"{tag} the sharded train step (mesh dp=2 x tp=4, "
+            f"b={dryrun.BATCH}, cuDNN's deterministic algorithms) against one "
+            f"process's on the card: loss {got['loss']:.6f} vs "
+            f"{float(l1):.6f} (relative error {loss_err:.2e}, tolerance "
+            f"{LOSS_TOL}); each conv's gradient (the velocity) within "
+            f"{g_err:.2e} of its norm (the worst, {g_leaf}; tolerance "
+            f"{STEP_TOL}), the median conv's {g_med:.2e} (tolerance "
+            f"{STEP_TOL_MEDIAN}); the new params at most {ulps:.2f} ulp "
+            "beyond their velocities' difference (tolerance 1)")
+        say(f"{tag} second witness, one process's step as two b={half} "
+            f"halves with their gradients averaged: against the b="
+            f"{dryrun.BATCH} step {h_err:.2e} ({h_leaf}), median {h_med:.2e}; "
+            f"the sharded step against the halves {s_err:.2e} ({s_leaf}; "
+            f"tolerance {SPLIT_TOL}), median {s_med:.2e}")
+        if loss_err > LOSS_TOL or g_err > STEP_TOL or s_err > SPLIT_TOL \
+                or g_med > STEP_TOL_MEDIAN or ulps > 1.0:
+            raise AssertionError(f"{tag} the sharded step is off: loss "
+                                 f"{loss_err}, gradient {g_err} ({g_leaf}), "
+                                 f"median {g_med}, against the halves "
+                                 f"{s_err} ({s_leaf}), median {s_med}, "
+                                 f"update {ulps} ulp")
+        del got, as_t, cpu, out
+        say_stages(tag, recs, what)
+        launches = sum_launches(recs)
+        # the same calls on NCCL: a world of one rank
+        one = launch.spawn(dryrun.run_stages, 1, "cuda", "nccl", args=(job,),
+                           timeout=300)
+        dryrun.check_one_process(job, one[0], dev)
+    if not one[0]["blocked"] or one[0]["loaded"]:
+        raise AssertionError(f"{tag} the NCCL rank: JAX or yolotpu not "
+                             f"blocked, or loaded: {one[0]['loaded']}")
+    say(f"{tag} each of the {RANKS} gloo ranks and the NCCL rank ran with "
+        "jax and yolotpu blocked in its sys.modules (None) and loaded "
+        "neither")
+    say_stages(f"{tag} nccl", one, "one rank on NCCL")
+    nccl = sum_launches(one)
+    missing = [k for k in P8_KERNELS if not launches.get(k)
+               or not nccl.get(k)]
+    if missing or any(v for k, v in {**launches, **nccl}.items()
+                      if k not in P8_KERNELS):
+        raise AssertionError(f"{tag} launches: gloo {launches}, nccl {nccl}; "
+                             f"want {P8_KERNELS} and no other")
+    total = {k: launches.get(k, 0) + nccl.get(k, 0) for k in launches}
+    secs = time.perf_counter() - t0
+    say(f"{tag} launches, {RANKS} gloo ranks: {launches}; the NCCL rank: "
+        f"{nccl}; phase 8 took {secs:.1f} s (budget {P8_BUDGET_S:.0f})")
+    if secs > P8_BUDGET_S:
+        raise AssertionError(f"{tag} phase 8 took {secs:.1f} s, over its "
+                             f"budget of {P8_BUDGET_S:.0f} s")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs "
@@ -3274,7 +3465,7 @@ def main() -> int:
 
 
 def run(dev: torch.device) -> int:
-    """Phases 1-7 on ``dev``, then the JSON record of the kernels and the
+    """Phases 1-8 on ``dev``, then the JSON record of the kernels and the
     last line."""
     t0 = time.perf_counter()
     smi = phase_card()
@@ -3341,6 +3532,11 @@ def run(dev: torch.device) -> int:
     for k in launches:
         launches[k] += training.get(k, 0)
     say(f"[card] phases 1-7 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    multirank = phase_multirank(dev, smi)
+    for k in launches:
+        launches[k] += multirank.get(k, 0)
+    say(f"[card] phases 1-8 took {time.perf_counter() - t0:.1f} s")
 
     def at(f: dict) -> dict:
         return {"ms": f["ms"], "device_ms": f.get("device_ms"),
@@ -3360,7 +3556,8 @@ def run(dev: torch.device) -> int:
     # forward, from the profiler; graph_ms and library_graph_ms, for the 1x1
     # kernels and the fused conv+pool, the kernel and the library calls
     # alone in CUDA graph replays; for nms_greedy phase 2's tables at batch
-    # 8 and 1); launches: the main paths' launches (phases 3, 5, 6 and 7), each
+    # 8 and 1); launches: the main paths' launches (phases 3, 5, 6, 7 and
+    # 8, phase 8's summed over its ranks), each
     # path's forwards run once eagerly and once under capture
     # (launches_per_forward; phase 5's streaming path: its three graphs;
     # phase 6's engines, profiles, report bundles and pipeline; phase 7's

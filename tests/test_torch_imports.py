@@ -175,7 +175,10 @@ def test_port_sources_never_import_jax():
             "yolotpu_torch.eval", "yolotpu_torch.accuracy",
             "yolotpu_torch.cli.train", "yolotpu_torch.tools.accuracy_protocol",
             "yolotpu_torch.tools.int8_accuracy_sweep",
-            "yolotpu_torch.tools.roofline"} <= names
+            "yolotpu_torch.tools.roofline", "yolotpu_torch.parallel.mesh",
+            "yolotpu_torch.parallel.dryrun", "yolotpu_torch.parallel.comm",
+            "yolotpu_torch.parallel.forward",
+            "yolotpu_torch.parallel.launch"} <= names
 
 
 def test_engine_on_cuda_raises_without_a_card():

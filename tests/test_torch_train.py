@@ -437,11 +437,19 @@ def test_train_cli_needs_a_card_by_default(small, tmp_path):
     assert not (tmp_path / "ck").exists()
 
 
-def test_train_cli_mesh_over_cards_is_m13(monkeypatch):
-    """--mesh with more than one visible card raises, naming ROADMAP M13;
-    with one it shards nothing (the CPU run above passes --mesh)."""
+def test_train_cli_mesh_over_cards_is_m13(monkeypatch, tmp_path):
+    """--mesh (M13) runs one process per card under torchrun: with more
+    than one visible card and no torchrun world it raises, naming the
+    launch, before it builds anything; with one process it shards nothing
+    (the CPU run above passes --mesh, and its checkpoints equal JAX's).
+    tests/test_torch_parallel.py runs it over two ranks."""
     from yolotpu_torch.cli import train as cli
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="M13"):
-        cli.main(["--synthetic-data", "--mesh", "--steps", "1"])
+    with pytest.raises(RuntimeError,
+                       match="torchrun --nproc-per-node 2 -m "
+                             "yolotpu_torch.cli.train --mesh"):
+        cli.main(["--synthetic-data", "--mesh", "--steps", "1",
+                  "--ckpt-dir", str(tmp_path / "ck")])
+    assert not (tmp_path / "ck").exists()

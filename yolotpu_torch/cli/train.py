@@ -8,12 +8,22 @@ datasets (image + ``class cx cy w h`` label files) or ``--synthetic-data``
 standard weight artifact contract (``--export-weights``).
 
 Dataset format: a list file of image paths; each image's label file sits
-next to it with .txt extension (darknet convention). ``--mesh`` shards
-nothing with one visible device, as ``yolotpu``'s does with one device;
-with more it raises (multi-GPU training is ROADMAP M13).
+next to it with .txt extension (darknet convention).
+
+``--mesh`` trains over a (dp, tp) mesh (``parallel.mesh.make_mesh``) of
+one process per card, launched by ``torchrun`` (where the JAX package's
+one process drives every device): rank r on ``cuda:LOCAL_RANK``, the
+params its tp blocks, the batch its dp rows (every rank draws the same
+global batch from ``--seed`` and loads only its share). Checkpoints and
+``--export-weights`` gather the tp blocks, and rank 0 writes them whole,
+in the one-process format. With one process ``--mesh`` shards nothing, as
+the JAX package's with one device; with more than one visible card and no
+``torchrun`` it raises, naming the launch:
 
     python -m yolotpu_torch.cli.train --synthetic-data --steps 20 \\
         --ckpt-dir ckpt --export-weights weights_out
+    torchrun --nproc-per-node 8 -m yolotpu_torch.cli.train --mesh \\
+        --synthetic-data --batch 16
 """
 
 from __future__ import annotations
@@ -26,10 +36,12 @@ import time
 import numpy as np
 
 
-def load_batch(paths, labels, spec, rng, batch, max_boxes=30):
+def load_batch(paths, labels, spec, rng, batch, max_boxes=30,
+               rows: slice = slice(None)):
+    """``batch`` images drawn from ``rng``, of which ``rows`` are loaded."""
     from ..eval import load_darknet_labels
     from ..image import letterbox_image, load_image
-    idx = rng.integers(0, len(paths), batch)
+    idx = rng.integers(0, len(paths), batch)[rows]
     imgs, boxes, classes, mask = [], [], [], []
     for i in idx:
         im = load_image(paths[i])
@@ -80,20 +92,39 @@ def parser() -> argparse.ArgumentParser:
                     help="directory for weights.bin/bias.bin at the end")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", action="store_true",
-                    help="shard over all visible devices (one: no-op)")
+                    help="shard over the torchrun world, dp x tp (one "
+                    "process: no-op)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="train on the card (default) or the CPU")
     return ap
 
 
+def join_world(device: str):
+    """The device of this torchrun rank, its process group initialised
+    from the environment unless it already is."""
+    import torch
+    import torch.distributed as dist
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get(
+            "LOCAL_RANK", torch.cuda.current_device())))
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    return dev
+
+
 def main(argv: list[str] | None = None) -> int:
     import torch
+    import torch.distributed as dist
 
     from ..checkpoint import (export_weight_artifacts, latest_checkpoint,
                               load_checkpoint, save_checkpoint)
     from ..graph import NetworkSpec
     from ..models import yolov2 as m
     from ..models import zoo
+    from ..parallel import comm
+    from ..parallel.mesh import make_mesh, param_shardings, shard_params
     from ..train import make_train_step, zeros_like_velocity
     from ..weights import WeightStore
 
@@ -102,10 +133,20 @@ def main(argv: list[str] | None = None) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train --device cuda: no CUDA device is available "
                            "to this process")
-    if args.mesh and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"--mesh over {torch.cuda.device_count()} cards: multi-GPU "
-            "training is not ported yet (ROADMAP M13)")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    own_group = args.mesh and world > 1 and not dist.is_initialized()
+    mesh = None
+    if args.mesh and (world > 1 or dist.is_initialized()):
+        device = join_world(args.device)
+        mesh = make_mesh()
+        print(f"mesh: {dict(mesh.shape)}, rank {mesh.rank} on {device}")
+    elif args.mesh and device.type == "cuda" and torch.cuda.device_count() > 1:
+        n = torch.cuda.device_count()
+        raise RuntimeError(
+            f"--mesh over {n} cards runs one process per card: launch it "
+            f"with torchrun --nproc-per-node {n} -m yolotpu_torch.cli.train "
+            "--mesh ...")
+    lead = mesh is None or mesh.rank == 0
     spec = (NetworkSpec.from_cfg(args.cfg) if args.cfg
             else zoo.build(args.model, width=args.width, height=args.height))
     rng = np.random.default_rng(args.seed)
@@ -125,35 +166,63 @@ def main(argv: list[str] | None = None) -> int:
             params = on_device(ptree)
             velocity = (on_device(vtree) if vtree
                         else zeros_like_velocity(params))
-            print(f"resumed from {ck} at step {start_step}")
+            if lead:
+                print(f"resumed from {ck} at step {start_step}")
+
+    rows = slice(None)
+    if mesh is not None:
+        shardings = param_shardings(params, mesh)
+        params, velocity = (shard_params(t, mesh) for t in (params, velocity))
+        dp = mesh.shape["dp"]
+        if args.batch % dp:
+            raise ValueError(f"--batch {args.batch} does not split over "
+                             f"dp={dp}")
+        share = args.batch // dp
+        rows = slice(mesh.coords()["dp"] * share,
+                     (mesh.coords()["dp"] + 1) * share)
+
+    def whole(tree):
+        return tree if mesh is None else comm.gather_params(tree, shardings)
 
     paths = labels = None
     if args.train_list:
         paths = [l.strip() for l in open(args.train_list) if l.strip()]
         labels = [os.path.splitext(p)[0] + ".txt" for p in paths]
-    elif not args.synthetic_data:
+    elif not args.synthetic_data and lead:
         print("note: no --train-list; using --synthetic-data")
 
-    step_fn = make_train_step(spec, lr=args.lr, momentum=args.momentum)
+    step_fn = make_train_step(spec, lr=args.lr, momentum=args.momentum,
+                              mesh=mesh)
     t0 = time.time()
     for step in range(start_step, args.steps):
         if paths:
-            batch = load_batch(paths, labels, spec, rng, args.batch)
+            batch = load_batch(paths, labels, spec, rng, args.batch,
+                               rows=rows)
         else:
-            batch = synthetic_batch(spec, rng, args.batch)
-        batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+            batch = {k: v[rows] for k, v in
+                     synthetic_batch(spec, rng, args.batch).items()}
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                 for k, v in batch.items()}
         params, velocity, loss = step_fn(params, velocity, batch)
-        if step % 10 == 0 or step == args.steps - 1:
+        if lead and (step % 10 == 0 or step == args.steps - 1):
             print(f"step {step}: loss {float(loss):.4f} "
                   f"({(time.time() - t0):.1f}s)", flush=True)
         if args.ckpt_every and (step + 1) % args.ckpt_every == 0:
-            p = save_checkpoint(args.ckpt_dir, step + 1, params, velocity)
-            print(f"checkpoint: {p}")
+            full_p, full_v = whole(params), whole(velocity)
+            if lead:
+                p = save_checkpoint(args.ckpt_dir, step + 1, full_p, full_v)
+                print(f"checkpoint: {p}")
 
-    save_checkpoint(args.ckpt_dir, args.steps, params, velocity)
-    if args.export_weights:
-        export_weight_artifacts(params, spec, args.export_weights)
-        print(f"exported weight artifacts to {args.export_weights}/")
+    full_p, full_v = whole(params), whole(velocity)
+    if lead:
+        save_checkpoint(args.ckpt_dir, args.steps, full_p, full_v)
+        if args.export_weights:
+            export_weight_artifacts(full_p, spec, args.export_weights)
+            print(f"exported weight artifacts to {args.export_weights}/")
+    if mesh is not None:
+        dist.barrier()   # rank 0's files are written
+    if own_group:
+        dist.destroy_process_group()
     return 0
 
 

@@ -25,6 +25,8 @@ from torch import nn
 from ..graph import (ConvSpec, MaxPoolSpec, NetworkSpec, RegionSpec,
                      ReorgSpec, RouteSpec)
 from ..ops import convops, nms, pool, q16, q8, region, reorg
+from ..parallel import comm
+from ..parallel.mesh import tp_sharded
 from ..weights import QTables, WeightStore
 from . import engine_plan
 
@@ -194,7 +196,8 @@ def params_from_jax(jax_params: dict, device: torch.device | str = "cpu") -> dic
 # Forward
 # ---------------------------------------------------------------------------
 
-def head_fp32(spec: NetworkSpec, params: dict, x: torch.Tensor) -> torch.Tensor:
+def head_fp32(spec: NetworkSpec, params: dict, x: torch.Tensor,
+              mesh=None, tally: dict | None = None) -> torch.Tensor:
     """The fp32 head of a parameter tree, differentiable: ``build_forward(
     spec, "fp32", outputs=("head",))``'s ``head``, for training. params
     {"conv{idx}": {"w": HWIO, "b"}} fp32 tensors (``params_fp32``'s tree;
@@ -202,7 +205,12 @@ def head_fp32(spec: NetworkSpec, params: dict, x: torch.Tensor) -> torch.Tensor:
     float NHWC letterboxed to the network size -> (B, h, w, n*(5+C)) fp32,
     the region layer's input. The walk of ``YoloV2Q``'s fp32 tier:
     ``convops.conv_fp32`` (TF32 off, the backward too), ``pool.maxpool``
-    (JAX's gradient on ties), ``reorg.reorg`` and the route concats."""
+    (JAX's gradient on ties), ``reorg.reorg`` and the route concats.
+
+    With a ``parallel.mesh.Mesh``, params are this rank's blocks
+    (``shard_params``) and x its frames: each tp-sharded conv runs between
+    ``comm.copy_to_tp`` and ``comm.gather_from_tp`` (their bytes added to
+    ``tally``), the rest replicated over tp."""
     cur = convops.normalize_u8(x) if x.dtype == torch.uint8 else x.float()
     needed = {s for l in spec.layers if isinstance(l, RouteSpec)
               for s in l.layers}
@@ -212,8 +220,13 @@ def head_fp32(spec: NetworkSpec, params: dict, x: torch.Tensor) -> torch.Tensor:
             return cur
         if isinstance(l, ConvSpec):
             p = params[f"conv{l.idx}"]
+            sharded = mesh is not None and tp_sharded(l.n, mesh)
+            if sharded:
+                cur = comm.copy_to_tp(cur, mesh, tally)
             cur = convops.conv_fp32(cur, p["w"], p["b"], l.stride, l.pad,
                                     l.activation)
+            if sharded:
+                cur = comm.gather_from_tp(cur, mesh, tally)
         elif isinstance(l, MaxPoolSpec):
             cur = pool.maxpool(cur, l.size, l.stride, l.padding)
         elif isinstance(l, ReorgSpec):
@@ -360,7 +373,7 @@ class YoloV2Q(nn.Module):
                 kw["out_dtype"] = torch.int16
             bsz, h, wd, c = x.shape
             y = mm(x.reshape(-1, c), w, b, shift, leaky, **kw)
-            return y.reshape(bsz, h, wd, l.n)
+            return y.reshape(bsz, h, wd, w.shape[-1])   # a tp block's
         if kernel == "conv3_pool":
             return self.pooled[self.precision](x, w, b, shift, leaky, order,
                                                **kw)
@@ -419,6 +432,11 @@ class YoloV2Q(nn.Module):
                 every[l.idx] = cur
         if head is None:   # headless graph
             head = self._dequantize(cur, self.plan and self.plan.output_q)
+        return self.outputs_of(head, every)
+
+    def outputs_of(self, head: torch.Tensor, every: dict | None = None) -> dict:
+        """What ``outputs`` names, from the dequantized head (and, under
+        ``"acts"``, every layer's output): the tail of ``forward``."""
         out = {} if every is None else {"acts": every}
         if "head" in self.outputs:
             out["head"] = head

@@ -33,6 +33,8 @@ import torch
 
 from .graph import NetworkSpec, RegionSpec
 from .models import yolov2 as m
+from .parallel import comm
+from .parallel.mesh import tp_sharded
 
 
 @dataclass(frozen=True)
@@ -160,7 +162,8 @@ def region_loss(head: torch.Tensor, truth_boxes: torch.Tensor,
 
 def make_train_step(spec: NetworkSpec, lr: float = 1e-3,
                     momentum: float = 0.9, cfg: LossConfig = LossConfig(),
-                    clip_norm: float = 0.0):
+                    clip_norm: float = 0.0, mesh=None,
+                    tally: dict | None = None):
     """SGD+momentum step over fp32 params: ``train_step(params, velocity,
     batch, lr_scale=1.0) -> (new params, new velocity, loss)``, trees of
     ``params_fp32``'s shape on one device; batch {"images" (B, H, W, 3)
@@ -169,8 +172,25 @@ def make_train_step(spec: NetworkSpec, lr: float = 1e-3,
     ``p = p + v``. ``clip_norm`` > 0 clips the global gradient norm: the
     full graph's BN is folded into its weights, so nothing renormalizes
     activations and early steps otherwise explode. The arguments are not
-    changed."""
+    changed.
+
+    With a (dp, tp) ``parallel.mesh.Mesh`` the step is this rank's part of
+    the step over the whole batch: params and velocity are its blocks
+    (``mesh.shard_params``), the batch its dp rows, and the step returns
+    its blocks and the whole batch's loss. Each rank's loss is scaled to
+    the global batch (``region_loss`` divides by its own B), the gradients
+    are summed over dp, and the loss reported is the sum of the scaled
+    losses; the tp-sharded convs run in ``head_fp32``'s Megatron pair. The
+    clip's global norm sums each sharded leaf's squares over tp once and
+    each replicated leaf's once, in the same leaf order. ``tally`` counts
+    the collectives' bytes by kind."""
     rspec = spec.region
+    if mesh is not None and mesh.axis_names != ("dp", "tp"):
+        raise ValueError(f"the train step shards over a (dp, tp) mesh, not "
+                         f"{mesh.shape}")
+    dp = 1 if mesh is None else mesh.shape["dp"]
+    sharded = set() if mesh is None else {
+        f"conv{l.idx}" for l in spec.conv_layers() if tp_sharded(l.n, mesh)}
 
     def train_step(params: dict, velocity: dict, batch: dict,
                    lr_scale: float = 1.0):
@@ -179,15 +199,32 @@ def make_train_step(spec: NetworkSpec, lr: float = 1e-3,
         p = {k: {leaf: v.detach().requires_grad_(True)
                  for leaf, v in params[k].items()} for k in params}
         with torch.enable_grad():
-            head = m.head_fp32(spec, p, batch["images"])
+            head = m.head_fp32(spec, p, batch["images"], mesh, tally)
             loss = region_loss(head, batch["boxes"], batch["classes"],
                                batch["mask"], rspec, cfg)
+            if dp > 1:
+                loss = loss / dp   # this rank's share of the global batch
             grads = torch.autograd.grad(loss, [p[k][leaf]
                                                for k, leaf in names])
         with torch.no_grad():
+            loss = loss.detach()
+            if dp > 1:
+                flat = comm.all_reduce_sum(
+                    torch.cat([g.reshape(-1) for g in grads] + [loss[None]]),
+                    mesh.group("dp"), tally, "dp_grad_reduce")
+                loss = flat[-1]
+                grads = [v.view_as(g) for v, g in zip(
+                    flat[:-1].split([g.numel() for g in grads]), grads)]
             if clip_norm > 0:
-                gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2)
-                                       for g in grads))
+                sq = [torch.sum(g.float() ** 2) for g in grads]
+                tp_ix = [i for i, (k, _) in enumerate(names) if k in sharded]
+                if tp_ix:
+                    tot = comm.all_reduce_sum(
+                        torch.stack([sq[i] for i in tp_ix]),
+                        mesh.group("tp"), tally, "tp_norm_reduce")
+                    for j, i in enumerate(tp_ix):
+                        sq[i] = tot[j]
+                gnorm = torch.sqrt(sum(sq))
                 scale = torch.clamp_max(
                     clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
                 grads = [g * scale for g in grads]
@@ -199,7 +236,7 @@ def make_train_step(spec: NetworkSpec, lr: float = 1e-3,
                 v = momentum * velocity[k][leaf] - step * g
                 new_v[k][leaf] = v
                 new_p[k][leaf] = params[k][leaf] + v
-        return new_p, new_v, loss.detach()
+        return new_p, new_v, loss
 
     return train_step
 
