@@ -6,21 +6,23 @@ It builds the hand-written kernels from ``yolotpu_torch/csrc/`` with nvcc
 for ``sm_90a`` (one nvcc per source, all started together) and drives the
 port's main paths, YOLOv2 at 416x416 with synthetic weights from seed 0 in
 each tier (fp32; int16-exact; int8 w8a8 with the head16 epilogue; w8a16)
-and in two plan slices of the int16 tier, every forward a replay of a CUDA
-graph that the engine captured, then trains it and scores the trained
-weights through the integer tiers, and runs the multi-GPU path in eight
-ranks on the one card, in eight phases:
+and in two plan slices of the int16 tier, and yolov2-s2 (its five 2x2/s2
+maxpools 3x3/s2 convs, which run on the general convs) in each tier, every
+forward a replay of a CUDA graph that the engine captured, then trains
+YOLOv2 and scores the trained weights through the integer tiers, and runs
+the multi-GPU path in eight ranks on the one card, in ten phases (9 runs
+after 2, 10 after 3):
 
 1. card: name and power limit, torch and CUDA versions, kernel build time,
    each kernel's registers and spills (none allowed), each kernel's
-   tensor-core MMA count (cuobjdump: the ten instantiations of the
+   tensor-core MMA count (cuobjdump: the fourteen instantiations of the
    tensor-core body hold integer wgmma, and the library holds no other
    kernel but nms_greedy's two passes, whose registers and shared memory it
    prints), and the tile, shared memory and registers of
    each operand scheme of the tensor-core body (Q16: mm_q16, conv3x3_q16,
-   conv3x3_pool_q16 in its three pool orders; W8A16: mm_w8a16,
-   conv3x3_w8a16; S8: mm_s8 with either output, conv3x3_s8, conv3x3_int8),
-   checked against the wrappers' copy of it;
+   conv3x3_pool_q16 in its three pool orders, conv_q16; W8A16: mm_w8a16,
+   conv3x3_w8a16, conv_w8a16; S8: mm_s8 and conv_s8 with either output,
+   conv3x3_s8, conv3x3_int8), checked against the wrappers' copy of it;
 2. kernels: each of the six conv kernels against its plain PyTorch version
    on the card at all 23 yolov2 conv shapes of its kind (batch 2) and at
    edge cases (shift extremes, per-channel shift vectors that mix them, sums
@@ -182,6 +184,31 @@ ranks on the one card, in eight phases:
    ``conv3x3_s8`` (each above 0, no other kernel) join the kernels' counts;
    the phase must end within 120 s.
 
+9. general convs, kernels: conv_q16, conv_s8 (int8 and int16 output) and
+   conv_w8a16 against their plain versions (``torch.equal``) at yolov2-s2's
+   five 3x3/s2 shapes at batch 1, 2 and 8 (K split as ``tc.split`` picks;
+   at batch 8 timed by CUDA events and in CUDA graph replays, beside the
+   bound and one library call: a float64 matmul on the strided im2col, or
+   ``_int_mm`` for int8), and at edge forms (a 7x7/s2 entry with C=3, a
+   5x5, a VALID 3x3, a 2x2/s2 on odd H and W, a 1x1/s2 with N=425, a
+   3x3/s2 with padding 2 and with padding 3, whose first windows are all
+   padding, C=1024; shifts from -3 to 40 and vectors mixing them, leaky on
+   and off), the int8 head16 form, sums built to wrap, and K beyond one
+   split (a 7x7/s2 over 1024 channels, K=50,176; an int8 7x7 over 2731
+   channels, K=133,819, whose exact sum leaves int32);
+
+10. yolov2-s2 at 416 (published widths, nothing cut; 28 convs: 8 on mm, 15
+   on conv3, 5 on the general conv), synthetic weights from seed 0
+   quantized per tier: an Engine per tier, fp32 included (3 ``detect``,
+   ``predict_batch_rgb`` at batch 8 and 1, each a replay of a captured
+   graph), its launches per captured forward checked, the replayed heads
+   bit-equal to the eager forward and to the plain versions on the card,
+   the batch-8 replay's ms and the batch-1 p50/p90; the mixed cfg of
+   tests/test_torch_general_conv.py in every integer tier on the card,
+   its heads bit-equal to the CPU's plain path (the int8 3x3 head on
+   conv_s8's int16 output); ``profile_layers`` at int16 batch 8, the five
+   strided convs against their bound.
+
 Any failed check raises, so the exit code is not 0. The line before the
 last is a JSON record of the kernels; the last is
 ``{"ok": true, "device": {...}}``. JAX and the JAX package ``yolotpu`` are
@@ -215,7 +242,7 @@ from yolotpu_torch.cli import gpu_check  # noqa: E402
 from yolotpu_torch.cli import main as cli_main  # noqa: E402
 from yolotpu_torch.cli import pipeline, report, weight_gen  # noqa: E402
 from yolotpu_torch.cli import train as train_cli  # noqa: E402
-from yolotpu_torch.graph import MaxPoolSpec  # noqa: E402
+from yolotpu_torch.graph import MaxPoolSpec, NetworkSpec  # noqa: E402
 from yolotpu_torch.image import letterbox_image  # noqa: E402
 from yolotpu_torch.models import engine_plan, zoo  # noqa: E402
 from yolotpu_torch.models.yolov2 import (YoloV2Q, head_fp32,  # noqa: E402
@@ -228,7 +255,8 @@ from yolotpu_torch.parallel.dryrun import launch_counts  # noqa: E402
 from yolotpu_torch.quant import (calibrate_activations,  # noqa: E402
                                  calibrate_activations_int8, quantize_weights,
                                  quantize_weights_int8, quantize_weights_w8a16)
-from yolotpu_torch.runtime.engine import Engine, load_or_synthesize  # noqa: E402
+from yolotpu_torch.runtime.engine import (Engine, load_or_synthesize,  # noqa: E402
+                                          tier_params, tier_qtables)
 from yolotpu_torch.runtime.profiler import (H100_CHIP,  # noqa: E402
                                             layer_ops_bytes,
                                             prefix_alive_sets, profile_layers,
@@ -267,11 +295,26 @@ KERNEL_SOURCES = {
                    "yolotpu/ops/nms.py:89 (the vmapped lax.scan of "
                    "greedy_nms_mask, :36-57, on box_iou_matrix, :21-33 and "
                    ":87; no Pallas kernel)"),
+    "conv_q16": ("yolotpu_torch/csrc/conv_q16.cu",
+                 "yolotpu/ops/convops.py:170 (conv_int16's XLA "
+                 "lax.conv_general_dilated, int32 accumulation; :421/:424 in "
+                 "conv_int16_dec8, :208 in conv_int16_nchw; no Pallas kernel)"),
+    "conv_s8": ("yolotpu_torch/csrc/conv_s8.cu",
+                "yolotpu/ops/convops.py:572 (conv_int8's XLA s8 "
+                "lax.conv_general_dilated, head16 included; no Pallas "
+                "kernel)"),
+    "conv_w8a16": ("yolotpu_torch/csrc/conv_w8a16.cu",
+                   "yolotpu/ops/convops.py:508 (conv_w8a16's XLA s8 "
+                   "lax.conv_general_dilated over the stacked planes; no "
+                   "Pallas kernel)"),
 }
+# the general convs: any k x k size, stride and padding; args (x, w, bias,
+# shift, leaky, stride, pad)
+GENERAL_KERNELS = ("conv_q16", "conv_s8", "conv_w8a16")
 KERNEL_MODULE = {name: next(m for m in (q16, q8, nms) if name in m.LAUNCHES)
                  for name in KERNEL_SOURCES}
 TIERS = tuple(YoloV2Q.kernels)   # the integer tiers; fp32 runs no kernel of ours
-# tier -> the names of its (mm, conv3) kernels
+# tier -> the names of its (mm, conv3, conv) kernels
 TIER_KERNELS = {tier: tuple(f.__name__ for f in fns)
                 for tier, fns in YoloV2Q.kernels.items()}
 # the 8-bit-weight kernels' cases: the spread the requantized sums aim at,
@@ -289,12 +332,15 @@ TC_KERNELS = {"mm_q16": (tc.Q16, q16.pack_q16),
               "conv3x3_w8a16": (tc.W8A16, q8.pack_w8a16),
               "mm_s8": (tc.S8, q8.pack_s8),
               "conv3x3_s8": (tc.S8, q8.pack_s8),
-              "conv3x3_int8": (tc.S8, q8.pack_s8)}
+              "conv3x3_int8": (tc.S8, q8.pack_s8),
+              "conv_q16": (tc.Q16, q16.pack_q16),
+              "conv_w8a16": (tc.W8A16, q8.pack_w8a16),
+              "conv_s8": (tc.S8, q8.pack_s8)}
 # the tensor-core instantiations: (kernel, what tells it from the others of
 # the kernel, the scheme's and the loader's part of its mangled name); the
 # int16 output of mm_s8 is a scheme struct of its own, S8Out16, and each
 # pool order of conv3x3_pool_q16 a Q16Pool<order>, with the window-major
-# loader ConvTc<int16_t, true>
+# loader ConvTc<int16_t, true>; the general convs' loader is ConvKTc<T>
 TC_INSTANCES = (("mm_q16", "", "3Q16", "MmTcIs"),
                 ("conv3x3_q16", "", "3Q16", "ConvTcIsLb0E"),
                 ("mm_w8a16", "", "5W8A16", "MmTcIs"),
@@ -303,8 +349,13 @@ TC_INSTANCES = (("mm_q16", "", "3Q16", "MmTcIs"),
                 ("mm_s8", " (int16 output)", "7S8Out16", "MmTcIa"),
                 ("conv3x3_s8", "", "2S8", "ConvTcIaLb0E"),
                 *(("conv3x3_pool_q16", f" (order {o})", f"7Q16PoolILi{i}E",
-                   "ConvTcIsLb1E") for i, o in enumerate(q16.POOL_ORDERS)))
-INT8_KERNELS = ("mm_s8", "conv3x3_s8", "conv3x3_int8")   # int8 x int8
+                   "ConvTcIsLb1E") for i, o in enumerate(q16.POOL_ORDERS)),
+                ("conv_q16", "", "3Q16", "ConvKTcIs"),
+                ("conv_w8a16", "", "5W8A16", "ConvKTcIs"),
+                ("conv_s8", " (int8 output)", "2S8", "ConvKTcIa"),
+                ("conv_s8", " (int16 output)", "7S8Out16", "ConvKTcIa"))
+# int8 x int8
+INT8_KERNELS = ("mm_s8", "conv3x3_s8", "conv3x3_int8", "conv_s8")
 # the card's peaks, one definition with the profiler's roofline
 # (runtime.profiler.H100_CHIP, the NVIDIA H100 SXM data sheet, dense): 8-bit
 # tensor-core multiply-adds per second (1,979 T int8 ops), device memory
@@ -352,9 +403,12 @@ class PlainYoloV2Q(YoloV2Q):
     """The same network with every conv through its kernel's plain PyTorch
     version, whatever the device: the reference the kernel path is held
     against on the card."""
-    kernels = {"int16": (q16.mm_q16_plain, q16.conv3x3_q16_plain),
-               "int8": (q8.mm_s8_plain, q8.conv3x3_s8_plain),
-               "w8a16": (q8.mm_w8a16_plain, q8.conv3x3_w8a16_plain)}
+    kernels = {"int16": (q16.mm_q16_plain, q16.conv3x3_q16_plain,
+                         q16.conv_q16_plain),
+               "int8": (q8.mm_s8_plain, q8.conv3x3_s8_plain,
+                        q8.conv_s8_plain),
+               "w8a16": (q8.mm_w8a16_plain, q8.conv3x3_w8a16_plain,
+                         q8.conv_w8a16_plain)}
     pooled = {"int16": q16.conv3x3_pool_q16_plain}
 
 
@@ -394,15 +448,17 @@ def bound(m: int, k: int, n: int, per_mac: int, nbytes: int) -> tuple:
 
 
 def case_bound(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-               out: torch.Tensor, shift) -> tuple:
+               out: torch.Tensor, shift, general: bool = False) -> tuple:
     """bound() of one kernel call on these operands: x (M, K) or NHWC, w
-    (K, N) or HWIO, out its output; bias and a shift vector read once."""
+    (K, N) or HWIO, out its output; bias and a shift vector read once. A
+    conv has a row of sums per pixel of x, a general conv (``general``) one
+    per pixel of its output."""
     n = w.shape[-1]
     nbytes = sum(t.numel() * t.element_size() for t in (x, w, bias, out))
     if torch.is_tensor(shift):
         nbytes += shift.numel() * shift.element_size()
-    return bound(x.numel() // x.shape[-1], w.numel() // n, n, products(x, w),
-                 nbytes)
+    rows = (out if general else x).numel() // (n if general else x.shape[-1])
+    return bound(rows, w.numel() // n, n, products(x, w), nbytes)
 
 
 def int_mm_ok(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -412,14 +468,18 @@ def int_mm_ok(a: torch.Tensor, b: torch.Tensor) -> bool:
             and a.shape[1] % 8 == 0 and b.shape[1] % 8 == 0)
 
 
-def library_call(name: str, x: torch.Tensor, w: torch.Tensor):
+def library_call(name: str, x: torch.Tensor, w: torch.Tensor,
+                 geometry: tuple = ()):
     """One PyTorch call that computes the kernel's sums (not its wrap or
     requant) on the same operands, as (fn, what): torch._int_mm for int8 x
     int8 where its shape rules allow, else a float64 matmul (exact below
-    2^53), on the im2col matrix for a 3x3 conv; for the conv fused with its
-    pool, that matmul and then the 2x2/s2 pool of the sums (ops.pool). Never
-    called by the port."""
-    a = x.reshape(-1, x.shape[-1]) if name.startswith("mm") else q16.im2col3x3(x)
+    2^53), on the im2col matrix for a conv (a general conv's at its
+    ``geometry``, (stride, pad)); for the conv fused with its pool, that
+    matmul and then the 2x2/s2 pool of the sums (ops.pool). Never called by
+    the port."""
+    a = (x.reshape(-1, x.shape[-1]) if name.startswith("mm")
+         else q16.im2col(x, w.shape[0], *geometry) if name in GENERAL_KERNELS
+         else q16.im2col3x3(x))
     b = w.reshape(-1, w.shape[-1])
     if name in INT8_KERNELS and int_mm_ok(a, b):
         a, b = a.contiguous(), b.contiguous()
@@ -459,6 +519,7 @@ class KernelCheck:
         self.ms = {k: 0.0 for k in KERNEL_SOURCES}
         self.plain_ms = {k: 0.0 for k in KERNEL_SOURCES}
         self.library_ms = {k: 0.0 for k in KERNEL_SOURCES}
+        self.graph_ms = {k: 0.0 for k in KERNEL_SOURCES}
         self.library = {k: set() for k in KERNEL_SOURCES}
         self.bound = {k: [0.0, 0.0, 0.0] for k in KERNEL_SOURCES}
 
@@ -484,7 +545,10 @@ class KernelCheck:
         if leaky:
             sat |= want == -((-info.min) // 10)   # the minimum through the leaky
         unsat = float((~sat).float().mean())
-        exact = (q16.mm_sum64 if name.startswith("mm") else q16.conv3x3_sum64)(x, w)
+        general = name in GENERAL_KERNELS
+        exact = (q16.mm_sum64(x, w) if name.startswith("mm")
+                 else q16.conv_sum64(x, w, *args[5:7]) if general
+                 else q16.conv3x3_sum64(x, w))
         if exact.shape != want.shape:   # a pooled output: each window's largest
             b_, h_, w_, n_ = exact.shape
             exact = exact.abs().reshape(b_, h_ // 2, 2, w_ // 2, 2, n_).amax(
@@ -497,18 +561,24 @@ class KernelCheck:
         if not timed:
             return got
         k_ms = cuda_ms(lambda: kernel(*args, **kw), reps=10)
+        # a general conv also alone on the device, in CUDA graph replays
+        g_ms = graph_ms(lambda: kernel(*args, **kw)) if general else None
         p_ms = cuda_ms(lambda: plain(*args, **kw), reps=3)
-        lib, what = library_call(name, x, w)
+        lib, what = library_call(name, x, w, args[5:7] if general else ())
         l_ms = cuda_ms(lib, reps=5)
-        part = case_bound(x, w, args[2], want, args[3])
+        part = case_bound(x, w, args[2], want, args[3], general)
         self.ms[name] += k_ms
         self.plain_ms[name] += p_ms
         self.library_ms[name] += l_ms
         self.library[name].add(what)
         add_bound(self.bound[name], part)
+        if general:
+            self.graph_ms[name] += g_ms
         say(f"  {name:13s} {label:40s} equal, unsat {unsat:.3f} wrapped "
-            f"{wrapped:.3f}  kernel {k_ms:8.3f} ms  plain {p_ms:8.3f} ms  "
-            f"{what} {l_ms:8.3f} ms  bound {max(part):.4f} ms")
+            f"{wrapped:.3f}  kernel {k_ms:8.3f} ms"
+            + (f" (graph replays {g_ms:8.4f})" if general else "")
+            + f"  plain {p_ms:8.3f} ms  {what} {l_ms:8.3f} ms  bound "
+            f"{max(part):.4f} ms ({'operations' if part[0] >= part[1] else 'bytes'})")
         return got
 
 
@@ -1260,6 +1330,232 @@ def near_threshold_pairs(cprob: torch.Tensor, cboxes: torch.Tensor) -> tuple:
     return int(near.sum()), int((near & (ious > NMS_THRESH)).sum())
 
 
+# the general convs' edge forms (B, H, W, C, N, k, stride, pad), each of
+# them with ragged M
+GENERAL_FORMS = (
+    (1, 15, 13, 3, 7, 7, 2, 3),     # a 7x7/s2 entry, C=3, N=7
+    (2, 9, 10, 12, 40, 5, 1, 2),    # 5x5/s1, darknet's padding
+    (2, 9, 8, 4, 24, 3, 1, 0),      # 3x3 VALID
+    (1, 11, 9, 7, 16, 2, 2, 0),     # 2x2/s2 padding=0 on odd H and W: the
+                                    # last row and column are never read
+    (2, 9, 7, 16, 425, 1, 2, 0),    # 1x1/s2, N=425
+    (1, 8, 9, 8, 70, 3, 2, 2),      # 3x3/s2, padding=2
+    (1, 5, 6, 4, 8, 3, 2, 3),       # 3x3/s2, padding=3: a row and a column
+                                    # of windows all padding, bias only
+    (1, 6, 7, 1024, 64, 3, 2, 1),   # C=1024
+)
+# general conv -> (x type, output type) of its operands
+GENERAL_TYPES = {"conv_q16": (np.int16, torch.int16),
+                 "conv_s8": (np.int8, torch.int8),
+                 "conv_w8a16": (np.int16, torch.int16)}
+S2_SIZE = 416
+S2_BATCHES = (1, 2, BATCH_SLICE)
+
+
+def yolov2_s2_cfg(size: int = S2_SIZE) -> str:
+    """yolov2's cfg (``zoo.to_cfg``) with each of its five 2x2/s2 maxpools a
+    3x3/s2 conv of the width before it (32, 64, 128, 256, 512), batch
+    normalized and leaky: darknet-53-style downsampling, the layer indices,
+    spatial sizes, reorg and routes as in yolov2; at size x size."""
+    sections, filters = [], None
+    for sec in zoo.to_cfg("yolov2").split("\n\n"):
+        if sec.startswith("[maxpool]"):
+            if "size=2\nstride=2" not in sec:
+                raise AssertionError(f"yolov2's cfg has a maxpool {sec!r}")
+            sec = ("[convolutional]\nbatch_normalize=1\n"
+                   f"filters={filters}\nsize=3\nstride=2\npad=1\n"
+                   "activation=leaky")
+        if sec.startswith("[convolutional]"):
+            filters = int(re.search(r"filters=(\d+)", sec).group(1))
+        sections.append(sec)
+    return re.sub(r"(width|height)=416", rf"\g<1>={size}",
+                  "\n\n".join(sections))
+
+
+# the small cfg of tests/test_torch_general_conv.py: a 7x7/s2 entry, a
+# regular 3x3, a 3x3/s2, a regular 1x1, a 5x5, a 2x2/s2 padding=0, a VALID
+# 3x3 (linear), a 1x1/s2 and a regular 3x3 head into a region
+MIXED_SIZE = 96
+MIXED_CFG = "\n\n".join(
+    [f"[net]\nbatch=1\nwidth={MIXED_SIZE}\nheight={MIXED_SIZE}\nchannels=3"]
+    + ["[convolutional]\n" + ("batch_normalize=1\n" if bn else "")
+       + f"filters={n}\nsize={k}\nstride={st}\n{pad}\nactivation={act}"
+       for n, k, st, pad, act, bn in (
+           (16, 7, 2, "pad=1", "leaky", True), (32, 3, 1, "pad=1", "leaky", True),
+           (32, 3, 2, "pad=1", "leaky", True), (16, 1, 1, "pad=1", "leaky", True),
+           (32, 5, 1, "pad=1", "leaky", True),
+           (32, 2, 2, "padding=0", "leaky", True),
+           (48, 3, 1, "padding=0", "linear", True),
+           (64, 1, 2, "pad=1", "leaky", True),
+           (35, 3, 1, "pad=1", "linear", False))]
+    + ["[region]\nanchors=0.57,0.68,1.87,2.06,3.34,5.47,7.88,3.53,9.77,9.17\n"
+       "classes=2\ncoords=4\nnum=5\nsoftmax=1"]) + "\n"
+
+
+def cfg_spec(text: str) -> NetworkSpec:
+    """A cfg text parsed by the port's NetworkSpec.from_cfg."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "net.cfg")
+        with open(path, "w") as f:
+            f.write(text)
+        return NetworkSpec.from_cfg(path)
+
+
+def phase_kernels_general(check: KernelCheck, dev: torch.device) -> None:
+    """Phase 9: conv_q16, conv_s8 (both outputs) and conv_w8a16 against their
+    plain versions (torch.equal) at yolov2-s2's five strided shapes and at
+    the edge forms."""
+    def on(*arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in arrays)
+
+    def full(shape, dtype):
+        return rng.integers(np.iinfo(dtype).min, np.iinfo(dtype).max + 1,
+                            shape).astype(dtype)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(9)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    spec = cfg_spec(yolov2_s2_cfg())
+    strided = [l for l in spec.conv_layers() if l.stride == 2]
+    say(f"[general] yolov2-s2 {S2_SIZE}x{S2_SIZE}: its five 3x3/s2 convs at "
+        f"batch {', '.join(map(str, S2_BATCHES))} (timed at {BATCH_SLICE}: "
+        "CUDA events and graph replays), full-range operands (int16: shift "
+        f"{FULL_SHIFT}, the sums wrap; int8 and w8a16: a shift per column "
+        "fitted to them), K split as the wrapper chooses (tc.split)")
+    for l in strided:
+        wshape = (3, 3, l.c, l.n)
+        label = f"conv{l.idx} {l.h}x{l.w}x{l.c}->{l.n} 3x3/s2"
+        for bsz in S2_BATCHES:
+            xshape = (bsz, l.h, l.w, l.c)
+            m, k = bsz * l.out_h * l.out_w, 9 * l.c
+            for name, (xdtype, out) in GENERAL_TYPES.items():
+                scheme = TC_KERNELS[name][0]
+                if name == "conv_q16":
+                    x, w, b = on(full(xshape, np.int16), full(wshape, np.int16),
+                                 small_bias(rng, l.n))
+                    args, wraps = (x, w, b, FULL_SHIFT), True
+                else:
+                    args, wraps = on(*full_operands8(rng, xshape, wshape, xdtype,
+                                                     out)), False
+                kps = tc.split(m, l.n, k, sms, scheme)
+                splits = -(-(-(-k // scheme.bk)) // kps)
+                check.compare(name, f"{label} b={bsz} K in {splits} splits",
+                              args + (True, 2, 1), wraps=wraps,
+                              timed=bsz == BATCH_SLICE)
+    say(f"[general] the five strided convs at batch {BATCH_SLICE}, per "
+        "forward: " + "; ".join(
+            f"{name} events {check.ms[name]:.4f} ms, graph replays "
+            f"{check.graph_ms[name]:.4f} ms, bound {check.bound[name][0]:.4f} "
+            f"ms ({bound_by(check.bound[name])}), plain "
+            f"{check.plain_ms[name]:.3f} ms, "
+            f"{' / '.join(sorted(check.library[name]))} "
+            f"{check.library_ms[name]:.3f} ms" for name in GENERAL_TYPES))
+
+    say(f"[general] edge forms {GENERAL_FORMS} (B, H, W, C, N, k, stride, "
+        f"pad), each kernel, shifts {SHIFTS} x leaky on/off (int16: narrow "
+        "operands; int8, w8a16: narrow ones at each shift broadcast, then a "
+        "shift vector mixing them)")
+    cases = 0
+    for (bb, h, wd, c, n, k, st, pad) in GENERAL_FORMS:
+        xshape, wshape = (bb, h, wd, c), (k, k, c, n)
+        label = f"{bb}x{h}x{wd}x{c}->{n} {k}x{k}/s{st} pad {pad}"
+        for leaky in (False, True):
+            for shift in SHIFTS:
+                x, w, b = on(*narrow_operands(rng, xshape, wshape, shift))
+                check.compare("conv_q16", f"{label} shift={shift} "
+                              f"leaky={leaky}", (x, w, b, shift, leaky, st, pad))
+                cases += 1
+                # at K=9216 even +-1 8-bit operands saturate at shift -3:
+                # C=1024 takes its shifts from the mixed case's sparse columns
+                for name in ("conv_s8", "conv_w8a16") if c < 1024 else ():
+                    xdtype, out = GENERAL_TYPES[name]
+                    args = on(*narrow_operands8(rng, xshape, wshape, xdtype,
+                                                out, shift))
+                    check.compare(name, f"{label} shift={shift} "
+                                  f"leaky={leaky}", args + (leaky, st, pad))
+                    cases += 1
+            for name in ("conv_s8", "conv_w8a16"):
+                xdtype, out = GENERAL_TYPES[name]
+                args = on(*mixed_operands8(rng, xshape, wshape, xdtype, out))
+                check.compare(name, f"{label} mixed shifts leaky={leaky}",
+                              args + (leaky, st, pad))
+                cases += 1
+
+    say("[general] the int8 head16 form (conv_s8's int16 output, shift - 8, "
+        "bias << 8): the yolov2 head's widths as a 3x3 conv at batch 2, and "
+        "a 3x3/s2 with N=425 and mixed shifts; sums built to wrap (int16 "
+        f"blocks of {WRAP_BLOCK} products (-32768)^2, w8a16 blocks of "
+        f"{WRAP_BLOCK8} products (-32768)*(-128)) at each shift")
+    for leaky in (False, True):
+        # sized for int8 outputs: head16's shift - 8 and bias << 8 spread
+        # them over int16
+        x, w, b, s = on(*full_operands8(rng, (2, 13, 13, 1024),
+                                        (3, 3, 1024, 425), np.int8,
+                                        torch.int8))
+        b, s = convops.head16(b, s)
+        check.compare("conv_s8", f"head16 2x13x13x1024->425 3x3/s1 "
+                      f"leaky={leaky}", (x, w, b, s, leaky, 1, 1),
+                      out_dtype=torch.int16)
+        x, w, b, s = on(*mixed_operands8(rng, (1, 9, 7, 64), (3, 3, 64, 425),
+                                         np.int8, torch.int8))
+        b, s = convops.head16(b, s)
+        check.compare("conv_s8", f"head16 1x9x7x64->425 3x3/s2 mixed shifts "
+                      f"leaky={leaky}", (x, w, b, s, leaky, 2, 1),
+                      out_dtype=torch.int16)
+        cases += 2
+        for shift in SHIFTS:
+            for (bb, h, wd, n, k, st, pad) in ((2, 9, 7, 70, 3, 2, 1),
+                                               (1, 7, 6, 24, 5, 1, 2)):
+                x, w, b = on(*wrap_operands(rng, bb * h * wd, k * k, n, shift,
+                                            nblk=2))
+                c = x.shape[-1]
+                check.compare("conv_q16", f"wrap {bb}x{h}x{wd}x{c}->{n} "
+                              f"{k}x{k}/s{st} shift={shift} leaky={leaky}",
+                              (x.reshape(bb, h, wd, c), w.reshape(k, k, c, n),
+                               b, shift, leaky, st, pad), wraps=True)
+                x, w, b, s = on(*wrap_operands8(rng, bb * h * wd, k * k, n,
+                                                shift, nblk=1))
+                c = x.shape[-1]
+                check.compare("conv_w8a16", f"wrap {bb}x{h}x{wd}x{c}->{n} "
+                              f"{k}x{k}/s{st} shift={shift} leaky={leaky}",
+                              (x.reshape(bb, h, wd, c), w.reshape(k, k, c, n),
+                               b, s, leaky, st, pad), wraps=True)
+                cases += 2
+
+    say(f"[general] K beyond one split ({tc.KMAX} values of k): a 7x7/s2 "
+        "conv over 1024 channels (K=50,176), pad 3, operands at their "
+        "extremes (int16 -32513: high byte -128, low byte 255; int8 -128); "
+        "and a 7x7 VALID int8 conv over 2731 channels (K=133,819) at -128, "
+        "whose exact sum leaves int32")
+    for leaky in (False, True):
+        for name, xv, wv, shift, wraps in (("conv_q16", -32513, -32513, 18, True),
+                                           ("conv_w8a16", -32513, -128, 18, True),
+                                           ("conv_s8", -128, -128, 23, False)):
+            xdtype, out = GENERAL_TYPES[name]
+            x = np.full((1, 9, 9, 1024), xv, xdtype)
+            w = np.full((7, 7, 1024, 16), wv,
+                        np.int16 if name == "conv_q16" else np.int8)
+            if name == "conv_q16":
+                args = on(x, w, small_bias(rng, 16)) + (shift,)
+            else:
+                args = on(x, w, bias8(rng, 16, out),
+                          np.full(16, shift, np.int32))
+            check.compare(name, f"1x9x9x1024->16 7x7/s2 pad 3 (K=50176) "
+                          f"x={xv} w={wv} leaky={leaky}",
+                          args + (leaky, 2, 3), wraps=wraps)
+        x = np.full((3, 7, 7, 2731), -128, np.int8)
+        w = np.full((7, 7, 2731, 16), -128, np.int8)
+        args = on(x, w, bias8(rng, 16, torch.int8), np.full(16, 25, np.int32))
+        check.compare("conv_s8", f"3x7x7x2731->16 7x7 VALID (K=133819) -128 "
+                      f"leaky={leaky}", args + (leaky, 1, 0), wraps=True)
+        cases += 4
+    say(f"[general] {cases} edge cases equal, each with at least "
+        f"{UNSAT_FLOOR} of its outputs unsaturated, and {WRAP_FLOOR} "
+        "unsaturated with a wrapped sum where built to wrap; phase 9 took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def phase_kernels_nms(check: KernelCheck, dev: torch.device) -> dict:
     """nms_greedy against its plain version (torch.equal) on the candidate
     tables that topk_decode_nms hands it: at yolov2 416's shape (N=845,
@@ -1687,6 +1983,150 @@ def phase_slice(spec, store: WeightStore, tier: str,
             "det": det, "plain": plain, "replay_ms": float(np.mean(ms["replay"]))}
 
 
+S2_TIER_ROUTES = {"mm": 8, "conv3": 15, "conv": 5}   # yolov2-s2's convs
+S2_BUDGET_S = 120.0   # phase 10, the store's calibration included
+
+
+def phase_general_slice(dev: torch.device) -> dict:
+    """Phase 10: yolov2-s2 at 416 (yolov2 with each 2x2/s2 maxpool a 3x3/s2
+    conv, published widths, nothing cut), synthetic weights from seed 0
+    quantized per tier, in each tier through an Engine (3 detect requests,
+    predict_batch_rgb at batch 8 and 1, each forward a replay of a captured
+    graph): the launches per captured forward (5 of the tier's general conv,
+    8 mm, 15 conv3), the replayed heads bit-equal to the eager forward and
+    the plain versions on the card (fp32: within the tolerance of the eager
+    model), the batch-8 replay's ms and the batch-1 p50/p90; then the small
+    mixed cfg of the CPU tests in every integer tier on the card, its heads
+    bit-equal to the CPU's plain path; then profile_layers at int16 batch 8
+    for the strided convs' ms against their bound. Returns the launches of
+    these paths and the general convs' launches per forward."""
+    t0 = time.perf_counter()
+    tag = "[yolov2-s2]"
+    spec = cfg_spec(yolov2_s2_cfg())
+    routes = [k for k, _ in engine_plan.kernels(
+        spec, engine_plan.plan(spec)).values()]
+    if {k: routes.count(k) for k in set(routes)} != S2_TIER_ROUTES:
+        raise AssertionError(f"{tag} routes {routes}; want {S2_TIER_ROUTES}")
+    gflop = sum(2 * l.out_h * l.out_w * l.n * l.c * l.size ** 2
+                for l in spec.conv_layers()) / 1e9
+    store = quantized_store(spec)
+    say(f"{tag} {len(spec.conv_layers())} convs ({S2_TIER_ROUTES}), "
+        f"{gflop:.2f} GFLOP a frame; store calibrated and quantized in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    net = (1, spec.net.height, spec.net.width, 3)
+    frames = [rng.random((3, 480, 640), dtype=np.float32) for _ in range(3)]
+    batch = rng.integers(0, 256, (BATCH_SLICE, *net[1:]), dtype=np.uint8)
+    xb = torch.from_numpy(batch).to(dev)
+    total = dict.fromkeys(KERNEL_SOURCES, 0)
+    per_forward: dict[str, dict] = {}
+    for tier in (*TIERS, "fp32"):
+        fp32 = tier == "fp32"
+        reset_launches()
+        eng = Engine(spec, store, tier, dev)
+        results = [eng.detect(im) for im in frames]
+        heads = eng.predict_batch_rgb(batch)
+        head1 = eng.predict_batch_rgb(batch[:1])
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        forwards = 2 * len(eng.graphs)   # each: one warm-up, one capture
+        replays = sum(g.replays for g in eng.graphs.values())
+        want = dict.fromkeys(launches, 0)
+        if not fp32:
+            per = dict(zip(TIER_KERNELS[tier], S2_TIER_ROUTES.values()))
+            want.update({k: forwards * v for k, v in per.items()})
+            per_forward[f"yolov2-s2 {tier}"] = per
+        if len(eng.graphs) != 3 or replays != 5 or launches != want:
+            raise AssertionError(f"{tag} {tier}: {len(eng.graphs)} graphs, "
+                                 f"{replays} replays, launched {launches}; "
+                                 f"want 3, 5, {want}")
+        head16 = (q8.INT16_OUT_LAUNCHES["mm_s8"],
+                  q8.INT16_OUT_LAUNCHES["conv_s8"])
+        if head16 != ((forwards, 0) if tier == "int8" else (0, 0)):
+            raise AssertionError(f"{tag} {tier}: int16-output launches "
+                                 f"(mm_s8, conv_s8) {head16}")
+        for k, v in launches.items():
+            total[k] += v
+        eager = eng.model(xb)["head"].permute(0, 3, 1, 2).cpu().numpy()
+        if not close_heads(heads, eager, fp32) or not np.isfinite(heads).all():
+            raise AssertionError(f"{tag} {tier} batch head: replayed != eager")
+        ref = eng.model if fp32 else PlainYoloV2Q(spec, eng.qtables,
+                                                  eng.params, dev, tier)
+        hold_detect_heads(f"{tag} {tier}", spec, frames, results, ref, dev,
+                          fp32)
+        if not fp32:
+            plain = ref(xb)["head"].permute(0, 3, 1, 2).cpu().numpy()
+            if not (np.array_equal(heads, plain)
+                    and np.array_equal(head1, plain[:1])):
+                raise AssertionError(f"{tag} {tier}: kernels != plain "
+                                     "versions on the card (batch 8 or 1)")
+        g8 = graph_of(eng, torch.uint8, (BATCH_SLICE, *net[1:]))
+        g1 = graph_of(eng, torch.float32, net)
+        ms = cuda_ms(g8.graph.replay, reps=20)
+        p50, p90 = latency_ms(replay_fn(g1))
+        say(f"{tag} {tier}: launched "
+            + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+            + f" = {forwards} captured forwards x "
+            + (f"{per_forward[f'yolov2-s2 {tier}']}" if not fp32 else "cuDNN")
+            + f"; {replays} replays; heads (b={BATCH_SLICE}, b=1, 3 detect) "
+            + ("within tolerance of the eager model" if fp32 else
+               "bit-equal: replayed == eager == plain on the card")
+            + f"; replayed b={BATCH_SLICE} {ms:.3f} ms "
+            f"({BATCH_SLICE * gflop / ms:.1f} TFLOP-equivalent/s), b=1 p50 "
+            f"{p50:.3f} ms p90 {p90:.3f} ms")
+        del eng, ref
+        torch.cuda.empty_cache()
+
+    # the mixed cfg of the CPU tests, every integer tier, card against CPU
+    mspec = cfg_spec(MIXED_CFG)
+    mstore = quantized_store(mspec)
+    x = torch.from_numpy(np.random.default_rng(1).random(
+        (2, MIXED_SIZE, MIXED_SIZE, 3), dtype=np.float32))
+    reset_launches()
+    for tier in TIERS:
+        params = tier_params(mspec, mstore, tier, "cpu")
+        qt = tier_qtables(mstore, tier)
+        card = YoloV2Q(mspec, qt, params, dev, tier)
+        got = card(x.to(dev))["head"].cpu()
+        want_head = YoloV2Q(mspec, qt, params, "cpu", tier)(x)["head"]
+        if not torch.equal(got, want_head):
+            raise AssertionError(f"{tag} mixed cfg {tier}: the card's head "
+                                 "!= the CPU's plain path")
+    torch.cuda.synchronize()
+    mixed = launch_counts()
+    want = {**dict.fromkeys(mixed, 0), "mm_q16": 1, "conv3x3_q16": 2,
+            "conv_q16": 6, "mm_s8": 1, "conv3x3_s8": 1, "conv_s8": 7,
+            "mm_w8a16": 1, "conv3x3_w8a16": 2, "conv_w8a16": 6}
+    if mixed != want or q8.INT16_OUT_LAUNCHES["conv_s8"] != 1:
+        raise AssertionError(f"{tag} mixed cfg launches {mixed} "
+                             f"({q8.INT16_OUT_LAUNCHES}); want {want}, the "
+                             "int8 head on conv_s8's int16 output")
+    for k, v in mixed.items():
+        total[k] += v
+    say(f"{tag} mixed cfg {MIXED_SIZE}x{MIXED_SIZE} (7x7/s2, 3x3/s2, 5x5, "
+        "2x2/s2 padding=0, VALID 3x3, 1x1/s2, a 3x3 head; batch 2): int16, "
+        "int8 (head16 on conv_s8's int16 output) and w8a16 heads on the card "
+        f"bit-equal to the CPU's plain path; launched "
+        + ", ".join(f"{k} {v}" for k, v in mixed.items() if v))
+
+    rep = profile_layers(spec, store, "int16", batch=BATCH_SLICE, device=dev)
+    rows = {r["idx"]: r for r in roofline_table(rep, spec, BATCH_SLICE,
+                                                "int16")["rows"]}
+    strided = [l.idx for l in spec.conv_layers() if l.stride == 2]
+    say(f"{tag} profile_layers int16 b={BATCH_SLICE}, each layer alone (10 "
+        "calls in one CUDA graph): the strided convs "
+        + "; ".join(f"conv{i} {rows[i]['ms']:.3f} ms against "
+                    f"{max(rows[i]['floor_mxu_ms'], rows[i]['floor_hbm_ms']):.3f}"
+                    f" ({rows[i]['bound']})" for i in strided)
+        + f"; all layers {sum(r['ms'] for r in rows.values()):.3f} ms")
+    secs = time.perf_counter() - t0
+    say(f"{tag} phase 10 took {secs:.1f} s (budget {S2_BUDGET_S:.0f})")
+    if secs > S2_BUDGET_S:
+        raise AssertionError(f"{tag} phase 10 took {secs:.1f} s, over its "
+                             f"budget of {S2_BUDGET_S:.0f} s")
+    return {"launches": total, "per_forward": per_forward}
+
+
 def replay_kernels(dev: torch.device) -> None:
     """``chip_smoke.py --replay-kernels``: the int16 tier's head-only and
     device-NMS forwards at batch 1 and BATCH_SLICE, captured by the engine
@@ -2000,7 +2440,7 @@ def phase_profile(model: YoloV2Q, plain: YoloV2Q, dev: torch.device,
     calls alone on the device, from graph_ms)."""
     spec, tier = model.spec, model.precision
     tag = f"[profile {tier}]"
-    mm, c3 = TIER_KERNELS[tier]
+    mm, c3, _ = TIER_KERNELS[tier]
     act = torch.int8 if tier == "int8" else torch.int16
     lim = torch.iinfo(act)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -2267,7 +2707,7 @@ def phase_split(model: YoloV2Q, dev: torch.device,
             tot = dict.fromkeys(("chosen", "fastest", "unsplit"), 0.0)
             near, far = 0, []
             for l in convs:
-                mm, c3 = TIER_KERNELS[tier]
+                mm, c3, _ = TIER_KERNELS[tier]
                 name = {"mm": mm, "conv3": c3,
                         "conv3_pool": "conv3x3_pool_q16"}[model.route[l.idx][0]]
                 scheme = TC_KERNELS[name][0]
@@ -3474,8 +3914,9 @@ def run(dev: torch.device) -> int:
     phase_kernels8(check, dev)
     phase_kernels_pool(check, dev)
     phase_kernels_int8(check, dev)
+    phase_kernels_general(check, dev)
     nms_times = phase_kernels_nms(check, dev)
-    say(f"[card] phases 1-2 took {time.perf_counter() - t0:.1f} s")
+    say(f"[card] phases 1, 2 and 9 took {time.perf_counter() - t0:.1f} s")
     phase_letterbox(dev)
     spec = zoo.build("yolov2")
     store = quantized_store(spec)
@@ -3484,14 +3925,19 @@ def run(dev: torch.device) -> int:
             for tier in (*TIERS, "fp32")}
     for name in PLANS:
         runs[name] = phase_plan(spec, store, name, runs["int16"], dev)
+    general = phase_general_slice(dev)
     # conv3x3_int8 is on no path, as K13 in the JAX package
     launches = {k: sum(r["launches"].get(k, 0) for r in runs.values())
-                for k in KERNEL_SOURCES}
+                + general["launches"][k] for k in KERNEL_SOURCES}
     per_forward = {k: {path: r["per_forward"][k] for path, r in runs.items()
                        if r["per_forward"].get(k)} for k in KERNEL_SOURCES}
+    for path, per in general["per_forward"].items():
+        for k, v in per.items():
+            if v:
+                per_forward[k][path] = v
     say(f"[card] launches per captured forward, by kernel and path: "
         f"{per_forward}")
-    say(f"[card] phases 1-3 took {time.perf_counter() - t0:.1f} s")
+    say(f"[card] phases 1-3, 9 and 10 took {time.perf_counter() - t0:.1f} s")
     names = kernel_names(dev)
     say(f"[profile] kernels by full name: {len(names)} of "
         f"{len(TC_INSTANCES) + len(NMS_FUNCTIONS)} functions seen by the "
@@ -3547,17 +3993,29 @@ def run(dev: torch.device) -> int:
                 "library_ms": f.get("library_ms"),
                 "library": " / ".join(sorted(f.get("library", ())))}
 
+    def general_at(name: str) -> dict:
+        """A general conv's sums over yolov2-s2's five strided convs at
+        batch BATCH_SLICE (phase 9)."""
+        return {"ms": check.ms[name], "graph_ms": check.graph_ms[name],
+                "bound_ms": check.bound[name][0],
+                "bound_by": bound_by(check.bound[name]),
+                "plain_ms": check.plain_ms[name],
+                "library_ms": check.library_ms[name],
+                "library": " / ".join(sorted(check.library[name]))}
+
     # ms, plain_ms, bound_ms and library_ms: summed over phase 2's timed
-    # cases (the yolov2 416 shapes of the kernel's kind at batch 2; for
-    # nms_greedy its yolov2 416 table at batch 8, which has no library
-    # call); per_forward: phase 4's sums over one forward's convs at batch 8
+    # cases (the yolov2 416 shapes of the kernel's kind at batch 2; for the
+    # general convs phase 9's, yolov2-s2's five strided convs at batch 8,
+    # the batch of their main path, where per_forward adds their graph
+    # replays; for nms_greedy its yolov2 416 table at batch 8, which has no
+    # library call); per_forward: phase 4's sums over one forward's convs at batch 8
     # and 1 (ms and library_ms from CUDA events around the calls, which hold
     # the host's time per launch; device_ms the kernel's device time in the
     # forward, from the profiler; graph_ms and library_graph_ms, for the 1x1
     # kernels and the fused conv+pool, the kernel and the library calls
     # alone in CUDA graph replays; for nms_greedy phase 2's tables at batch
-    # 8 and 1); launches: the main paths' launches (phases 3, 5, 6, 7 and
-    # 8, phase 8's summed over its ranks), each
+    # 8 and 1); launches: the main paths' launches (phases 3, 10, 5, 6, 7
+    # and 8, phase 8's summed over its ranks), each
     # path's forwards run once eagerly and once under capture
     # (launches_per_forward; phase 5's streaming path: its three graphs;
     # phase 6's engines, profiles, report bundles and pipeline; phase 7's
@@ -3580,7 +4038,9 @@ def run(dev: torch.device) -> int:
                         else " / ".join(sorted(check.library[name]))),
             "launches_per_forward": per_forward[name],
             "per_forward": ({f"b{b}": at(f) for b, f in forward[name].items()}
-                            if name in forward else None)})
+                            if name in forward else
+                            {f"b{BATCH_SLICE}": general_at(name)}
+                            if name in GENERAL_KERNELS else None)})
     say(f"[card] {smi}")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

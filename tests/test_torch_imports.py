@@ -226,7 +226,8 @@ def test_nvcc_command_targets_sm90a_and_csrc_only():
     assert srcs == sorted((PKG / "csrc").glob("*.cu"))
     assert {p.name for p in srcs} == {
         "mm_q16.cu", "conv3x3_q16.cu", "conv3x3_pool_q16.cu", "mm_s8.cu",
-        "mm_w8a16.cu", "conv3x3_s8.cu", "conv3x3_w8a16.cu", "nms_greedy.cu"}
+        "mm_w8a16.cu", "conv3x3_s8.cu", "conv3x3_w8a16.cu", "nms_greedy.cu",
+        "conv_q16.cu", "conv_s8.cu", "conv_w8a16.cu"}
     objs = [cmd[cmd.index("-o") + 1] for cmd in compiles]
     assert "-shared" in link and link[link.index("-o") + 1] == "/tmp/b/lib.so"
     assert link[-len(objs):] == objs
@@ -252,4 +253,8 @@ def test_plain_versions_have_no_kernel_launch():
     for out in (torch.int8, torch.int16):
         q8.mm_s8(x8.reshape(-1, 8), w8[0, 0].contiguous(), b, s, True, out)
     q8.mm_w8a16(x.reshape(-1, 8), w8[0, 0].contiguous(), b, s, True)
+    q16.conv_q16(x, w, b, 3, True, 2, 1)
+    for out in (torch.int8, torch.int16):
+        q8.conv_s8(x8, w8, b, s, True, 2, 0, out)
+    q8.conv_w8a16(x, w8, b, s, True, 1, 0)
     assert (q16.LAUNCHES, q8.LAUNCHES, q8.INT16_OUT_LAUNCHES) == before

@@ -179,7 +179,7 @@ def test_model_packs_the_fused_convs_weights():
     planes' shape), and none on the CPU, where the fused convs still run
     (their plain version)."""
     assert ty.YoloV2Q.packers["int16"] == dict.fromkeys(
-        ("mm", "conv3", "conv3_pool"), q16.pack_q16)
+        ("mm", "conv3", "conv3_pool", "conv"), q16.pack_q16)
     spec = zoo.build("yolov2", width=64, height=64)
     store = load_or_synthesize(spec, None, "int16", synthetic=True, seed=0)
     overrides = engine_plan._parse_plan_items(

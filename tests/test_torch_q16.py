@@ -226,7 +226,7 @@ def test_wrappers_check_operands():
     with pytest.raises(ValueError):   # neither CPU nor CUDA: no silent path
         q16.mm_q16(x.to("meta"), w.to("meta"), b.to("meta"), 0, False)
     assert q16.LAUNCHES == {"mm_q16": 0, "conv3x3_q16": 0,
-                            "conv3x3_pool_q16": 0}
+                            "conv3x3_pool_q16": 0, "conv_q16": 0}
 
 
 def _split_case(rng, m, k, n, values=None):

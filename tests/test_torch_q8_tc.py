@@ -297,7 +297,8 @@ def test_model_packs_the_conv3_weights(tier, packer):
     from yolotpu_torch.models.yolov2 import YoloV2Q
     from yolotpu_torch.runtime.engine import load_or_synthesize
     spec = zoo.build("yolov2", width=64, height=64)
-    assert YoloV2Q.packers[tier] == {"mm": packer, "conv3": packer}
+    assert YoloV2Q.packers[tier] == {"mm": packer, "conv3": packer,
+                                     "conv": packer}
     route = engine_plan.kernels(spec, engine_plan.plan(spec, None))
     assert {k for k, _ in route.values()} == {"mm", "conv3"}
     assert YoloV2Q.kernels[tier][1].__name__.startswith("conv3x3_")

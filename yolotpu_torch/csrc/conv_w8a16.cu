@@ -1,0 +1,50 @@
+// conv_w8a16: int16 activations x int8 weights, a convolution of any k x k
+// size, stride and zero padding, with the fused per-channel requant to
+// int16, NHWC: the w8a16 tier's general conv (a conv that is not a regular
+// 1x1 or 3x3/s1). An implicit GEMM (M = B*Ho*Wo output pixels, K = k*k*C
+// taps x input channels, tap-major, the HWIO weight order; N output
+// channels) whose A operand is gathered from the input as it is copied to
+// shared memory, padding as zeros (igemm_tc.cuh, ConvKTc<int16_t>), on the
+// W8A16 scheme and the per-channel epilogue of conv3x3_w8a16.cu.
+//
+// Replaces no Pallas kernel: the JAX package runs such a conv through XLA,
+// the one s8 lax.conv_general_dilated over its batch-stacked high and
+// (offset) low activation planes in convops.conv_w8a16
+// (yolotpu/ops/convops.py:508), recombined with the cw column constant.
+// Here the low byte stays unsigned and no constant is needed (as in
+// conv3x3_w8a16.cu): the two s32 partial sums are recombined as (h << 8) + l
+// in uint32, the exact sum modulo 2^32.
+//
+// What bounds it on an H100: bytes. An int16 x int8 product is two 8-bit
+// tensor-core products: the five 3x3/s2 convs of yolov2-s2 416 do 1.99 G
+// MAC per frame, 0.0322 ms at b=8 on 989.5e12 8-bit MAC/s, against 0.0650
+// ms for their bytes at 3.35 TB/s (each of them bytes-bound, the first 5x).
+// This first design keeps the body and the W8A16 scheme of the regular
+// convs (int16 A by 16-byte cp.async per 8 channels of one tap where
+// C % 8 == 0, value by value otherwise; two wgmma per 32 k; split-K where
+// the output tiles cannot fill the card, and past KMAX) and adds only the
+// general loader.
+#include "igemm_tc.cuh"
+
+// x (B, H, W, C) int16, wp the packed plane of w (k, k, C, N) int8 read as
+// (k*k*C, N) (ops/q8.py: pack_w8a16), bias and shift (N,) int32 -> out
+// (B, Ho, Wo, N) int16 with Ho = (H + 2 pad - k) / stride + 1 and Wo alike,
+// all contiguous on the current device; ws as launch_igemm_tc wants it.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// a geometry with no output.
+extern "C" int yq8_conv_w8a16(const void* x, const void* wp, const void* bias,
+                              const void* shift, void* out, void* ws, int B, int H, int W,
+                              int C, int N, int k, int stride, int pad, int leaky,
+                              int ktiles_per_split, void* stream) {
+    using namespace yq::tc;
+    using Loader = ConvKTc<int16_t>;
+    if (k < 1 || stride < 1 || pad < 0 || H + 2 * pad < k || W + 2 * pad < k)
+        return (int)cudaErrorInvalidValue;
+    const int Ho = (H + 2 * pad - k) / stride + 1, Wo = (W + 2 * pad - k) / stride + 1;
+    const Loader::Params p{(const int16_t*)x, H, W, C, k, stride, pad,
+                           Ho, Wo, vec16(x, 2LL * C)};
+    const W8A16::Epi e{(const int32_t*)bias, (const int32_t*)shift, (int16_t*)out, leaky};
+    const long long M = (long long)B * Ho * Wo;
+    return (int)launch_igemm_tc<W8A16, Loader>(p, wp, e, ws, M, N, k * k * C,
+                                               ktiles_per_split, stream);
+}

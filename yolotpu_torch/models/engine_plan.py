@@ -1,20 +1,26 @@
 """Per-layer kernel plan of the integer tiers on the GPU.
 
 The counterpart of ``yolotpu/models/engine_plan.py``. The default plan is
-one rule for every tier, and covers every conv of yolov2, yolov2-voc and
-yolov2-tiny:
+one rule for every tier:
 
   regular 1x1/s1 conv  -> "mm"
   regular 3x3/s1 conv  -> "conv3", the C=3 entry conv and the 208x208 /
                           104x104 layers included
+  any other conv       -> "xla", as ``yolotpu``'s ``select_engine`` names
+                          it: any k x k size, any stride, darknet or
+                          explicit padding (VALID, padding=)
 
 where regular means stride 1, darknet SAME padding, no groups, and a linear
-or leaky activation. The kernel of each, by tier:
+or leaky activation. Every conv of yolov2, yolov2-voc and yolov2-tiny is
+regular. The kernel of each route (``kernels``), by tier:
 
-  tier    mm                                   conv3
-  int16   ops.q16.mm_q16                       ops.q16.conv3x3_q16
-  int8    ops.q8.mm_s8 (int16 out: the head)   ops.q8.conv3x3_s8
-  w8a16   ops.q8.mm_w8a16                      ops.q8.conv3x3_w8a16
+  tier    mm                  conv3                  conv
+  int16   ops.q16.mm_q16      ops.q16.conv3x3_q16    ops.q16.conv_q16
+  int8    ops.q8.mm_s8        ops.q8.conv3x3_s8      ops.q8.conv_s8
+  w8a16   ops.q8.mm_w8a16     ops.q8.conv3x3_w8a16   ops.q8.conv_w8a16
+
+In the int8 tier the conv that feeds the region writes int16 (head16):
+``mm_s8``'s or ``conv_s8``'s int16 output.
 
 The int16 tier also takes the TPU plan's per-layer overrides, in its format
 (``YOLO2_Q16_PLAN="0:entry_sdmm,2:sd_pool"``, parsed by ``plan_overrides``,
@@ -33,16 +39,20 @@ orders differ once acc + 2^(shift-1) wraps:
   | conv3p2 (K11; K12 is its flat-band form) when  | conv3x3_pool_q16  | "out": requant each of the 4, then max |
   |   a 2x2/s2 pool follows                        |                   |            |
   | conv3p2 with no pool after; xla, xla8,         | conv3x3_q16 (K2)  | - (a following pool runs as its own op) |
-  |   mm_patches, mm_pairs, nchw                   |                   |            |
-  | mm                                             | mm_q16            | -          |
+  |   mm_patches, mm_pairs, nchw, on a regular 3x3 |                   |            |
+  | mm; xla or nchw on a regular 1x1               | mm_q16            | -          |
+  | xla, xla8 or nchw on any other conv            | conv_q16          | -          |
 
 The TPU kinds' space-to-depth and p2 lane packing, hi/lo s8 planes and
 8-pixel patch groups were how they reached the TPU's s8 matrix unit with
 full lanes; they do not carry over (ROADMAP.md). Where a route reads the
 conv's own pre-pool output, a fused kind runs unfused, conv3x3_q16 then the
-pool, as ``yolotpu`` does (its ``xla_fallback``). A conv no kernel serves
-(stride > 1, other sizes, groups, other activations) raises. No plan file is
-read until one has been measured on the card.
+pool, as ``yolotpu`` does (its ``xla_fallback``). A conv whose activation is
+not linear or leaky, or with groups, raises NotImplementedError in every
+integer tier, as in ``yolotpu``, whose integer convs refuse any other
+activation (``convops.conv_int16``, ``conv_w8a16``, ``conv_int8``) and
+have no grouped form. No plan file is read until one has been measured on
+the card.
 """
 
 from __future__ import annotations
@@ -117,6 +127,22 @@ def _regular(l: ConvSpec) -> bool:
             and l.activation in ("leaky", "linear"))
 
 
+def refusal(l: ConvSpec) -> str | None:
+    """Why no integer kernel runs conv ``l``, or None: the JAX package's
+    integer convs take a linear or leaky activation only (the int16, w8a16
+    and int8 ones raise NotImplementedError for any other) and pass no
+    ``feature_group_count``, so they have no grouped form."""
+    if l.activation not in ("leaky", "linear"):
+        return (f"conv{l.idx}: the integer tiers take a linear or leaky "
+                f"activation, not {l.activation!r} (yolotpu's conv_int16, "
+                "conv_w8a16 and conv_int8 raise the same)")
+    if l.groups != 1:
+        return (f"conv{l.idx}: groups={l.groups}; the integer tiers have no "
+                "grouped conv (yolotpu's integer convs pass no "
+                "feature_group_count)")
+    return None
+
+
 def _requirement(kind: str, l: ConvSpec,
                  spec: NetworkSpec) -> tuple[bool, str]:
     """Whether ``kind`` may run conv ``l``, and what it requires: the checks
@@ -155,8 +181,9 @@ def _requirement(kind: str, l: ConvSpec,
 def select_engine(l: ConvSpec, spec: NetworkSpec | None = None,
                   overrides: dict[int, str] | None = None) -> str:
     """One conv layer -> its kind: the override for it, checked as
-    ``yolotpu`` checks it (ValueError when illegal), or the default rule
-    (NotImplementedError for a conv no kernel serves)."""
+    ``yolotpu`` checks it (ValueError when illegal), or the default rule;
+    NotImplementedError for a conv no integer kernel runs (``refusal``)."""
+    kind = None
     if overrides and l.idx in overrides:
         kind = overrides[l.idx]
         if kind not in ALL_KINDS:
@@ -167,15 +194,16 @@ def select_engine(l: ConvSpec, spec: NetworkSpec | None = None,
                 f"engine {kind!r} is not applicable to conv{l.idx} "
                 f"({l.size}x{l.size}/{l.stride} {l.c}->{l.n} "
                 f"{l.activation}): requires {what}")
+    why = refusal(l)
+    if why:
+        raise NotImplementedError(why)
+    if kind is not None:
         return kind
     if _regular(l) and l.size == 1:
         return "mm"
     if _regular(l) and l.size == 3:
         return "conv3"
-    raise NotImplementedError(
-        f"conv{l.idx} ({l.size}x{l.size}/{l.stride} {l.c}->{l.n}, "
-        f"{l.activation}, groups={l.groups}) has no GPU kernel yet: see "
-        "ROADMAP.md, Queue 1, item M14 (general convs)")
+    return "xla"
 
 
 def plan(spec: NetworkSpec,
@@ -188,8 +216,11 @@ def plan(spec: NetworkSpec,
 def kernels(spec: NetworkSpec,
             kinds: dict[int, str]) -> dict[int, tuple[str, str | None]]:
     """conv layer idx -> (kernel, pool order) for a plan's kinds: ("mm",
-    None), ("conv3", None), or ("conv3_pool", order) where the conv also
-    computes the 2x2/s2 pool after it, which then does not run."""
+    None) and ("conv3", None) for a regular 1x1 and 3x3, ("conv3_pool",
+    order) where the conv also computes the 2x2/s2 pool after it, which
+    then does not run, and ("conv", None) for any other conv (the kinds
+    "xla", "xla8" and "nchw", the only ones ``_requirement`` lets run it);
+    NotImplementedError for a conv no integer kernel runs."""
     routed = {s for l in spec.layers if isinstance(l, RouteSpec)
               for s in l.layers}
     out = {}
@@ -199,12 +230,10 @@ def kernels(spec: NetworkSpec,
         if (order and l.idx not in routed
                 and (kind != "conv3p2" or next_is_pool22(spec, l.idx))):
             out[l.idx] = ("conv3_pool", order)
+        elif refusal(l):
+            raise NotImplementedError(refusal(l))
         elif _regular(l) and l.size in (1, 3):
             out[l.idx] = ("mm" if l.size == 1 else "conv3", None)
         else:
-            raise NotImplementedError(
-                f"conv{l.idx} ({l.size}x{l.size}/{l.stride} {l.c}->{l.n}, "
-                f"{l.activation}, groups={l.groups}) under kind {kind!r} has "
-                "no GPU kernel yet: see ROADMAP.md, Queue 1, item M14 "
-                "(general convs)")
+            out[l.idx] = ("conv", None)
     return out

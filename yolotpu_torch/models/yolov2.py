@@ -259,35 +259,42 @@ class YoloV2Q(nn.Module):
     back to the unfused conv for dumps).
 
     In the int8 tier the conv feeding the region runs the head16 epilogue:
-    int16 output at an 8-bits-finer scale, dequantized at ``output_q + 8``.
-    The int8 and w8a16 kernels take one shift per output channel; a
-    per-layer shift is broadcast to that vector here, once.
+    int16 output at an 8-bits-finer scale, dequantized at ``output_q + 8``,
+    on ``mm_s8``'s int16 output for a 1x1 head conv and on ``conv_s8``'s
+    for any other. The int8 and w8a16 kernels take one shift per output
+    channel; a per-layer shift is broadcast to that vector here, once.
+
+    A conv that is not a regular 1x1 or 3x3/s1 (strided, another size,
+    VALID or an explicit padding) runs on its tier's general conv (route
+    "conv": ``conv_q16``, ``conv_s8``, ``conv_w8a16``) with the layer's
+    stride and padding; its weight stays HWIO (k, k, C, N).
 
     On the card the weights of the integer tiers' convs, which all run on
-    the tensor cores (every tier's mm and conv3, and the int16 tier's conv
-    fused with its pool), are also packed here, once (buffers ``p{idx}``, by
-    ``packers``). The fp32 tier keeps each weight as a contiguous (Cout, k,
-    k, Cin) tensor and hands ``conv_fp32`` its HWIO view, which cuDNN reads
-    as a channels-last filter with no copy.
+    the tensor cores (every tier's mm, conv3 and conv, and the int16 tier's
+    conv fused with its pool), are also packed here, once (buffers
+    ``p{idx}``, by ``packers``). The fp32 tier keeps each weight as a
+    contiguous (Cout, k, k, Cin) tensor and hands ``conv_fp32`` its HWIO
+    view, which cuDNN reads as a channels-last filter with no copy.
 
     ``overrides`` ({conv idx: TPU engine kind}, the ``YOLO2_Q16_PLAN``
     lever) is taken by the int16 tier only, as ``yolotpu`` plans only its
     int16 Pallas path; ``engine_plan`` maps each kind to a kernel, and a conv
     fused with its pool skips that pool."""
 
-    # precision -> the conv functions (mm, conv3), by engine kind
-    kernels = {"int16": (q16.mm_q16, q16.conv3x3_q16),
-               "int8": (q8.mm_s8, q8.conv3x3_s8),
-               "w8a16": (q8.mm_w8a16, q8.conv3x3_w8a16)}
+    # precision -> the conv functions of the routes (mm, conv3, conv)
+    kernels = {"int16": (q16.mm_q16, q16.conv3x3_q16, q16.conv_q16),
+               "int8": (q8.mm_s8, q8.conv3x3_s8, q8.conv_s8),
+               "w8a16": (q8.mm_w8a16, q8.conv3x3_w8a16, q8.conv_w8a16)}
     precisions = ("fp32", *kernels)
     # precision -> the conv fused with the 2x2/s2 pool after it
     pooled = {"int16": q16.conv3x3_pool_q16}
-    # precision -> engine kind -> what packs that kind's weights for the
-    # tensor cores, on the card (the kernels' planes= operand)
+    # precision -> route -> what packs that route's weights for the tensor
+    # cores, on the card (the kernels' planes= operand)
     packers = {"int16": {"mm": q16.pack_q16, "conv3": q16.pack_q16,
-                         "conv3_pool": q16.pack_q16},
-               "int8": {"mm": q8.pack_s8, "conv3": q8.pack_s8},
-               "w8a16": {"mm": q8.pack_w8a16, "conv3": q8.pack_w8a16}}
+                         "conv3_pool": q16.pack_q16, "conv": q16.pack_q16},
+               "int8": dict.fromkeys(("mm", "conv3", "conv"), q8.pack_s8),
+               "w8a16": dict.fromkeys(("mm", "conv3", "conv"),
+                                      q8.pack_w8a16)}
 
     def __init__(self, spec: NetworkSpec, qtables: QTables | None,
                  params: dict, device: torch.device | str = "cuda",
@@ -316,11 +323,16 @@ class YoloV2Q(nn.Module):
         if "acts" in self.outputs:
             self.route = {i: ("conv3", None) if k == "conv3_pool" else (k, o)
                           for i, (k, o) in self.route.items()}
+        region_idx = spec.region.idx if spec.region is not None else None
+        head = None if region_idx is None else region_idx - 1
+        if precision == "int8" and self.route.get(head, ("",))[0] == "conv3":
+            # head16 writes int16: a 3x3 head conv runs on conv_s8's int16
+            # output, as a head conv of any size but 1x1 does
+            self.route[head] = ("conv", None)
         self.folded = {idx + 1 for idx, (k, _) in self.route.items()
                        if k == "conv3_pool"}   # pools a conv computes
         self._needed = {s for l in spec.layers if isinstance(l, RouteSpec)
                         for s in l.layers}
-        region_idx = spec.region.idx if spec.region is not None else None
         if region_idx is not None:
             self.register_buffer("anchors", region.anchors(spec.region, device))
         self.head16 = None   # the conv with the head16 epilogue (int8 tier)
@@ -339,18 +351,16 @@ class YoloV2Q(nn.Module):
                     np.asarray(self.plan.conv_shift_out[l.idx], np.int64),
                     (l.n,)).astype(np.int32)).to(device)
                 if precision == "int8" and l.idx + 1 == region_idx:
-                    if self.route[l.idx][0] != "mm":
-                        raise NotImplementedError(
-                            f"conv{l.idx}: the head16 epilogue runs on the 1x1 "
-                            "kernel only; this head conv is "
-                            f"{l.size}x{l.size}")
                     self.head16 = l.idx
                     b, s = convops.head16(b, s)
                 self.register_buffer(f"s{l.idx}", s)
-            w = q16.prep_weights(pw["w"].to(device))
+            kernel = self.route[l.idx][0]
+            w = pw["w"].to(device).contiguous()
+            if kernel != "conv":   # a general conv keeps its HWIO weight
+                w = q16.prep_weights(w)
             self.register_buffer(f"w{l.idx}", w)
             self.register_buffer(f"b{l.idx}", b)
-            pack = self.packers[precision].get(self.route[l.idx][0])
+            pack = self.packers[precision].get(kernel)
             if torch.device(device).type != "cpu" and pack is not None:
                 self.register_buffer(f"p{l.idx}", pack(w))
         self._head_q = (None if fp32 else self.plan.output_q
@@ -364,16 +374,18 @@ class YoloV2Q(nn.Module):
         shift = (self.plan.conv_shift_out[l.idx] if self.precision == "int16"
                  else getattr(self, f"s{l.idx}"))
         leaky = l.activation == "leaky"
-        mm, conv3 = self.kernels[self.precision]
+        mm, conv3, conv = self.kernels[self.precision]
         kernel, order = self.route[l.idx]
         planes = getattr(self, f"p{l.idx}", None)
         kw = {} if planes is None else {"planes": planes}
+        if l.idx == self.head16:
+            kw["out_dtype"] = torch.int16
         if kernel == "mm":
-            if l.idx == self.head16:
-                kw["out_dtype"] = torch.int16
             bsz, h, wd, c = x.shape
             y = mm(x.reshape(-1, c), w, b, shift, leaky, **kw)
             return y.reshape(bsz, h, wd, w.shape[-1])   # a tp block's
+        if kernel == "conv":
+            return conv(x, w, b, shift, leaky, l.stride, l.pad, **kw)
         if kernel == "conv3_pool":
             return self.pooled[self.precision](x, w, b, shift, leaky, order,
                                                **kw)

@@ -14,17 +14,22 @@ by the requant chain (``convops.requant32``):
                     (replaces ``entry_sdmm_forward``, ``entryf_forward``,
                     ``entry8_forward``, and ``conv3x3p2_q16_requant`` /
                     ``conv3x3p2f_q16_requant`` under ``maxpool2x2_p2``)
+  conv_q16          any k x k conv, any stride and zero padding: the convs
+                    that are not a regular 1x1 or 3x3/s1 (replaces no Pallas
+                    kernel: XLA's ``conv_general_dilated`` in
+                    ``convops.conv_int16`` and ``conv_int16_dec8``)
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
 launches the hand-written kernel (``csrc/``, built by ``_build``) or raises.
 ``LAUNCHES`` counts kernel launches, and only those.
 
-The plain versions gather the 1 or 9 taps and run one float64 matmul. That
-is exact: |x*w| <= 2^30 and K <= 9*1280 keep every partial sum below 2^44,
-far inside float64's 53-bit mantissa in any summation order, so rounding to
-int64 and wrapping to int32 gives the wraparound int32 sum.
+The plain versions gather the taps (1, 9, or k*k at any stride: ``im2col``)
+and run one float64 matmul. That is exact: |x*w| <= 2^30 and K <= 49*1280
+keep every partial sum below 2^46, inside float64's 53-bit mantissa in any
+summation order, so rounding to int64 and wrapping to int32 gives the
+wraparound int32 sum.
 
-All three run on the 8-bit tensor cores (``csrc/igemm_tc.cuh``): each int16
+All four run on the 8-bit tensor cores (``csrc/igemm_tc.cuh``): each int16
 is cut into a signed high and an unsigned low byte, and the three s32
 partial sums (high x high, the two mixed products, low x low) are
 recombined modulo 2^32 (``ops.tc``, scheme ``tc.Q16``). On the card they
@@ -35,7 +40,10 @@ those planes the way the kernel does, so the CPU tests hold the layout.
 conv3x3_pool_q16 is conv3x3_q16's implicit GEMM with its rows, the output
 pixels, visited window-major (``window_major``): rows 4i .. 4i+3 are the
 four members of pool window i, and the kernel's epilogue pools them into
-one output row. The bias is the (N,) int32 pre-shifted bias.
+one output row. conv_q16's implicit GEMM has a row per output pixel of any
+window size, stride and padding, and K = k*k*C in the same tap-major
+order, so pack_q16 serves its (k, k, C, N) weight as it serves a 3x3 one.
+The bias is the (N,) int32 pre-shifted bias.
 """
 
 from __future__ import annotations
@@ -46,7 +54,8 @@ import torch.nn.functional as F
 from . import _build, tc
 from .convops import requant32, wrap32
 
-LAUNCHES = {"mm_q16": 0, "conv3x3_q16": 0, "conv3x3_pool_q16": 0}
+LAUNCHES = {"mm_q16": 0, "conv3x3_q16": 0, "conv3x3_pool_q16": 0,
+            "conv_q16": 0}
 
 # Where conv3x3_pool_q16 takes the pool's max, by the kernel's order index.
 # The three agree while acc + 2^(shift-1) does not wrap:
@@ -73,7 +82,7 @@ def prep_weights(w_hwio: torch.Tensor) -> torch.Tensor:
 
 
 def pack_q16(w: torch.Tensor) -> torch.Tensor:
-    """int16 weights, (C, N) or HWIO (3, 3, C, N), read as (K, N) -> the
+    """int16 weights, (C, N) or HWIO (k, k, C, N), read as (K, N) -> the
     Q16 kernels' B operand (``tc.arrange_planes``, uint8
     ``tc.Q16.planes_shape(K, N)`` on w's device): each value split into its high byte (s8, w >> 8),
     plane 0, and its low byte (u8, w & 255), plane 1, in FRAG_K order."""
@@ -93,24 +102,49 @@ def mm_sum64(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float64) @ w.to(torch.float64)
 
 
+def conv_out_hw(h: int, wd: int, size: int, stride: int,
+                pad: int) -> tuple[int, int]:
+    """The (Ho, Wo) of a size x size conv with ``stride`` over (h, wd) with
+    ``pad`` pixels of zeros on each side: (in + 2 pad - size) // stride + 1,
+    darknet's."""
+    return ((h + 2 * pad - size) // stride + 1,
+            (wd + 2 * pad - size) // stride + 1)
+
+
+def im2col(x: torch.Tensor, size: int, stride: int, pad: int) -> torch.Tensor:
+    """(B, H, W, C) -> the (B*Ho*Wo, size*size*C) im2col matrix of a
+    size x size conv with ``stride`` and ``pad`` pixels of zeros on each
+    side, tap-major (the HWIO weight order), in x's dtype."""
+    b, h, wd, c = x.shape
+    ho, wo = conv_out_hw(h, wd, size, stride, pad)
+    xp = F.pad(x, (0, 0, pad, pad, pad, pad))
+    rows, cols = stride * (ho - 1) + 1, stride * (wo - 1) + 1
+    return torch.cat([xp[:, dy:dy + rows:stride, dx:dx + cols:stride]
+                      for dy in range(size) for dx in range(size)],
+                     dim=-1).reshape(-1, size * size * c)
+
+
+def conv_sum64(x: torch.Tensor, w: torch.Tensor, stride: int,
+               pad: int) -> torch.Tensor:
+    """The exact (B, Ho, Wo, N) sums of conv_q16 (w (k, k, C, N)), before
+    the wrap, in float64."""
+    k, n = w.shape[0], w.shape[-1]
+    ho, wo = conv_out_hw(x.shape[1], x.shape[2], k, stride, pad)
+    acc = (im2col(x.to(torch.float64), k, stride, pad)
+           @ w.reshape(-1, n).to(torch.float64))
+    return acc.reshape(x.shape[0], ho, wo, n)
+
+
 def im2col3x3(x: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) -> the (B*H*W, 9C) SAME 3x3 im2col matrix, tap-major
     (the HWIO weight order), zeros in the padding, in x's dtype."""
-    b, h, wd, c = x.shape
-    xp = F.pad(x, (0, 0, 1, 1, 1, 1))   # SAME: zeros
-    return torch.cat([xp[:, dy:dy + h, dx:dx + wd]
-                      for dy in range(3) for dx in range(3)],
-                     dim=-1).reshape(-1, 9 * c)
+    return im2col(x, 3, 1, 1)
 
 
 def conv3x3_sum64(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The exact (B, H, W, N) sums of conv3x3_q16, before the wrap, in
     float64."""
-    b, h, wd, c = x.shape
-    n = w.shape[-1]
-    acc = (im2col3x3(x.to(torch.float64))
-           @ w.reshape(9 * c, n).to(torch.float64))
-    return acc.reshape(b, h, wd, n)
+    return conv_sum64(x, w, 1, 1)
 
 
 def mm_q16_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -126,6 +160,15 @@ def conv3x3_q16_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     """conv3x3_q16 in float64; ``planes`` is taken and not read, as in
     mm_q16_plain."""
     acc = acc32(conv3x3_sum64(x, w))
+    return requant32(acc, bias, shift, leaky).to(torch.int16)
+
+
+def conv_q16_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                   shift: int, leaky: bool, stride: int, pad: int,
+                   planes=None) -> torch.Tensor:
+    """conv_q16 in float64; ``planes`` is taken and not read, as in
+    mm_q16_plain."""
+    acc = acc32(conv_sum64(x, w, stride, pad))
     return requant32(acc, bias, shift, leaky).to(torch.int16)
 
 
@@ -198,6 +241,25 @@ def check_operands(name: str, x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"{name}: the kernel needs contiguous operands")
 
 
+def check_conv(name: str, x: torch.Tensor, w: torch.Tensor, stride: int,
+               pad: int) -> tuple[int, int]:
+    """The output's (Ho, Wo) of a general conv of x (B, H, W, C) by w
+    (k, k, C, N) at ``stride`` and ``pad``; ValueError where the geometry
+    gives no output."""
+    k = w.shape[0]
+    if stride < 1 or pad < 0 or min(x.shape[1:3]) + 2 * pad < k:
+        raise ValueError(f"{name}: a {k}x{k} conv with stride {stride} and "
+                         f"padding {pad} has no output on "
+                         f"{tuple(x.shape[1:3])}")
+    return conv_out_hw(x.shape[1], x.shape[2], k, stride, pad)
+
+
+def conv_weight_ok(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """w is a square (k, k, C, N) HWIO weight for x's C channels."""
+    return (w.ndim == 4 and w.shape[0] == w.shape[1]
+            and w.shape[2] == x.shape[-1])
+
+
 def mm_q16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, shift: int,
            leaky: bool, planes: torch.Tensor | None = None) -> torch.Tensor:
     """x (M, K) int16 @ w (K, N) int16, fused requant -> (M, N) int16. On
@@ -262,3 +324,27 @@ def conv3x3_pool_q16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                      (x.data_ptr(), planes.data_ptr(), bias.data_ptr()),
                      (b, h, wd, c, n, int(shift), int(leaky),
                       POOL_ORDERS.index(order)), tc.Q16, LAUNCHES)
+
+
+def conv_q16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, shift: int,
+             leaky: bool, stride: int, pad: int,
+             planes: torch.Tensor | None = None) -> torch.Tensor:
+    """x (B, H, W, C) int16, w (k, k, C, N) int16 -> the k x k conv with
+    ``stride`` and ``pad`` pixels of zeros on each side of H and W, fused
+    requant: (B, Ho, Wo, N) int16, Ho = (H + 2 pad - k) // stride + 1. Any
+    conv of the int16 tier that is not a regular 1x1 or 3x3/s1. On the card
+    ``planes`` (pack_q16(w)) is the kernel's weight operand."""
+    check_operands("conv_q16", x, w, bias, 4, conv_weight_ok(x, w))
+    ho, wo = check_conv("conv_q16", x, w, stride, pad)
+    if x.device.type == "cpu":
+        return conv_q16_plain(x, w, bias, shift, leaky, stride, pad)
+    b, h, wd, c = x.shape
+    k, n = w.shape[0], w.shape[-1]
+    _build.check_rows("conv_q16", b * ho * wo)
+    tc.check_planes("conv_q16", planes, k * k * c, n, x.device, tc.Q16)
+    out = torch.empty((b, ho, wo, n), dtype=torch.int16, device=x.device)
+    return tc.launch("conv_q16", "yq16_conv", out, b * ho * wo, n, k * k * c,
+                     (x.data_ptr(), planes.data_ptr(), bias.data_ptr()),
+                     (b, h, wd, c, n, k, int(stride), int(pad), int(shift),
+                      int(leaky)),
+                     tc.Q16, LAUNCHES)

@@ -11,15 +11,18 @@ rank runs the same hand-written kernels as one card does, on its block:
   such conv the blocks are all-gathered on the channel axis, so the
   requant chain, the reorg realign, the route concats, the replicated head
   conv and the decode/NMS all see the whole tensor.
-- sp: the rank's rows of H (``mesh.spatial_batch_sharding``). A 3x3 conv
-  runs on the slab and one halo row from each neighbour (an all-gather of
-  every rank's first and last rows) and drops the extra output rows, so
-  the kernel's own SAME zero padding acts only at the image's true edges;
-  a 1x1 conv and a 2x2/s2 pool on an even slab are local. H is gathered
-  before the first layer the split cannot serve exactly: a 2x2/s2 pool on
-  an odd slab (at 416 with sp=4 the slabs are 104, 52, 26 and 13 rows, so
-  the pool at layer 11), any other pool, the reorg, a route concat and the
-  region layer; that is where the JAX package's ``_batch_only`` pins it.
+- sp: the rank's rows of H (``mesh.spatial_batch_sharding``). A 3x3/s1
+  conv with darknet's SAME padding runs on the slab and one halo row from
+  each neighbour (an all-gather of every rank's first and last rows) and
+  drops the extra output rows, so the kernel's own SAME zero padding acts
+  only at the image's true edges; a 1x1/s1 conv with no padding and a
+  2x2/s2 pool on an even slab are local (``serves_on_slab``). H is
+  gathered before the first layer the split cannot serve exactly: a
+  strided conv, any other size, any other padding (a VALID 3x3, a padded
+  1x1), a 2x2/s2 pool on an odd slab (at 416 with sp=4 the slabs are 104,
+  52, 26 and 13 rows, so the pool at layer 11), any other pool, the reorg,
+  a route concat and the region layer; that is where the JAX package's
+  ``_batch_only`` pins it.
 
 int32 sums are exact and the kernels deterministic, so every mesh gives
 the replicated run's head and detections bit for bit.
@@ -34,6 +37,18 @@ from ..models.yolov2 import YoloV2Q
 from ..weights import QTables
 from . import comm
 from .mesh import Mesh, Sharding, shard_params, tp_sharded
+
+
+def serves_on_slab(l, rows: int) -> bool:
+    """Whether layer ``l`` runs exactly on an H slab of ``rows`` rows (with
+    a one-row halo from each neighbour for a 3x3 conv): a stride-1 1x1 or
+    3x3 conv with darknet's padding (size // 2, so no padding or SAME), a
+    2x2/s2 pool on an even slab, a route of one layer."""
+    if isinstance(l, ConvSpec):
+        return l.stride == 1 and l.size in (1, 3) and l.pad == l.size // 2
+    if isinstance(l, MaxPoolSpec):
+        return l.size == l.stride == 2 and rows % 2 == 0
+    return isinstance(l, RouteSpec) and len(l.layers) == 1
 
 
 class ShardedYoloV2Q:
@@ -66,14 +81,6 @@ class ShardedYoloV2Q:
                         Sharding(mesh, ("tp",))(s).contiguous())
         self.tally: dict[str, int] = {}
 
-    def _serves(self, l, cur: torch.Tensor) -> bool:
-        """Whether layer ``l`` runs exactly on an H slab."""
-        if isinstance(l, ConvSpec):
-            return l.stride == 1 and l.size in (1, 3)
-        if isinstance(l, MaxPoolSpec):
-            return l.size == l.stride == 2 and cur.shape[1] % 2 == 0
-        return isinstance(l, RouteSpec) and len(l.layers) == 1
-
     def _gather_h(self, x: torch.Tensor) -> torch.Tensor:
         return comm.all_gather(x, 1, self.mesh.group("sp"), self.tally,
                                "sp_gather")
@@ -96,7 +103,7 @@ class ShardedYoloV2Q:
         slab = self.sp > 1      # cur (and every act) is an H slab
         head = None
         for l in self.spec.layers:
-            if slab and not self._serves(l, cur):
+            if slab and not serves_on_slab(l, cur.shape[1]):
                 gathered = {id(cur): self._gather_h(cur)}
                 for k, v in acts.items():
                     if id(v) not in gathered:
