@@ -15,14 +15,17 @@ after 2, 10 after 3):
 
 1. card: name and power limit, torch and CUDA versions, kernel build time,
    each kernel's registers and spills (none allowed), each kernel's
-   tensor-core MMA count (cuobjdump: the fourteen instantiations of the
-   tensor-core body hold integer wgmma, and the library holds no other
-   kernel but nms_greedy's two passes, whose registers and shared memory it
-   prints), and the tile, shared memory and registers of
-   each operand scheme of the tensor-core body (Q16: mm_q16, conv3x3_q16,
-   conv3x3_pool_q16 in its three pool orders, conv_q16; W8A16: mm_w8a16,
-   conv3x3_w8a16, conv_w8a16; S8: mm_s8 and conv_s8 with either output,
-   conv3x3_s8, conv3x3_int8), checked against the wrappers' copy of it;
+   tensor-core MMA count (cuobjdump: the twelve instantiations of the
+   tensor-core body and the eight of the general convs' kernel,
+   convk_tc_kernel, hold integer wgmma, the latter also TMA bulk copies,
+   and the library holds no other kernel but nms_greedy's two passes, whose
+   registers and shared memory it prints), and the tile, shared memory and
+   registers of each operand scheme of the tensor-core body (Q16: mm_q16,
+   conv3x3_q16, conv3x3_pool_q16 in its three pool orders; W8A16:
+   mm_w8a16, conv3x3_w8a16; S8: mm_s8 and conv_s8 with either output,
+   conv3x3_s8, conv3x3_int8) and of each tile of convk_tc_kernel (conv_q16,
+   conv_w8a16: BM, BN, ring stages, blocks per SM asked and kept), checked
+   against the wrappers' copy of it;
 2. kernels: each of the six conv kernels against its plain PyTorch version
    on the card at all 23 yolov2 conv shapes of its kind (batch 2) and at
    edge cases (shift extremes, per-channel shift vectors that mix them, sums
@@ -186,10 +189,18 @@ after 2, 10 after 3):
 
 9. general convs, kernels: conv_q16, conv_s8 (int8 and int16 output) and
    conv_w8a16 against their plain versions (``torch.equal``) at yolov2-s2's
-   five 3x3/s2 shapes at batch 1, 2 and 8 (K split as ``tc.split`` picks;
-   at batch 8 timed by CUDA events and in CUDA graph replays, beside the
-   bound and one library call: a float64 matmul on the strided im2col, or
-   ``_int_mm`` for int8), and at edge forms (a 7x7/s2 entry with C=3, a
+   five 3x3/s2 shapes at batch 1, 2 and 8 (conv_q16 and conv_w8a16 on the
+   schedule ``tc.stream_k`` plans, conv_s8 with K split as ``tc.split``
+   picks; at batch 8 timed by CUDA events and in CUDA graph replays, beside
+   the bound and one library call: a float64 matmul on the strided im2col,
+   or ``_int_mm`` for int8); each of the five timed at batch 1 and 8 (graph
+   replays and events) beside its bound, its library call and the rate at
+   which its staged bytes reach the SMs, summed per forward; conv_q16 and
+   conv_w8a16 on every tile of ``tc.CONVK_TILES`` and on whole tiles and
+   stream-K (three minimum shares) at those shapes, each equal and timed;
+   the stream-K cases (tiles shared by 2 and by 3 blocks, one output tile,
+   M < 64, N of 24, 32, 40 and 425, C = 13, full-range sums that wrap);
+   and at edge forms (a 7x7/s2 entry with C=3, a
    5x5, a VALID 3x3, a 2x2/s2 on odd H and W, a 1x1/s2 with N=425, a
    3x3/s2 with padding 2 and with padding 3, whose first windows are all
    padding, C=1024; shifts from -3 to 40 and vectors mixing them, leaky on
@@ -209,6 +220,12 @@ after 2, 10 after 3):
    conv_s8's int16 output); ``profile_layers`` at int16 batch 8, the five
    strided convs against their bound.
 
+``python3 chip_smoke.py --general-times`` prints the card, the registers
+and SASS counts of every tensor-core function and phase 9's times of the
+general convs (and, where the tree has the stream-K kernel, its sweep),
+with no checks of phase 1, so a copy of it run from an older tree's root
+times that tree's kernels.
+
 Any failed check raises, so the exit code is not 0. The line before the
 last is a JSON record of the kernels; the last is
 ``{"ok": true, "device": {...}}``. JAX and the JAX package ``yolotpu`` are
@@ -218,6 +235,7 @@ blocked from import for the whole run: the port must not need them.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import io
 import json
@@ -350,10 +368,16 @@ TC_INSTANCES = (("mm_q16", "", "3Q16", "MmTcIs"),
                 ("conv3x3_s8", "", "2S8", "ConvTcIaLb0E"),
                 *(("conv3x3_pool_q16", f" (order {o})", f"7Q16PoolILi{i}E",
                    "ConvTcIsLb1E") for i, o in enumerate(q16.POOL_ORDERS)),
-                ("conv_q16", "", "3Q16", "ConvKTcIs"),
-                ("conv_w8a16", "", "5W8A16", "ConvKTcIs"),
                 ("conv_s8", " (int8 output)", "2S8", "ConvKTcIa"),
                 ("conv_s8", " (int16 output)", "7S8Out16", "ConvKTcIa"))
+# the general convs with int16 activations, on their own kernel
+# (csrc/convk_tc.cuh, convk_tc_kernel<scheme, BN, warpgroups>): kernel ->
+# (the scheme's part of its mangled name, the entry point of its tile
+# configuration); one instantiation per tile of tc.CONVK_TILES
+CONVK_KERNELS = {"conv_q16": ("3Q16", "yq16_conv_config"),
+                 "conv_w8a16": ("5W8A16", "yq8_conv_w8a16_config")}
+# SASS opcodes of a bulk copy by the Tensor Memory Accelerator
+BULK_OPS = ("UBLKCP", "UTMALDG")
 # int8 x int8
 INT8_KERNELS = ("mm_s8", "conv3x3_s8", "conv3x3_int8", "conv_s8")
 # the card's peaks, one definition with the profiler's roofline
@@ -734,9 +758,10 @@ def wrap_operands8(rng, rows: int, taps: int, n: int, shift: int, nblk: int,
             bias8(rng, n, torch.int16), np.full(n, shift, np.int32))
 
 
-def sass_counts(lib_path) -> dict[str, tuple[int, int, str]]:
+def sass_counts(lib_path) -> dict[str, tuple[int, int, str, int]]:
     """cuobjdump -sass of the kernel library: each kernel function's
-    (instructions, tensor-core MMA instructions, their opcodes)."""
+    (instructions, tensor-core MMA instructions, their opcodes, TMA bulk
+    copy instructions)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     dump = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True, timeout=120).stdout
@@ -745,7 +770,7 @@ def sass_counts(lib_path) -> dict[str, tuple[int, int, str]]:
     for line in dump.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = [0, 0, set()]
+            counts[fn] = [0, 0, set(), 0]
         elif fn and line.strip().startswith("/*") and "*/" in line:
             ins = line.split("*/", 1)[1].strip()
             if ins and not ins.startswith("/*"):
@@ -755,7 +780,10 @@ def sass_counts(lib_path) -> dict[str, tuple[int, int, str]]:
                 if "MMA" in op.split(".")[0]:   # IMMA, IGMMA, HMMA, HGMMA
                     counts[fn][1] += 1
                     counts[fn][2].add(op.split(".")[0])
-    return {k: (n, m, "/".join(sorted(ops))) for k, (n, m, ops) in counts.items()}
+                if op.split(".")[0] in BULK_OPS:
+                    counts[fn][3] += 1
+    return {k: (n, m, "/".join(sorted(ops)), b)
+            for k, (n, m, ops, b) in counts.items()}
 
 
 def ptxas_registers(log: str) -> dict[str, int]:
@@ -786,20 +814,25 @@ def phase_card() -> str:
         if "entry function" in line or "registers" in line or "spill" in line:
             say(f"[card]   {line.strip()}")
     sass = sass_counts(lib.path)
-    for fn, (n, mma, ops) in sorted(sass.items()):
+    for fn, (n, mma, ops, bulk) in sorted(sass.items()):
         say(f"[card]   SASS {fn}: {n} instructions, {mma} tensor-core MMA "
-            f"{ops}")
+            f"{ops}, {bulk} TMA bulk copies")
     tc_fns = {fn for fn in sass if "igemm_tc_kernel" in fn}
+    ck_fns = {fn for fn in sass if "convk_tc_kernel" in fn}
     nms_fns = {part: [fn for fn in sass if part in fn] for part in NMS_FUNCTIONS}
-    if len(tc_fns) != len(TC_INSTANCES) \
+    convk = [(name, bm, bn) for name in CONVK_KERNELS for bm, bn in tc.CONVK_TILES]
+    if len(tc_fns) != len(TC_INSTANCES) or len(ck_fns) != len(convk) \
             or any(len(fns) != 1 for fns in nms_fns.values()) \
-            or set(sass) != tc_fns.union(*nms_fns.values()) or any(
-                "IGMMA" not in sass[fn][2] for fn in tc_fns):
+            or set(sass) != tc_fns.union(ck_fns, *nms_fns.values()) or any(
+                "IGMMA" not in sass[fn][2] for fn in tc_fns | ck_fns) \
+            or any(sass[fn][3] == 0 for fn in ck_fns):
         raise AssertionError(f"the library must hold the {len(TC_INSTANCES)} "
-                             "yq::tc kernels, each with integer warpgroup MMA "
-                             "(wgmma: IGMMA in SASS), nms_greedy's two passes "
-                             f"{NMS_FUNCTIONS} and no other kernel; it holds "
-                             f"{sorted(sass)}")
+                             f"yq::tc kernels and the {len(convk)} yq::convk "
+                             "kernels, each with integer warpgroup MMA "
+                             "(wgmma: IGMMA in SASS), the convk ones with TMA "
+                             f"bulk copies ({'/'.join(BULK_OPS)}), nms_greedy's "
+                             f"two passes {NMS_FUNCTIONS} and no other kernel; "
+                             f"it holds {sorted(sass)}")
     spills = [ln.strip() for ln in lib.log.splitlines() if any(
         int(v) for v in re.findall(r"(\d+) bytes spill", ln))]
     if spills:
@@ -827,6 +860,32 @@ def phase_card() -> str:
             f"{planes} weight plane(s), {smem} bytes of dynamic shared memory "
             f"per block, {blocks} blocks per SM ({scheme.wave} in tc.split's "
             f"waves), {regs[fns[0]]} registers")
+    for name, bm, bn in convk:
+        part, entry = CONVK_KERNELS[name]
+        scheme = TC_KERNELS[name][0]
+        cfg = getattr(lib.cdll, entry)
+        got = tuple(cfg(bm, bn, i) for i in range(8))
+        _, _, bk, smem, blocks, resident, stages, kmax = got
+        want = tc.CONVK_BLOCKS[(scheme.name, bm, bn)]
+        if got[:3] != (bm, bn, scheme.bk) or kmax != tc.KMAX \
+                or not want <= min(blocks, resident):
+            raise AssertionError(
+                f"{name} {bm}x{bn}: the kernel's tile (BM, BN, BK, smem, blocks "
+                f"asked, blocks kept, stages, KMAX) {got} is not the wrappers', "
+                f"or keeps fewer than the {want} blocks per SM that "
+                "tc.stream_k counts")
+        fns = [fn for fn in regs if "convk_tc_kernel" in fn
+               and f"{part}ELi{bn}ELi{bm // 64}E" in fn]
+        sfns = [fn for fn in ck_fns if f"{part}ELi{bn}ELi{bm // 64}E" in fn]
+        if len(fns) != 1 or len(sfns) != 1:
+            raise AssertionError(f"{name} {bm}x{bn}: ptxas reports {fns}, "
+                                 f"SASS {sfns}")
+        say(f"[card] {name} {bm}x{bn} on convk_tc_kernel, scheme "
+            f"{scheme.name.upper()}: K steps of {bk}, a {stages}-stage ring, "
+            f"{smem} bytes of dynamic shared memory per block, {blocks} blocks "
+            f"per SM asked, {resident} kept ({want} in tc.stream_k's grid), "
+            f"{regs[fns[0]]} registers, {sass[sfns[0]][0]} SASS instructions, "
+            f"{sass[sfns[0]][1]} IGMMA, {sass[sfns[0]][3]} TMA bulk copies")
     table, walk = (next(fn for fn in regs if part in fn)
                    for part in NMS_FUNCTIONS)
     k, c = NMS_SHAPE[1:]
@@ -1344,6 +1403,23 @@ GENERAL_FORMS = (
                                     # of windows all padding, bias only
     (1, 6, 7, 1024, 64, 3, 2, 1),   # C=1024
 )
+# the stream-K cases of the int16-activation general convs: (B, H, W, C,
+# N, k, stride, pad), the blocks the stream-K schedule is dealt to (None:
+# the wrapper's own plan), the blocks that must share each tile (None: no
+# condition), and what the case shows
+SK_CASES = (
+    ((1, 22, 22, 512, 64, 3, 2, 1), 4, 2,
+     "2 tiles of 72 K steps on 4 blocks, each tile shared by 2"),
+    ((1, 22, 22, 512, 64, 3, 2, 1), 6, 3,
+     "the same on 6 blocks, each tile shared by 3"),
+    ((1, 8, 8, 512, 64, 3, 2, 1), None, None,
+     "one output tile (M = 16 < 64) spread over blocks"),
+    ((2, 20, 20, 64, 24, 3, 2, 1), None, None, "N = 24"),
+    ((2, 20, 20, 64, 32, 3, 2, 1), None, None, "N = 32"),
+    ((2, 20, 20, 64, 40, 3, 2, 1), None, None, "N = 40"),
+    ((2, 20, 20, 64, 425, 3, 2, 1), None, None, "N = 425"),
+    ((1, 17, 15, 13, 40, 3, 2, 1), None, None, "C = 13, the value gather"),
+)
 # general conv -> (x type, output type) of its operands
 GENERAL_TYPES = {"conv_q16": (np.int16, torch.int16),
                  "conv_s8": (np.int8, torch.int8),
@@ -1401,47 +1477,211 @@ def cfg_spec(text: str) -> NetworkSpec:
         return NetworkSpec.from_cfg(path)
 
 
-def phase_kernels_general(check: KernelCheck, dev: torch.device) -> None:
-    """Phase 9: conv_q16, conv_s8 (both outputs) and conv_w8a16 against their
-    plain versions (torch.equal) at yolov2-s2's five strided shapes and at
-    the edge forms."""
-    def on(*arrays):
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                     for a in arrays)
+def general_plan(name: str, x: torch.Tensor, w: torch.Tensor, stride: int,
+                 pad: int):
+    """The schedule the wrapper of general conv ``name`` launches for x and
+    w: for the int16-activation kernel (CONVK_KERNELS) tc.stream_k's plan
+    on tc.convk_tile, for conv_s8 its K steps per split (tc.split)."""
+    scheme = TC_KERNELS[name][0]
+    k, n = w.shape[0], w.shape[-1]
+    ho, wo = q16.conv_out_hw(x.shape[1], x.shape[2], k, stride, pad)
+    m, kk = x.shape[0] * ho * wo, k * k * x.shape[-1]
+    sms = tc._sm_count(x.device.index or 0)
+    if name in CONVK_KERNELS and hasattr(tc, "stream_k"):
+        return tc.stream_k(m, n, kk, sms, scheme,
+                           tc.convk_tile(m, n, kk, sms, scheme))
+    return tc.split(m, n, kk, sms, scheme)
 
+
+def sharing(plan) -> dict[int, int]:
+    """Tile -> the blocks whose segments sum it, in a stream-K plan."""
+    blocks: dict[int, set] = {}
+    for b, t, _, _ in plan.segments():
+        blocks.setdefault(t, set()).add(b)
+    return {t: len(bs) for t, bs in blocks.items()}
+
+
+def plan_label(name: str, x, w, stride: int, pad: int) -> str:
+    plan = general_plan(name, x, w, stride, pad)
+    if isinstance(plan, int):
+        kt = -(-w.numel() // w.shape[-1] // TC_KERNELS[name][0].bk)
+        return f"K in {-(-kt // plan)} splits"
+    by = sharing(plan)
+    shared = sum(v > 1 for v in by.values()) if plan.slots else 0
+    return (f"{plan.bm}x{plan.bn} tiles, {plan.grid} blocks x "
+            f"{plan.units / plan.grid:.1f} K steps, {shared}/{plan.tiles} "
+            f"tiles shared (by up to {max(by.values())} blocks)")
+
+
+def staged_bytes(name: str, x, w, stride: int, pad: int) -> int:
+    """The bytes the kernel stages into shared memory for one call: per K
+    step of each tile (a unit) BM rows of 128 bytes of A and a B stage of
+    32 k x BN columns x planes per 32 k; the first design's 64 x 64 tiles
+    where the tree has no stream_k."""
+    scheme = TC_KERNELS[name][0]
+    plan = general_plan(name, x, w, stride, pad)
+    if isinstance(plan, int):   # the tc body's 64 x 64 tiles
+        k, n = w.shape[0], w.shape[-1]
+        ho, wo = q16.conv_out_hw(x.shape[1], x.shape[2], k, stride, pad)
+        m = x.shape[0] * ho * wo
+        units = -(-m // 64) * -(-n // 64) * -(-w.numel() // n // scheme.bk)
+        bm, bn = 64, 64
+    else:
+        units, bm, bn = plan.units, plan.bm, plan.bn
+    return units * (bm * 128 + (scheme.bk // 32) * scheme.planes * 32 * bn)
+
+
+def s2_operands(name: str, rng, xshape, wshape, dev: torch.device) -> tuple:
+    """Phase 9's operands of yolov2-s2's strided convs: int16 at full range
+    with the shift FULL_SHIFT (the sums wrap), the 8-bit-weight kernels
+    full range with a shift per column fitted to them; on dev."""
     def full(shape, dtype):
         return rng.integers(np.iinfo(dtype).min, np.iinfo(dtype).max + 1,
                             shape).astype(dtype)
 
+    def on(*arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in arrays)
+
+    if name == "conv_q16":
+        return on(full(xshape, np.int16), full(wshape, np.int16),
+                  small_bias(rng, wshape[-1])) + (FULL_SHIFT,)
+    xdtype, out = GENERAL_TYPES[name]
+    return on(*full_operands8(rng, xshape, wshape, xdtype, out))
+
+
+def general_times(dev: torch.device, kernels=tuple(GENERAL_TYPES),
+                  batches=(1, BATCH_SLICE)) -> dict:
+    """Each of yolov2-s2's five strided convs alone on the device (CUDA
+    graph replays) and around its wrapper (CUDA events) per kernel and
+    batch, beside one library call (graph replays), the bound and the rate
+    at which the kernel's staged bytes (staged_bytes) reach the SMs; summed
+    per forward. Returns {kernel: {batch: {"graph_ms", "events_ms",
+    "library_graph_ms", "bound", "convs"}}}."""
+    rng = np.random.default_rng(15)
+    spec = cfg_spec(yolov2_s2_cfg())
+    strided = [l for l in spec.conv_layers() if l.stride == 2]
+    out: dict = {}
+    for bsz in batches:
+        for name in kernels:
+            module = KERNEL_MODULE[name]
+            kernel, pack = getattr(module, name), TC_KERNELS[name][1]
+            tot = {"graph_ms": 0.0, "events_ms": 0.0, "library_graph_ms": 0.0,
+                   "bound": [0.0, 0.0, 0.0], "convs": []}
+            for l in strided:
+                args = s2_operands(name, rng, (bsz, l.h, l.w, l.c),
+                                   (3, 3, l.c, l.n), dev) + (True, 2, 1)
+                planes = pack(args[1])
+                ms = graph_ms(lambda: kernel(*args, planes=planes))
+                ev = cuda_ms(lambda: kernel(*args, planes=planes), reps=10)
+                lib, what = library_call(name, args[0], args[1], (2, 1))
+                lib_ms = graph_ms(lib, launches=5)
+                want = kernel(*args, planes=planes)
+                part = case_bound(args[0], args[1], args[2], want, args[3], True)
+                staged = staged_bytes(name, args[0], args[1], 2, 1)
+                tot["graph_ms"] += ms
+                tot["events_ms"] += ev
+                tot["library_graph_ms"] += lib_ms
+                add_bound(tot["bound"], part)
+                tot["convs"].append(ms)
+                say(f"[general times] {name:10s} b={bsz} conv{l.idx} "
+                    f"{l.h}x{l.w}x{l.c}->{l.n}: {ms:.4f} ms (graph replays; "
+                    f"events {ev:.4f}), "
+                    f"bound {max(part):.4f} ms "
+                    f"({'operations' if part[0] >= part[1] else 'bytes'}), "
+                    f"{what} {lib_ms:.4f} ms; "
+                    f"{plan_label(name, args[0], args[1], 2, 1)}; staged "
+                    f"{staged / 1e6:.2f} MB, {staged / ms / 1e9:.2f} TB/s "
+                    "L2->SM")
+                del args, planes, want
+            say(f"[general times] {name} b={bsz} per forward (five strided "
+                f"convs): {tot['graph_ms']:.4f} ms (graph replays; events "
+                f"{tot['events_ms']:.4f}), bound "
+                f"{tot['bound'][0]:.4f} ms ({bound_by(tot['bound'])}), "
+                f"library {tot['library_graph_ms']:.4f} ms")
+            out.setdefault(name, {})[bsz] = tot
+    return out
+
+
+def convk_sweep(dev: torch.device) -> None:
+    """conv_q16 and conv_w8a16 at yolov2-s2's five strided convs at batch 1
+    and 8 on each tile of tc.CONVK_TILES, and on the chosen tile with whole
+    tiles a block and with stream-K (SK_MIN_STEPS 4, 8 and 16): torch.equal
+    to the plain version, and the device time in CUDA graph replays beside
+    the wrapper's own choice."""
+    rng = np.random.default_rng(16)
+    spec = cfg_spec(yolov2_s2_cfg())
+    strided = [l for l in spec.conv_layers() if l.stride == 2]
+    saved = tc.convk_tile, tc.SK_MIN_STEPS, tc.SK_FIXUP
+    for bsz in (1, BATCH_SLICE):
+        for name in CONVK_KERNELS:
+            module = KERNEL_MODULE[name]
+            kernel, plain = getattr(module, name), getattr(module, name + "_plain")
+            for l in strided:
+                args = s2_operands(name, rng, (bsz, l.h, l.w, l.c),
+                                   (3, 3, l.c, l.n), dev) + (True, 2, 1)
+                planes = TC_KERNELS[name][1](args[1])
+                want = plain(*args)
+                chosen = saved[0](bsz * l.out_h * l.out_w, l.n, 9 * l.c,
+                                  tc._sm_count(dev.index or 0),
+                                  TC_KERNELS[name][0])
+                plan = general_plan(name, args[0], args[1], 2, 1)
+                variants = {f"{t[0]}x{t[1]}": (t, saved[1], saved[2])
+                            for t in tc.CONVK_TILES}
+                variants.update({"whole tiles": (chosen, saved[1], 10 ** 9),
+                                 **{f"stream-K min {st}": (chosen, st, -10 ** 9)
+                                    for st in (4, 8, 16)}})
+                ms = {}
+                try:
+                    for label, (tile, steps, fixup) in variants.items():
+                        tc.convk_tile = lambda *a, tile=tile: tile   # noqa: E731
+                        tc.SK_MIN_STEPS, tc.SK_FIXUP = steps, fixup
+                        tc.stream_k.cache_clear()
+                        got = kernel(*args, planes=planes)
+                        if not torch.equal(got, want):
+                            raise AssertionError(f"{name} conv{l.idx} b={bsz} "
+                                                 f"{label}: kernel != plain")
+                        ms[label] = graph_ms(lambda: kernel(*args, planes=planes))
+                finally:
+                    tc.convk_tile, tc.SK_MIN_STEPS, tc.SK_FIXUP = saved
+                    tc.stream_k.cache_clear()
+                say(f"[convk sweep] {name:10s} b={bsz} conv{l.idx} "
+                    f"{l.h}x{l.w}x{l.c}->{l.n} (equal in each): " + ", ".join(
+                        f"{k} {v:.4f}" for k, v in ms.items())
+                    + f"; chosen {plan.bm}x{plan.bn} "
+                    + ("whole tiles" if plan.quantum > 1 else "stream-K"))
+                del args, planes, want
+
+
+def phase_kernels_general(check: KernelCheck, dev: torch.device) -> dict:
+    """Phase 9: conv_q16, conv_s8 (both outputs) and conv_w8a16 against their
+    plain versions (torch.equal) at yolov2-s2's five strided shapes, at the
+    edge forms and at the stream-K cases; the five strided convs timed at
+    batch 1 and 8 (general_times, returned)."""
+    def on(*arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in arrays)
+
     t0 = time.perf_counter()
     rng = np.random.default_rng(9)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     spec = cfg_spec(yolov2_s2_cfg())
     strided = [l for l in spec.conv_layers() if l.stride == 2]
     say(f"[general] yolov2-s2 {S2_SIZE}x{S2_SIZE}: its five 3x3/s2 convs at "
         f"batch {', '.join(map(str, S2_BATCHES))} (timed at {BATCH_SLICE}: "
         "CUDA events and graph replays), full-range operands (int16: shift "
         f"{FULL_SHIFT}, the sums wrap; int8 and w8a16: a shift per column "
-        "fitted to them), K split as the wrapper chooses (tc.split)")
+        "fitted to them); conv_q16 and conv_w8a16 on the schedule "
+        "tc.stream_k plans, conv_s8 with K split as tc.split picks")
     for l in strided:
         wshape = (3, 3, l.c, l.n)
         label = f"conv{l.idx} {l.h}x{l.w}x{l.c}->{l.n} 3x3/s2"
         for bsz in S2_BATCHES:
             xshape = (bsz, l.h, l.w, l.c)
-            m, k = bsz * l.out_h * l.out_w, 9 * l.c
-            for name, (xdtype, out) in GENERAL_TYPES.items():
-                scheme = TC_KERNELS[name][0]
-                if name == "conv_q16":
-                    x, w, b = on(full(xshape, np.int16), full(wshape, np.int16),
-                                 small_bias(rng, l.n))
-                    args, wraps = (x, w, b, FULL_SHIFT), True
-                else:
-                    args, wraps = on(*full_operands8(rng, xshape, wshape, xdtype,
-                                                     out)), False
-                kps = tc.split(m, l.n, k, sms, scheme)
-                splits = -(-(-(-k // scheme.bk)) // kps)
-                check.compare(name, f"{label} b={bsz} K in {splits} splits",
-                              args + (True, 2, 1), wraps=wraps,
+            for name in GENERAL_TYPES:
+                args = s2_operands(name, rng, xshape, wshape, dev)
+                check.compare(name, f"{label} b={bsz} "
+                              f"{plan_label(name, args[0], args[1], 2, 1)}",
+                              args + (True, 2, 1), wraps=name == "conv_q16",
                               timed=bsz == BATCH_SLICE)
     say(f"[general] the five strided convs at batch {BATCH_SLICE}, per "
         "forward: " + "; ".join(
@@ -1451,6 +1691,8 @@ def phase_kernels_general(check: KernelCheck, dev: torch.device) -> None:
             f"{check.plain_ms[name]:.3f} ms, "
             f"{' / '.join(sorted(check.library[name]))} "
             f"{check.library_ms[name]:.3f} ms" for name in GENERAL_TYPES))
+    times = general_times(dev)
+    convk_sweep(dev)
 
     say(f"[general] edge forms {GENERAL_FORMS} (B, H, W, C, N, k, stride, "
         f"pad), each kernel, shifts {SHIFTS} x leaky on/off (int16: narrow "
@@ -1552,8 +1794,44 @@ def phase_kernels_general(check: KernelCheck, dev: torch.device) -> None:
         cases += 4
     say(f"[general] {cases} edge cases equal, each with at least "
         f"{UNSAT_FLOOR} of its outputs unsaturated, and {WRAP_FLOOR} "
-        "unsaturated with a wrapped sum where built to wrap; phase 9 took "
+        "unsaturated with a wrapped sum where built to wrap")
+
+    say("[general] stream-K cases of conv_q16 and conv_w8a16, each with "
+        f"full-range operands (int16: shift {FULL_SHIFT}, the sums wrap) and "
+        "narrow ones at shift 7")
+    sk = 0
+    plan_of = tc.stream_k
+    for (bb, h, wd, c, n, k, st, pad), blocks, by, what in SK_CASES:
+        xshape, wshape = (bb, h, wd, c), (k, k, c, n)
+
+        def dealt(*a, blocks=blocks):
+            return dataclasses.replace(plan_of(*a), grid=blocks, quantum=1)
+
+        with (unittest.mock.patch.object(tc, "stream_k", dealt)
+              if blocks else contextlib.nullcontext()):
+            for name in CONVK_KERNELS:
+                full = s2_operands(name, rng, xshape, wshape, dev)
+                xdtype, out = GENERAL_TYPES[name]
+                narrow = (on(*narrow_operands(rng, xshape, wshape, 7)) + (7,)
+                          if name == "conv_q16" else
+                          on(*narrow_operands8(rng, xshape, wshape, xdtype,
+                                               out, 7)))
+                plan = general_plan(name, full[0], full[1], st, pad)
+                shared = sharing(plan)
+                if by is not None and set(shared.values()) != {by}:
+                    raise AssertionError(f"{name} {what}: the plan {plan} "
+                                         f"shares its tiles {shared}")
+                label = (f"{bb}x{h}x{wd}x{c}->{n} {k}x{k}/s{st} pad {pad}, "
+                         f"{what}: "
+                         f"{plan_label(name, full[0], full[1], st, pad)}")
+                check.compare(name, label + " full range",
+                              full + (True, st, pad), wraps=name == "conv_q16")
+                check.compare(name, label + " narrow",
+                              narrow + (True, st, pad))
+                sk += 2
+    say(f"[general] {sk} stream-K cases equal; phase 9 took "
         f"{time.perf_counter() - t0:.1f} s")
+    return times
 
 
 def phase_kernels_nms(check: KernelCheck, dev: torch.device) -> dict:
@@ -3901,7 +4179,37 @@ def main() -> int:
     if sys.argv[1:] == ["--replay-kernels"]:
         replay_kernels(torch.device("cuda", 0))
         return 0
+    if sys.argv[1:] == ["--general-times"]:
+        general_times_main(torch.device("cuda", 0))
+        return 0
     return run(torch.device("cuda", 0))
+
+
+def general_times_main(dev: torch.device) -> None:
+    """``chip_smoke.py --general-times``: the card, each tensor-core
+    function's registers and SASS instruction counts, and general_times of
+    conv_q16, conv_w8a16 and conv_s8, with none of phase 1's checks, so a
+    copy of this script run from an older tree's root times that tree's
+    kernels; where the tree has the stream-K kernel, also convk_sweep."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    say(f"[general times] {smi}; tree {os.getcwd()}")
+    lib = _build.load_library()
+    regs, sass = ptxas_registers(lib.log), sass_counts(lib.path)
+    for fn in sorted(sass):
+        if "tc_kernel" in fn:
+            say(f"[general times] {fn}: {regs.get(fn)} registers, "
+                f"{sass[fn][0]} SASS instructions, {sass[fn][1]} MMA, "
+                f"{sass[fn][3]} TMA bulk copies")
+    times = general_times(dev)
+    say(json.dumps({name: {f"b{b}": {"graph_ms": f["graph_ms"], "convs": f["convs"],
+                                      "events_ms": f["events_ms"],
+                                      "library_graph_ms": f["library_graph_ms"],
+                                      "bound_ms": f["bound"][0]}
+                           for b, f in by.items()} for name, by in times.items()}))
+    if hasattr(tc, "stream_k"):
+        convk_sweep(dev)
 
 
 def run(dev: torch.device) -> int:
@@ -3914,7 +4222,7 @@ def run(dev: torch.device) -> int:
     phase_kernels8(check, dev)
     phase_kernels_pool(check, dev)
     phase_kernels_int8(check, dev)
-    phase_kernels_general(check, dev)
+    general_b = phase_kernels_general(check, dev)
     nms_times = phase_kernels_nms(check, dev)
     say(f"[card] phases 1, 2 and 9 took {time.perf_counter() - t0:.1f} s")
     phase_letterbox(dev)
@@ -3940,7 +4248,8 @@ def run(dev: torch.device) -> int:
     say(f"[card] phases 1-3, 9 and 10 took {time.perf_counter() - t0:.1f} s")
     names = kernel_names(dev)
     say(f"[profile] kernels by full name: {len(names)} of "
-        f"{len(TC_INSTANCES) + len(NMS_FUNCTIONS)} functions seen by the "
+        f"{len(TC_INSTANCES) + len(NMS_FUNCTIONS)} functions of yolov2's "
+        "paths seen by the "
         "profiler")
     net = (spec.net.height, spec.net.width, 3)
     for path, r in runs.items():
@@ -3993,14 +4302,17 @@ def run(dev: torch.device) -> int:
                 "library_ms": f.get("library_ms"),
                 "library": " / ".join(sorted(f.get("library", ())))}
 
-    def general_at(name: str) -> dict:
+    def general_at(name: str, bsz: int) -> dict:
         """A general conv's sums over yolov2-s2's five strided convs at
-        batch BATCH_SLICE (phase 9)."""
-        return {"ms": check.ms[name], "graph_ms": check.graph_ms[name],
-                "bound_ms": check.bound[name][0],
-                "bound_by": bound_by(check.bound[name]),
-                "plain_ms": check.plain_ms[name],
-                "library_ms": check.library_ms[name],
+        batch bsz (phase 9: events at BATCH_SLICE, graph replays at both)."""
+        f = general_b[name][bsz]
+        events = bsz == BATCH_SLICE
+        return {"ms": check.ms[name] if events else f["events_ms"],
+                "graph_ms": f["graph_ms"], "bound_ms": f["bound"][0],
+                "bound_by": bound_by(f["bound"]),
+                "plain_ms": check.plain_ms[name] if events else None,
+                "library_ms": check.library_ms[name] if events else None,
+                "library_graph_ms": f["library_graph_ms"],
                 "library": " / ".join(sorted(check.library[name]))}
 
     # ms, plain_ms, bound_ms and library_ms: summed over phase 2's timed
@@ -4039,7 +4351,8 @@ def run(dev: torch.device) -> int:
             "launches_per_forward": per_forward[name],
             "per_forward": ({f"b{b}": at(f) for b, f in forward[name].items()}
                             if name in forward else
-                            {f"b{BATCH_SLICE}": general_at(name)}
+                            {f"b{b}": general_at(name, b)
+                             for b in general_b[name]}
                             if name in GENERAL_KERNELS else None)})
     say(f"[card] {smi}")
     say(json.dumps({"kernels": kernels}))

@@ -22,34 +22,41 @@
 // width) do 1.99 G MAC per frame: 0.0645 ms at b=8 on 989.5e12 8-bit MAC/s,
 // against 0.0659 ms for their bytes (int16 in and out, weights once) at
 // 3.35 TB/s; the first (416x416x32) is bytes-bound 2.6x, the last
-// (26x26x512) operations-bound 3.7x. A strided conv reads each input pixel
-// in several windows, from L2; this first design keeps the body of the
-// regular convs (a 4-stage cp.async ring, one 16-byte copy per 8 channels
-// of one tap where C % 8 == 0, any other C value by value, ldmatrix and the
-// byte split in registers, wgmma m64n64k32, three blocks per SM, split-K
-// where the output tiles cannot fill the card, which also takes K past
-// KMAX, e.g. a 7x7 conv over 1024 channels, K = 50,176) and adds only the
-// general loader.
-#include "igemm_tc.cuh"
+// (26x26x512) operations-bound 3.7x. The first design (the regular convs'
+// body with this loader) took 4.1x their bound: half of each 64-wide tile
+// empty at N = 32, a block of 4.5 K steps that stops with its ring still
+// filling, grids of 0.86 to 1.7 waves and split-K. This design
+// (convk_tc.cuh) runs a persistent stream-K grid whose ring loads across
+// tile boundaries, a 32-wide N tile where N <= 32, and B by TMA bulk copy;
+// K past KMAX (a 7x7 conv over 1024 channels, K = 50,176) cuts a tile's
+// segments at KMAX.
+#include "convk_tc.cuh"
 
 // x (B, H, W, C) int16, wp the packed planes of w (k, k, C, N) read as
 // (k*k*C, N) (ops/q16.py: pack_q16), bias (N,) int32 -> out (B, Ho, Wo, N)
 // int16 with Ho = (H + 2 pad - k) / stride + 1 and Wo alike, all contiguous
-// on the current device; ws as launch_igemm_tc wants it. Returns
+// on the current device; the bm x bn tile, the grid, the share quantum and
+// ws's slots as
+// ops/tc.py's stream_k plans them (convk_tc.cuh: launch_tile). Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
-// geometry with no output.
+// geometry with no output or a tile that is not built.
 extern "C" int yq16_conv(const void* x, const void* wp, const void* bias, void* out, void* ws,
                          int B, int H, int W, int C, int N, int k, int stride, int pad,
-                         int shift, int leaky, int ktiles_per_split, void* stream) {
+                         int shift, int leaky, int bm, int bn, int grid, int quantum, int slots,
+                         void* stream) {
     using namespace yq::tc;
-    using Loader = ConvKTc<int16_t>;
     if (k < 1 || stride < 1 || pad < 0 || H + 2 * pad < k || W + 2 * pad < k)
         return (int)cudaErrorInvalidValue;
     const int Ho = (H + 2 * pad - k) / stride + 1, Wo = (W + 2 * pad - k) / stride + 1;
-    const Loader::Params p{(const int16_t*)x, H, W, C, k, stride, pad,
-                           Ho, Wo, vec16(x, 2LL * C)};
+    const ConvKTc<int16_t>::Params p{(const int16_t*)x, H, W, C, k, stride, pad,
+                                     Ho, Wo, vec16(x, 2LL * C)};
     const EpiLayer e{(const int32_t*)bias, (int16_t*)out, shift, leaky};
     const long long M = (long long)B * Ho * Wo;
-    return (int)launch_igemm_tc<Q16, Loader>(p, wp, e, ws, M, N, k * k * C, ktiles_per_split,
-                                             stream);
+    return (int)yq::convk::launch<Q16>(bm, bn, p, wp, e, ws, M, N, k * k * C, grid, quantum, slots,
+                                       stream);
+}
+
+// The Q16 bm x bn tile as the wrappers must know it (convk_tc.cuh: config).
+extern "C" int yq16_conv_config(int bm, int bn, int what) {
+    return yq::convk::config<yq::tc::Q16>(bm, bn, what);
 }

@@ -19,32 +19,38 @@
 // tensor-core products: the five 3x3/s2 convs of yolov2-s2 416 do 1.99 G
 // MAC per frame, 0.0322 ms at b=8 on 989.5e12 8-bit MAC/s, against 0.0650
 // ms for their bytes at 3.35 TB/s (each of them bytes-bound, the first 5x).
-// This first design keeps the body and the W8A16 scheme of the regular
-// convs (int16 A by 16-byte cp.async per 8 channels of one tap where
-// C % 8 == 0, value by value otherwise; two wgmma per 32 k; split-K where
-// the output tiles cannot fill the card, and past KMAX) and adds only the
-// general loader.
-#include "igemm_tc.cuh"
+// The first design (the regular convs' body with this loader) took 4.3x
+// their bound, for the reasons conv_q16.cu gives; this one shares
+// conv_q16's kernel (convk_tc.cuh: a persistent stream-K grid whose ring
+// loads across tile boundaries, a 32-wide N tile where N <= 32, B by TMA
+// bulk copy; two wgmma per 32 k; K past KMAX cut into segments).
+#include "convk_tc.cuh"
 
 // x (B, H, W, C) int16, wp the packed plane of w (k, k, C, N) int8 read as
 // (k*k*C, N) (ops/q8.py: pack_w8a16), bias and shift (N,) int32 -> out
 // (B, Ho, Wo, N) int16 with Ho = (H + 2 pad - k) / stride + 1 and Wo alike,
-// all contiguous on the current device; ws as launch_igemm_tc wants it.
+// all contiguous on the current device; the bm x bn tile, the grid, the
+// share quantum and ws's slots as ops/tc.py's stream_k plans them (convk_tc.cuh: launch_tile).
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// a geometry with no output.
+// a geometry with no output or a tile that is not built.
 extern "C" int yq8_conv_w8a16(const void* x, const void* wp, const void* bias,
                               const void* shift, void* out, void* ws, int B, int H, int W,
-                              int C, int N, int k, int stride, int pad, int leaky,
-                              int ktiles_per_split, void* stream) {
+                              int C, int N, int k, int stride, int pad, int leaky, int bm,
+                              int bn, int grid, int quantum, int slots, void* stream) {
     using namespace yq::tc;
-    using Loader = ConvKTc<int16_t>;
     if (k < 1 || stride < 1 || pad < 0 || H + 2 * pad < k || W + 2 * pad < k)
         return (int)cudaErrorInvalidValue;
     const int Ho = (H + 2 * pad - k) / stride + 1, Wo = (W + 2 * pad - k) / stride + 1;
-    const Loader::Params p{(const int16_t*)x, H, W, C, k, stride, pad,
-                           Ho, Wo, vec16(x, 2LL * C)};
+    const ConvKTc<int16_t>::Params p{(const int16_t*)x, H, W, C, k, stride, pad,
+                                     Ho, Wo, vec16(x, 2LL * C)};
     const W8A16::Epi e{(const int32_t*)bias, (const int32_t*)shift, (int16_t*)out, leaky};
     const long long M = (long long)B * Ho * Wo;
-    return (int)launch_igemm_tc<W8A16, Loader>(p, wp, e, ws, M, N, k * k * C,
-                                               ktiles_per_split, stream);
+    return (int)yq::convk::launch<W8A16>(bm, bn, p, wp, e, ws, M, N, k * k * C, grid, quantum, slots,
+                                         stream);
+}
+
+// The W8A16 bm x bn tile as the wrappers must know it (convk_tc.cuh:
+// config).
+extern "C" int yq8_conv_w8a16_config(int bm, int bn, int what) {
+    return yq::convk::config<yq::tc::W8A16>(bm, bn, what);
 }

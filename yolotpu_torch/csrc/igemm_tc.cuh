@@ -1,7 +1,8 @@
 // Exact integer GEMM on the 8-bit tensor cores, with the fused requant: the
 // body of mm_q16.cu, conv3x3_q16.cu, conv3x3_pool_q16.cu, mm_w8a16.cu,
-// conv3x3_w8a16.cu, mm_s8.cu, conv3x3_s8.cu and of the general convs
-// conv_q16.cu, conv_w8a16.cu and conv_s8.cu.
+// conv3x3_w8a16.cu, mm_s8.cu, conv3x3_s8.cu and of the general conv
+// conv_s8.cu (the int16-activation general convs, conv_q16.cu and
+// conv_w8a16.cu, run on convk_tc.cuh, which reuses the pieces below).
 //
 //   out[m, n] = requant(sum_k A[m, k] * w[k, n]  (mod 2^32), bias[n], shift)
 //

@@ -44,9 +44,11 @@ SIGNATURES = {
     "yq8_conv3x3_w8a16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _P),
     "yq_nms_greedy": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    "yq16_conv": (_P, _P, _P, _P, _P, *(_I,) * 11, _P),
+    "yq16_conv": (_P, _P, _P, _P, _P, *(_I,) * 15, _P),
+    "yq16_conv_config": (_I, _I, _I),
     "yq8_conv_s8": (_P, _P, _P, _P, _P, _P, *(_I,) * 11, _P),
-    "yq8_conv_w8a16": (_P, _P, _P, _P, _P, _P, *(_I,) * 10, _P),
+    "yq8_conv_w8a16": (_P, _P, _P, _P, _P, _P, *(_I,) * 14, _P),
+    "yq8_conv_w8a16_config": (_I, _I, _I),
 }
 
 

@@ -29,7 +29,9 @@ keep every partial sum below 2^46, inside float64's 53-bit mantissa in any
 summation order, so rounding to int64 and wrapping to int32 gives the
 wraparound int32 sum.
 
-All four run on the 8-bit tensor cores (``csrc/igemm_tc.cuh``): each int16
+All four run on the 8-bit tensor cores (``csrc/igemm_tc.cuh``; conv_q16 on
+the general convs' own kernel, ``csrc/convk_tc.cuh``, with a schedule that
+``tc.stream_k`` plans): each int16
 is cut into a signed high and an unsigned low byte, and the three s32
 partial sums (high x high, the two mixed products, low x low) are
 recombined modulo 2^32 (``ops.tc``, scheme ``tc.Q16``). On the card they
@@ -343,8 +345,9 @@ def conv_q16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, shift: int,
     _build.check_rows("conv_q16", b * ho * wo)
     tc.check_planes("conv_q16", planes, k * k * c, n, x.device, tc.Q16)
     out = torch.empty((b, ho, wo, n), dtype=torch.int16, device=x.device)
-    return tc.launch("conv_q16", "yq16_conv", out, b * ho * wo, n, k * k * c,
-                     (x.data_ptr(), planes.data_ptr(), bias.data_ptr()),
-                     (b, h, wd, c, n, k, int(stride), int(pad), int(shift),
-                      int(leaky)),
-                     tc.Q16, LAUNCHES)
+    return tc.launch_convk("conv_q16", "yq16_conv", out, b * ho * wo, n,
+                           k * k * c,
+                           (x.data_ptr(), planes.data_ptr(), bias.data_ptr()),
+                           (b, h, wd, c, n, k, int(stride), int(pad),
+                            int(shift), int(leaky)),
+                           tc.Q16, LAUNCHES)

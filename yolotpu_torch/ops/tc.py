@@ -20,6 +20,13 @@ for a 1x1 and a 3x3 weight alike, all through ``arrange_planes``).
 does, so the CPU tests hold the layout and each scheme's exactness. Where
 the output tiles cannot fill the card, ``split`` cuts K over blocks, and
 ``launch`` allocates the workspace the kernel zeroes.
+
+The general convs with int16 activations (``q16.conv_q16``, scheme Q16, and
+``q8.conv_w8a16``, W8A16) run on a kernel of their own, ``csrc/convk_tc.cuh``,
+on the same schemes and planes: a persistent grid walks every (output tile,
+K step) unit of the conv in shares that ``stream_k`` plans, on a tile that
+``convk_tile`` chooses from the shape, and ``launch_convk`` allocates the
+workspace of the tiles that several blocks share.
 """
 
 from __future__ import annotations
@@ -199,6 +206,156 @@ def split(m: int, n: int, k: int, sms: int, scheme: Scheme) -> int:
     return best
 
 
+# The general convs' tiles (BM, BN), as csrc/convk_tc.cuh builds them, and
+# per scheme and tile the blocks per SM that stream_k fills, the kernel's
+# MIN_BLOCKS (chip_smoke.py checks that the card keeps them): a block is one
+# producer warpgroup and BM / 64 consumer warpgroups; three blocks of one
+# consumer where its accumulators take at most 64 registers (W8A16, and
+# Q16 at 32 columns), else two, or one of two consumers, fill an SM's
+# registers.
+CONVK_TILES = ((64, 64), (64, 32), (128, 64), (128, 32))
+CONVK_BLOCKS = {(s, bm, bn): 1 if bm == 128 else
+                3 if (s == "w8a16" or bn == 32) else 2
+                for s in ("q16", "w8a16") for bm, bn in CONVK_TILES}
+# K steps of 64 x 64 tiles per block of the card from which a Q16 conv takes
+# 128-row tiles (convk_tile).
+CONVK_WIDE = 16
+# The fewest K steps a block's share holds: fewer blocks where the conv has
+# less work than that per block, so that a small conv does not pay a shared
+# tile's partials for every few K steps.
+SK_MIN_STEPS = 8
+# What sharing tiles adds to a block's time, in K steps (the partials, the
+# counters and their zeroing, the completing block's reads): stream_k
+# deals whole tiles instead where that is no slower by this count.
+SK_FIXUP = 40
+
+
+def convk_tile(m: int, n: int, k: int, sms: int,
+               scheme: Scheme) -> tuple[int, int]:
+    """The (BM, BN) output tile of the general conv kernel for an (M, K) @
+    (K, N) of ``scheme`` on ``sms`` SMs: 32 columns where N <= 32, so no
+    tensor-core work or B byte goes to columns past N; 64 otherwise. 64
+    rows, or 128 (two consumer warpgroups sharing each B stage) for a Q16
+    conv of 64-wide columns with at least CONVK_WIDE K steps of 64 x 64
+    tiles for each block the card keeps of them, where chip_smoke.py's
+    sweep found 128 rows faster (NVIDIA H100 80GB HBM3)."""
+    if n <= 32:
+        return 64, 32
+    units = -(-m // 64) * -(-n // 64) * -(-k // scheme.bk)
+    wide = units >= CONVK_WIDE * sms * CONVK_BLOCKS[(scheme.name, 64, 64)]
+    return (128 if scheme is Q16 and wide else 64), 64
+
+
+@dataclass(frozen=True)
+class StreamK:
+    """A schedule of the general conv kernel: the ``tiles`` output tiles of
+    ``bm`` x ``bn`` (tile t = m-tile t // (N / bn), n-tile t % (N / bn)),
+    each of ``ktiles`` K steps, are the units t * ktiles + kt, and block b
+    of the ``grid`` takes units [start(b), start(b + 1)), an even share of
+    whole ``quantum``s: single units (stream-K, quantum 1) or whole tiles
+    (quantum ktiles). A block's run of K steps within one tile, cut again at
+    every ``kchunk`` steps (KMAX values of k, one s32 set), is a segment; a
+    tile that is not one segment is shared and sums its segments in the
+    workspace."""
+    bm: int
+    bn: int
+    ktiles: int
+    tiles: int
+    grid: int
+    kchunk: int
+    quantum: int = 1
+
+    @property
+    def units(self) -> int:
+        return self.tiles * self.ktiles
+
+    def start(self, b: int) -> int:
+        return b * (self.units // self.quantum) // self.grid * self.quantum
+
+    def owner(self, u: int) -> int:
+        """The block whose share holds unit u (stream-K)."""
+        return ((u + 1) * self.grid - 1) // self.units
+
+    def segments(self) -> list[tuple[int, int, int, int]]:
+        """Every segment (block, tile, first K step, end K step), in unit
+        order, as the kernel walks them."""
+        out = []
+        for b in range(self.grid):
+            u, end = self.start(b), self.start(b + 1)
+            while u < end:
+                t, kt = divmod(u, self.ktiles)
+                kend = min(self.ktiles, (kt // self.kchunk + 1) * self.kchunk,
+                           kt + end - u)
+                out.append((b, t, kt, kend))
+                u += kend - kt
+        return out
+
+    @property
+    def chunked(self) -> bool:
+        """K past KMAX: every tile sums its segments in a slot of its own."""
+        return self.ktiles > self.kchunk
+
+    @functools.cached_property
+    def slots(self) -> int:
+        """The counters of shared tiles: one per tile past KMAX; else, where
+        some tile is shared, one per block (a shared tile's counter is the
+        block that owns its first unit, which ends its share inside it);
+        else none."""
+        if self.chunked:
+            return self.tiles
+        return self.grid if self.quantum == 1 and any(
+            self.start(b) % self.ktiles for b in range(1, self.grid)) else 0
+
+    def slot(self, tile: int) -> int:
+        return tile if self.chunked else self.owner(tile * self.ktiles)
+
+    def region(self, block: int, tile: int) -> int:
+        """Where block ``block`` leaves its partial of shared tile ``tile``
+        (not past KMAX): region 2b for the block's first segment, 2b + 1 for
+        its last, as the kernel writes it."""
+        return 2 * block + (0 if self.start(block) >= tile * self.ktiles else 1)
+
+    def regions(self, tile: int) -> list[int]:
+        """The regions that the segment completing shared tile ``tile``
+        reads, as the kernel finds them: block b0 = owner of the tile's
+        first unit left its last segment (its first where its share starts
+        with the tile), every later block of the tile its first."""
+        first = tile * self.ktiles
+        b0, b1 = self.owner(first), self.owner(first + self.ktiles - 1)
+        return [2 * b + (1 if b == b0 and self.start(b0) != first else 0)
+                for b in range(b0, b1 + 1)]
+
+    @property
+    def workspace_words(self) -> int:
+        """uint32 of the workspace: past KMAX a bm x bn partial tile and a
+        counter per tile (all zeroed by the kernel's launch); else, where a
+        tile is shared, two bm x bn regions a block, then a counter a block
+        (the counters zeroed)."""
+        if self.chunked:
+            return self.slots * (self.bm * self.bn + 1)
+        return self.slots and 2 * self.grid * self.bm * self.bn + self.slots
+
+
+@functools.lru_cache(maxsize=4096)
+def stream_k(m: int, n: int, k: int, sms: int, scheme: Scheme,
+             tile: tuple[int, int]) -> StreamK:
+    """The schedule of an (M, K) @ (K, N) of ``scheme`` on the general conv
+    kernel's ``tile`` with ``sms`` SMs, at most as many blocks as stay on
+    the card at once (sms x CONVK_BLOCKS): whole tiles a block where the
+    most tiles a block takes cost no more K steps than stream-K's share and
+    SK_FIXUP; else stream-K, each block an even, contiguous share of the
+    units (shares differ by at most one), of no fewer than SK_MIN_STEPS."""
+    bm, bn = tile
+    ktiles = -(-k // scheme.bk)
+    tiles = -(-m // bm) * -(-n // bn)
+    cap = sms * CONVK_BLOCKS[(scheme.name, bm, bn)]
+    grid = max(1, min(cap, tiles * ktiles // SK_MIN_STEPS))
+    whole = min(cap, tiles)
+    if -(-tiles // whole) * ktiles <= -(-tiles * ktiles // grid) + SK_FIXUP:
+        return StreamK(bm, bn, ktiles, tiles, whole, KMAX // scheme.bk, ktiles)
+    return StreamK(bm, bn, ktiles, tiles, grid, KMAX // scheme.bk)
+
+
 @functools.lru_cache(maxsize=4096)
 def _planes_shape(scheme: Scheme, k: int, n: int) -> tuple[int, ...]:
     return scheme.planes_shape(k, n)
@@ -241,3 +398,22 @@ def launch(name: str, fn: str, out: torch.Tensor, m: int, n: int, k: int,
     return _build.launch(name, fn, out, *pointers, out.data_ptr(),
                          None if ws is None else ws.data_ptr(), *ints, kps,
                          counts=counts)
+
+
+def launch_convk(name: str, fn: str, out: torch.Tensor, m: int, n: int,
+                 k: int, pointers: tuple, ints: tuple, scheme: Scheme,
+                 counts: dict) -> torch.Tensor:
+    """Launch the general conv kernel of ``scheme`` (``_build.launch``): C
+    entry point ``fn`` takes ``pointers``, the output, the workspace,
+    ``ints``, then the tile (BM, BN), the grid, the share quantum and the
+    workspace slots of the schedule ``stream_k`` plans on ``convk_tile``.
+    Where a tile is shared, the workspace is allocated here."""
+    sms = _sm_count(out.device.index or 0)
+    plan = stream_k(m, n, k, sms, scheme, convk_tile(m, n, k, sms, scheme))
+    words = plan.workspace_words
+    ws = (torch.empty(words, dtype=torch.int32, device=out.device) if words
+          else None)
+    return _build.launch(name, fn, out, *pointers, out.data_ptr(),
+                         None if ws is None else ws.data_ptr(), *ints,
+                         plan.bm, plan.bn, plan.grid, plan.quantum,
+                         plan.slots, counts=counts)
