@@ -15,17 +15,18 @@ after 2, 10 after 3):
 
 1. card: name and power limit, torch and CUDA versions, kernel build time,
    each kernel's registers and spills (none allowed), each kernel's
-   tensor-core MMA count (cuobjdump: the twelve instantiations of the
-   tensor-core body and the eight of the general convs' kernel,
+   tensor-core MMA count (cuobjdump: the ten instantiations of the
+   tensor-core body and the sixteen of the general convs' kernel,
    convk_tc_kernel, hold integer wgmma, the latter also TMA bulk copies,
    and the library holds no other kernel but nms_greedy's two passes, whose
    registers and shared memory it prints), and the tile, shared memory and
    registers of each operand scheme of the tensor-core body (Q16: mm_q16,
    conv3x3_q16, conv3x3_pool_q16 in its three pool orders; W8A16:
-   mm_w8a16, conv3x3_w8a16; S8: mm_s8 and conv_s8 with either output,
-   conv3x3_s8, conv3x3_int8) and of each tile of convk_tc_kernel (conv_q16,
-   conv_w8a16: BM, BN, ring stages, blocks per SM asked and kept), checked
-   against the wrappers' copy of it;
+   mm_w8a16, conv3x3_w8a16; S8: mm_s8 with either output, conv3x3_s8,
+   conv3x3_int8) and of each tile of convk_tc_kernel (conv_q16,
+   conv_w8a16, conv_s8 with either output: BM, BN, ring stages, blocks per
+   SM asked and kept, both equal to tc.CONVK_BLOCKS), checked against the
+   wrappers' copy of it;
 2. kernels: each of the six conv kernels against its plain PyTorch version
    on the card at all 23 yolov2 conv shapes of its kind (batch 2) and at
    edge cases (shift extremes, per-channel shift vectors that mix them, sums
@@ -185,21 +186,28 @@ after 2, 10 after 3):
    uint8; no tp, sp or dp collective runs there); the ranks' launches of
    ``mm_q16``, ``conv3x3_q16``, ``nms_greedy``, ``mm_s8`` and
    ``conv3x3_s8`` (each above 0, no other kernel) join the kernels' counts;
+   then yolov2-s2 at 416 over a (dp=1, sp=2) mesh, two gloo ranks sharing
+   the card, b=2, in the int16 and int8 tiers: each rank quantizes its H
+   slab, runs conv0 (3x3/s1) on it with one halo row from its neighbour
+   and gathers H before conv1, the first strided conv (``conv_q16``,
+   ``conv_s8``), and the heads equal the one-process forward on the card
+   (``torch.equal``); its launches of the general convs join the counts;
    the phase must end within 120 s.
 
 9. general convs, kernels: conv_q16, conv_s8 (int8 and int16 output) and
    conv_w8a16 against their plain versions (``torch.equal``) at yolov2-s2's
-   five 3x3/s2 shapes at batch 1, 2 and 8 (conv_q16 and conv_w8a16 on the
-   schedule ``tc.stream_k`` plans, conv_s8 with K split as ``tc.split``
-   picks; at batch 8 timed by CUDA events and in CUDA graph replays, beside
+   five 3x3/s2 shapes at batch 1, 2 and 8 (each on the schedule
+   ``tc.stream_k`` plans; at batch 8 timed by CUDA events and in CUDA graph
+   replays, beside
    the bound and one library call: a float64 matmul on the strided im2col,
    or ``_int_mm`` for int8); each of the five timed at batch 1 and 8 (graph
    replays and events) beside its bound, its library call and the rate at
-   which its staged bytes reach the SMs, summed per forward; conv_q16 and
-   conv_w8a16 on every tile of ``tc.CONVK_TILES`` and on whole tiles and
+   which its staged bytes reach the SMs, summed per forward; each general
+   conv on every tile of ``tc.CONVK_TILES`` and on whole tiles and
    stream-K (three minimum shares) at those shapes, each equal and timed;
-   the stream-K cases (tiles shared by 2 and by 3 blocks, one output tile,
-   M < 64, N of 24, 32, 40 and 425, C = 13, full-range sums that wrap);
+   the stream-K cases, whole tiles ruled out (tiles shared by 2 and by 3
+   blocks, one output tile, M < 64, N of 24, 32, 40 and 425, C = 13,
+   full-range sums that wrap; conv_s8 with either output);
    and at edge forms (a 7x7/s2 entry with C=3, a
    5x5, a VALID 3x3, a 2x2/s2 on odd H and W, a 1x1/s2 with N=425, a
    3x3/s2 with padding 2 and with padding 3, whose first windows are all
@@ -222,9 +230,9 @@ after 2, 10 after 3):
 
 ``python3 chip_smoke.py --general-times`` prints the card, the registers
 and SASS counts of every tensor-core function and phase 9's times of the
-general convs (and, where the tree has the stream-K kernel, its sweep),
-with no checks of phase 1, so a copy of it run from an older tree's root
-times that tree's kernels.
+general convs and their sweep, with no checks of phase 1, so a copy of it
+run from an earlier tree's root (one whose general convs all run on the
+stream-K kernel) times that tree's kernels.
 
 Any failed check raises, so the exit code is not 0. The line before the
 last is a JSON record of the kernels; the last is
@@ -270,6 +278,10 @@ from yolotpu_torch.ops import (_build, convops, letterbox, nms, pool,  # noqa: E
                                q8, q16, tc)
 from yolotpu_torch.parallel import dryrun, launch  # noqa: E402
 from yolotpu_torch.parallel.dryrun import launch_counts  # noqa: E402
+from yolotpu_torch.parallel.forward import (ShardedYoloV2Q,  # noqa: E402
+                                            gather_batch)
+from yolotpu_torch.parallel.mesh import (make_mesh_sp,  # noqa: E402
+                                         spatial_batch_sharding)
 from yolotpu_torch.quant import (calibrate_activations,  # noqa: E402
                                  calibrate_activations_int8, quantize_weights,
                                  quantize_weights_int8, quantize_weights_w8a16)
@@ -358,7 +370,7 @@ TC_KERNELS = {"mm_q16": (tc.Q16, q16.pack_q16),
 # the kernel, the scheme's and the loader's part of its mangled name); the
 # int16 output of mm_s8 is a scheme struct of its own, S8Out16, and each
 # pool order of conv3x3_pool_q16 a Q16Pool<order>, with the window-major
-# loader ConvTc<int16_t, true>; the general convs' loader is ConvKTc<T>
+# loader ConvTc<int16_t, true>
 TC_INSTANCES = (("mm_q16", "", "3Q16", "MmTcIs"),
                 ("conv3x3_q16", "", "3Q16", "ConvTcIsLb0E"),
                 ("mm_w8a16", "", "5W8A16", "MmTcIs"),
@@ -367,15 +379,18 @@ TC_INSTANCES = (("mm_q16", "", "3Q16", "MmTcIs"),
                 ("mm_s8", " (int16 output)", "7S8Out16", "MmTcIa"),
                 ("conv3x3_s8", "", "2S8", "ConvTcIaLb0E"),
                 *(("conv3x3_pool_q16", f" (order {o})", f"7Q16PoolILi{i}E",
-                   "ConvTcIsLb1E") for i, o in enumerate(q16.POOL_ORDERS)),
-                ("conv_s8", " (int8 output)", "2S8", "ConvKTcIa"),
-                ("conv_s8", " (int16 output)", "7S8Out16", "ConvKTcIa"))
-# the general convs with int16 activations, on their own kernel
-# (csrc/convk_tc.cuh, convk_tc_kernel<scheme, BN, warpgroups>): kernel ->
-# (the scheme's part of its mangled name, the entry point of its tile
-# configuration); one instantiation per tile of tc.CONVK_TILES
-CONVK_KERNELS = {"conv_q16": ("3Q16", "yq16_conv_config"),
-                 "conv_w8a16": ("5W8A16", "yq8_conv_w8a16_config")}
+                   "ConvTcIsLb1E") for i, o in enumerate(q16.POOL_ORDERS)))
+# the general convs, on their own kernel (csrc/convk_tc.cuh,
+# convk_tc_kernel<scheme, BN, warpgroups>): kernel -> (the entry point of
+# its tile configuration, and per output what tells it from the kernel's
+# other output and the scheme's part of its mangled name: conv_s8's int16
+# output is S8Out16); one instantiation per output and tile of
+# tc.CONVK_TILES
+CONVK_KERNELS = {"conv_q16": ("yq16_conv_config", (("", "3Q16"),)),
+                 "conv_w8a16": ("yq8_conv_w8a16_config", (("", "5W8A16"),)),
+                 "conv_s8": ("yq8_conv_s8_config",
+                             ((" (int8 output)", "2S8"),
+                              (" (int16 output)", "7S8Out16")))}
 # SASS opcodes of a bulk copy by the Tensor Memory Accelerator
 BULK_OPS = ("UBLKCP", "UTMALDG")
 # int8 x int8
@@ -820,7 +835,9 @@ def phase_card() -> str:
     tc_fns = {fn for fn in sass if "igemm_tc_kernel" in fn}
     ck_fns = {fn for fn in sass if "convk_tc_kernel" in fn}
     nms_fns = {part: [fn for fn in sass if part in fn] for part in NMS_FUNCTIONS}
-    convk = [(name, bm, bn) for name in CONVK_KERNELS for bm, bn in tc.CONVK_TILES]
+    convk = [(name, which, part, bm, bn)
+             for name, (_, outs) in CONVK_KERNELS.items()
+             for which, part in outs for bm, bn in tc.CONVK_TILES]
     if len(tc_fns) != len(TC_INSTANCES) or len(ck_fns) != len(convk) \
             or any(len(fns) != 1 for fns in nms_fns.values()) \
             or set(sass) != tc_fns.union(ck_fns, *nms_fns.values()) or any(
@@ -860,27 +877,26 @@ def phase_card() -> str:
             f"{planes} weight plane(s), {smem} bytes of dynamic shared memory "
             f"per block, {blocks} blocks per SM ({scheme.wave} in tc.split's "
             f"waves), {regs[fns[0]]} registers")
-    for name, bm, bn in convk:
-        part, entry = CONVK_KERNELS[name]
+    for name, which, part, bm, bn in convk:
         scheme = TC_KERNELS[name][0]
-        cfg = getattr(lib.cdll, entry)
+        cfg = getattr(lib.cdll, CONVK_KERNELS[name][0])
         got = tuple(cfg(bm, bn, i) for i in range(8))
         _, _, bk, smem, blocks, resident, stages, kmax = got
         want = tc.CONVK_BLOCKS[(scheme.name, bm, bn)]
         if got[:3] != (bm, bn, scheme.bk) or kmax != tc.KMAX \
-                or not want <= min(blocks, resident):
+                or not want == blocks == resident:
             raise AssertionError(
-                f"{name} {bm}x{bn}: the kernel's tile (BM, BN, BK, smem, blocks "
-                f"asked, blocks kept, stages, KMAX) {got} is not the wrappers', "
-                f"or keeps fewer than the {want} blocks per SM that "
-                "tc.stream_k counts")
+                f"{name}{which} {bm}x{bn}: the kernel's tile (BM, BN, BK, smem, "
+                f"blocks asked, blocks kept, stages, KMAX) {got} is not the "
+                f"wrappers', or keeps other than the {want} blocks per SM "
+                "that tc.stream_k counts")
         fns = [fn for fn in regs if "convk_tc_kernel" in fn
                and f"{part}ELi{bn}ELi{bm // 64}E" in fn]
         sfns = [fn for fn in ck_fns if f"{part}ELi{bn}ELi{bm // 64}E" in fn]
         if len(fns) != 1 or len(sfns) != 1:
-            raise AssertionError(f"{name} {bm}x{bn}: ptxas reports {fns}, "
-                                 f"SASS {sfns}")
-        say(f"[card] {name} {bm}x{bn} on convk_tc_kernel, scheme "
+            raise AssertionError(f"{name}{which} {bm}x{bn}: ptxas reports "
+                                 f"{fns}, SASS {sfns}")
+        say(f"[card] {name}{which} {bm}x{bn} on convk_tc_kernel, scheme "
             f"{scheme.name.upper()}: K steps of {bk}, a {stages}-stage ring, "
             f"{smem} bytes of dynamic shared memory per block, {blocks} blocks "
             f"per SM asked, {resident} kept ({want} in tc.stream_k's grid), "
@@ -1403,13 +1419,13 @@ GENERAL_FORMS = (
                                     # of windows all padding, bias only
     (1, 6, 7, 1024, 64, 3, 2, 1),   # C=1024
 )
-# the stream-K cases of the int16-activation general convs: (B, H, W, C,
-# N, k, stride, pad), the blocks the stream-K schedule is dealt to (None:
-# the wrapper's own plan), the blocks that must share each tile (None: no
-# condition), and what the case shows
+# the stream-K cases of the general convs: (B, H, W, C, N, k, stride, pad),
+# the blocks the stream-K schedule is dealt to (None: the wrapper's own
+# plan, whole tiles ruled out), the blocks that must share each tile (None:
+# no condition), and what the case shows
 SK_CASES = (
     ((1, 22, 22, 512, 64, 3, 2, 1), 4, 2,
-     "2 tiles of 72 K steps on 4 blocks, each tile shared by 2"),
+     "2 tiles on 4 blocks, each tile shared by 2"),
     ((1, 22, 22, 512, 64, 3, 2, 1), 6, 3,
      "the same on 6 blocks, each tile shared by 3"),
     ((1, 8, 8, 512, 64, 3, 2, 1), None, None,
@@ -1478,19 +1494,16 @@ def cfg_spec(text: str) -> NetworkSpec:
 
 
 def general_plan(name: str, x: torch.Tensor, w: torch.Tensor, stride: int,
-                 pad: int):
+                 pad: int) -> tc.StreamK:
     """The schedule the wrapper of general conv ``name`` launches for x and
-    w: for the int16-activation kernel (CONVK_KERNELS) tc.stream_k's plan
-    on tc.convk_tile, for conv_s8 its K steps per split (tc.split)."""
+    w: tc.stream_k's plan on tc.convk_tile."""
     scheme = TC_KERNELS[name][0]
     k, n = w.shape[0], w.shape[-1]
     ho, wo = q16.conv_out_hw(x.shape[1], x.shape[2], k, stride, pad)
     m, kk = x.shape[0] * ho * wo, k * k * x.shape[-1]
     sms = tc._sm_count(x.device.index or 0)
-    if name in CONVK_KERNELS and hasattr(tc, "stream_k"):
-        return tc.stream_k(m, n, kk, sms, scheme,
-                           tc.convk_tile(m, n, kk, sms, scheme))
-    return tc.split(m, n, kk, sms, scheme)
+    return tc.stream_k(m, n, kk, sms, scheme,
+                       tc.convk_tile(m, n, kk, sms, scheme))
 
 
 def sharing(plan) -> dict[int, int]:
@@ -1503,9 +1516,6 @@ def sharing(plan) -> dict[int, int]:
 
 def plan_label(name: str, x, w, stride: int, pad: int) -> str:
     plan = general_plan(name, x, w, stride, pad)
-    if isinstance(plan, int):
-        kt = -(-w.numel() // w.shape[-1] // TC_KERNELS[name][0].bk)
-        return f"K in {-(-kt // plan)} splits"
     by = sharing(plan)
     shared = sum(v > 1 for v in by.values()) if plan.slots else 0
     return (f"{plan.bm}x{plan.bn} tiles, {plan.grid} blocks x "
@@ -1516,19 +1526,11 @@ def plan_label(name: str, x, w, stride: int, pad: int) -> str:
 def staged_bytes(name: str, x, w, stride: int, pad: int) -> int:
     """The bytes the kernel stages into shared memory for one call: per K
     step of each tile (a unit) BM rows of 128 bytes of A and a B stage of
-    32 k x BN columns x planes per 32 k; the first design's 64 x 64 tiles
-    where the tree has no stream_k."""
+    32 k x BN columns x planes per 32 k."""
     scheme = TC_KERNELS[name][0]
     plan = general_plan(name, x, w, stride, pad)
-    if isinstance(plan, int):   # the tc body's 64 x 64 tiles
-        k, n = w.shape[0], w.shape[-1]
-        ho, wo = q16.conv_out_hw(x.shape[1], x.shape[2], k, stride, pad)
-        m = x.shape[0] * ho * wo
-        units = -(-m // 64) * -(-n // 64) * -(-w.numel() // n // scheme.bk)
-        bm, bn = 64, 64
-    else:
-        units, bm, bn = plan.units, plan.bm, plan.bn
-    return units * (bm * 128 + (scheme.bk // 32) * scheme.planes * 32 * bn)
+    return plan.units * (plan.bm * 128
+                         + (scheme.bk // 32) * scheme.planes * 32 * plan.bn)
 
 
 def s2_operands(name: str, rng, xshape, wshape, dev: torch.device) -> tuple:
@@ -1604,11 +1606,12 @@ def general_times(dev: torch.device, kernels=tuple(GENERAL_TYPES),
 
 
 def convk_sweep(dev: torch.device) -> None:
-    """conv_q16 and conv_w8a16 at yolov2-s2's five strided convs at batch 1
-    and 8 on each tile of tc.CONVK_TILES, and on the chosen tile with whole
-    tiles a block and with stream-K (SK_MIN_STEPS 4, 8 and 16): torch.equal
-    to the plain version, and the device time in CUDA graph replays beside
-    the wrapper's own choice."""
+    """Each general conv on the stream-K kernel (conv_s8 with int8 output)
+    at yolov2-s2's five strided convs at batch 1 and 8 on each tile of
+    tc.CONVK_TILES, and on the chosen tile with whole tiles a block and with
+    stream-K (SK_MIN_STEPS 4, 8 and 16): torch.equal to the plain version,
+    and the device time in CUDA graph replays beside the wrapper's own
+    choice."""
     rng = np.random.default_rng(16)
     spec = cfg_spec(yolov2_s2_cfg())
     strided = [l for l in spec.conv_layers() if l.stride == 2]
@@ -1670,8 +1673,7 @@ def phase_kernels_general(check: KernelCheck, dev: torch.device) -> dict:
         f"batch {', '.join(map(str, S2_BATCHES))} (timed at {BATCH_SLICE}: "
         "CUDA events and graph replays), full-range operands (int16: shift "
         f"{FULL_SHIFT}, the sums wrap; int8 and w8a16: a shift per column "
-        "fitted to them); conv_q16 and conv_w8a16 on the schedule "
-        "tc.stream_k plans, conv_s8 with K split as tc.split picks")
+        "fitted to them); each on the schedule tc.stream_k plans")
     for l in strided:
         wshape = (3, 3, l.c, l.n)
         label = f"conv{l.idx} {l.h}x{l.w}x{l.c}->{l.n} 3x3/s2"
@@ -1796,39 +1798,50 @@ def phase_kernels_general(check: KernelCheck, dev: torch.device) -> dict:
         f"{UNSAT_FLOOR} of its outputs unsaturated, and {WRAP_FLOOR} "
         "unsaturated with a wrapped sum where built to wrap")
 
-    say("[general] stream-K cases of conv_q16 and conv_w8a16, each with "
-        f"full-range operands (int16: shift {FULL_SHIFT}, the sums wrap) and "
-        "narrow ones at shift 7")
+    say("[general] stream-K cases of conv_q16, conv_w8a16 and conv_s8 "
+        "(int8 output, and int16 in the head16 form), whole tiles ruled out "
+        f"(SK_FIXUP off), each with full-range operands (int16: shift "
+        f"{FULL_SHIFT}, the sums wrap) and narrow ones at shift 7")
     sk = 0
     plan_of = tc.stream_k
-    for (bb, h, wd, c, n, k, st, pad), blocks, by, what in SK_CASES:
-        xshape, wshape = (bb, h, wd, c), (k, k, c, n)
+    outs = [(name, None) for name in CONVK_KERNELS] + [("conv_s8", torch.int16)]
+    with unittest.mock.patch.object(tc, "SK_FIXUP", -10 ** 9):
+        tc.stream_k.cache_clear()
+        for (bb, h, wd, c, n, k, st, pad), blocks, by, what in SK_CASES:
+            xshape, wshape = (bb, h, wd, c), (k, k, c, n)
 
-        def dealt(*a, blocks=blocks):
-            return dataclasses.replace(plan_of(*a), grid=blocks, quantum=1)
+            def dealt(*a, blocks=blocks):
+                return dataclasses.replace(plan_of(*a), grid=blocks, quantum=1)
 
-        with (unittest.mock.patch.object(tc, "stream_k", dealt)
-              if blocks else contextlib.nullcontext()):
-            for name in CONVK_KERNELS:
-                full = s2_operands(name, rng, xshape, wshape, dev)
-                xdtype, out = GENERAL_TYPES[name]
-                narrow = (on(*narrow_operands(rng, xshape, wshape, 7)) + (7,)
-                          if name == "conv_q16" else
-                          on(*narrow_operands8(rng, xshape, wshape, xdtype,
-                                               out, 7)))
-                plan = general_plan(name, full[0], full[1], st, pad)
-                shared = sharing(plan)
-                if by is not None and set(shared.values()) != {by}:
-                    raise AssertionError(f"{name} {what}: the plan {plan} "
-                                         f"shares its tiles {shared}")
-                label = (f"{bb}x{h}x{wd}x{c}->{n} {k}x{k}/s{st} pad {pad}, "
-                         f"{what}: "
-                         f"{plan_label(name, full[0], full[1], st, pad)}")
-                check.compare(name, label + " full range",
-                              full + (True, st, pad), wraps=name == "conv_q16")
-                check.compare(name, label + " narrow",
-                              narrow + (True, st, pad))
-                sk += 2
+            with (unittest.mock.patch.object(tc, "stream_k", dealt)
+                  if blocks else contextlib.nullcontext()):
+                for name, out16 in outs:
+                    full = s2_operands(name, rng, xshape, wshape, dev)
+                    xdtype, out = GENERAL_TYPES[name]
+                    kw = {}
+                    if out16:   # the int8 sizing, moved to int16 by head16
+                        full = full[:2] + convops.head16(*full[2:])
+                        out, kw = out16, {"out_dtype": out16}
+                    narrow = (on(*narrow_operands(rng, xshape, wshape, 7)) + (7,)
+                              if name == "conv_q16" else
+                              on(*narrow_operands8(rng, xshape, wshape, xdtype,
+                                                   out, 7)))
+                    plan = general_plan(name, full[0], full[1], st, pad)
+                    shared = sharing(plan)
+                    if by is not None and set(shared.values()) != {by} \
+                            or plan.quantum != 1:
+                        raise AssertionError(f"{name} {what}: the plan {plan} "
+                                             f"shares its tiles {shared}")
+                    label = (f"{bb}x{h}x{wd}x{c}->{n} {k}x{k}/s{st} pad {pad}, "
+                             f"{what}{' (int16 output)' if out16 else ''}: "
+                             f"{plan_label(name, full[0], full[1], st, pad)}")
+                    check.compare(name, label + " full range",
+                                  full + (True, st, pad),
+                                  wraps=name == "conv_q16", **kw)
+                    check.compare(name, label + " narrow",
+                                  narrow + (True, st, pad), **kw)
+                    sk += 2
+    tc.stream_k.cache_clear()
     say(f"[general] {sk} stream-K cases equal; phase 9 took "
         f"{time.perf_counter() - t0:.1f} s")
     return times
@@ -1956,6 +1969,14 @@ def quantized_store(spec) -> WeightStore:
     quantize_weights_w8a16(store, act_q)
     quantize_weights_int8(store, calibrate_activations_int8(spec, store, calib))
     return store
+
+
+@functools.cache
+def s2_store() -> tuple:
+    """yolov2-s2 at S2_SIZE and its quantized_store, made once for phases
+    10 and 8."""
+    spec = cfg_spec(yolov2_s2_cfg())
+    return spec, quantized_store(spec)
 
 
 def close_heads(got: np.ndarray, want: np.ndarray, fp32: bool) -> bool:
@@ -2280,14 +2301,13 @@ def phase_general_slice(dev: torch.device) -> dict:
     these paths and the general convs' launches per forward."""
     t0 = time.perf_counter()
     tag = "[yolov2-s2]"
-    spec = cfg_spec(yolov2_s2_cfg())
+    spec, store = s2_store()
     routes = [k for k, _ in engine_plan.kernels(
         spec, engine_plan.plan(spec)).values()]
     if {k: routes.count(k) for k in set(routes)} != S2_TIER_ROUTES:
         raise AssertionError(f"{tag} routes {routes}; want {S2_TIER_ROUTES}")
     gflop = sum(2 * l.out_h * l.out_w * l.n * l.c * l.size ** 2
                 for l in spec.conv_layers()) / 1e9
-    store = quantized_store(spec)
     say(f"{tag} {len(spec.conv_layers())} convs ({S2_TIER_ROUTES}), "
         f"{gflop:.2f} GFLOP a frame; store calibrated and quantized in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -4018,6 +4038,87 @@ P8_BUDGET_S = 120.0
 # phase 7 (a)'s tolerances cover
 SPLIT_TOL = 1e-5
 P8_KERNELS = ("mm_q16", "conv3x3_q16", "nms_greedy", "mm_s8", "conv3x3_s8")
+# the general convs under sp: yolov2-s2 over (dp=1, sp=2), two gloo ranks
+# sharing the card, the int16 and int8 tiers, and the kernels they launch
+# (conv_q16 and conv_s8 once H is gathered before conv1)
+SP_RANKS, SP_BATCH, SP_TIERS = 2, 2, ("int16", "int8")
+SP_KERNELS = ("mm_q16", "conv3x3_q16", "conv_q16", "mm_s8", "conv3x3_s8",
+              "conv_s8")
+
+
+def sp_job(root: str) -> dryrun.Job:
+    """Phase 8's sp case as a dryrun.Job: yolov2-s2 (s2_store), SP_BATCH
+    frames from seed 8, each of SP_TIERS' Q tables, and its params in files
+    under ``root``, as Job.params reads them."""
+    spec, store = s2_store()
+    for tier in SP_TIERS:
+        os.makedirs(os.path.join(root, tier))
+        for name, p in tier_params(spec, store, tier, "cpu").items():
+            for leaf, v in p.items():
+                np.save(os.path.join(root, tier, f"{name}.{leaf}.npy"),
+                        v.numpy())
+    x = np.random.default_rng(8).random((SP_BATCH, S2_SIZE, S2_SIZE, 3),
+                                        dtype=np.float32)
+    return dryrun.Job(S2_SIZE, time.time(), {}, x, (), SP_TIERS,
+                      {t: tier_qtables(store, t) for t in SP_TIERS}, root)
+
+
+def sp_ranks(device: torch.device, job: dryrun.Job) -> dict:
+    """One rank of phase 8's sp case: yolov2-s2 over a (dp, sp=2) mesh of
+    the world in each of the job's tiers (``ShardedYoloV2Q``: the rank's H
+    slab, conv0 on it with a halo row, H gathered before conv1). Every rank
+    returns its kernel launches, the bytes its collectives received and
+    the modules of JAX it loaded; rank 0 also the gathered heads."""
+    spec = cfg_spec(yolov2_s2_cfg(job.size))
+    mesh = make_mesh_sp(sp=2)
+    x = spatial_batch_sharding(mesh)(torch.from_numpy(job.x)).contiguous()
+    reset_launches()
+    rec = {"heads": {}, "bytes": {}}
+    for tier in job.tiers:
+        model = ShardedYoloV2Q(spec, job.qtables[tier], job.params(tier), mesh,
+                               device, tier, outputs=("head",))
+        rec["heads"][tier] = gather_batch(model(x.to(device)),
+                                          mesh)["head"].cpu().numpy()
+        rec["bytes"][tier] = dict(model.tally)
+    rec["launches"] = launch_counts()
+    rec["blocked"] = all(sys.modules.get(m, 0) is None
+                         for m in ("jax", "yolotpu"))
+    rec["loaded"] = dryrun.jax_modules()
+    if torch.distributed.get_rank():
+        del rec["heads"]
+    return rec
+
+
+def phase_sp_general(dev: torch.device, tag: str) -> dict:
+    """Phase 8's sp case (SP_RANKS gloo ranks on the card): each tier's
+    gathered head ``torch.equal`` to the one-process forward on the card.
+    Returns the ranks' launches, summed."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        job = sp_job(tmp)
+        recs = launch.spawn(sp_ranks, SP_RANKS, "cuda", "gloo", args=(job,),
+                            timeout=300)
+        spec, x = s2_store()[0], torch.from_numpy(job.x).to(dev)
+        for tier in SP_TIERS:
+            one = YoloV2Q(spec, job.qtables[tier], job.params(tier), dev,
+                          tier, outputs=("head",))(x)["head"].cpu()
+            if not torch.equal(one, torch.from_numpy(recs[0]["heads"][tier])):
+                raise AssertionError(f"{tag} sp {tier}: the sharded head != "
+                                     "the one-process forward")
+    launches = {k: sum(r["launches"][k] for r in recs)
+                for k in recs[0]["launches"]}
+    bad = [(r["loaded"]) for r in recs if not r["blocked"] or r["loaded"]]
+    if bad or {k for k, v in launches.items() if v} != set(SP_KERNELS):
+        raise AssertionError(f"{tag} sp ranks launched {launches} (want each "
+                             f"of {SP_KERNELS} and no other), JAX {bad}")
+    say(f"{tag} yolov2-s2 {S2_SIZE}x{S2_SIZE} over (dp=1, sp={SP_RANKS}), "
+        f"{SP_RANKS} gloo ranks on the card, b={SP_BATCH}: the "
+        f"{' and '.join(SP_TIERS)} heads equal the one-process forward on "
+        "the card (torch.equal); H gathered before conv1 (3x3/s2); bytes "
+        f"received by rank 0: {recs[0]['bytes']}; launched "
+        + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+        + f"; {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def sum_launches(recs: list) -> dict:
@@ -4160,10 +4261,13 @@ def phase_multirank(dev: torch.device, smi: str) -> dict:
                       if k not in P8_KERNELS):
         raise AssertionError(f"{tag} launches: gloo {launches}, nccl {nccl}; "
                              f"want {P8_KERNELS} and no other")
-    total = {k: launches.get(k, 0) + nccl.get(k, 0) for k in launches}
+    sp = phase_sp_general(dev, tag)
+    total = {k: launches.get(k, 0) + nccl.get(k, 0) + sp.get(k, 0)
+             for k in launches}
     secs = time.perf_counter() - t0
     say(f"{tag} launches, {RANKS} gloo ranks: {launches}; the NCCL rank: "
-        f"{nccl}; phase 8 took {secs:.1f} s (budget {P8_BUDGET_S:.0f})")
+        f"{nccl}; the sp ranks: {sp}; phase 8 took {secs:.1f} s (budget "
+        f"{P8_BUDGET_S:.0f})")
     if secs > P8_BUDGET_S:
         raise AssertionError(f"{tag} phase 8 took {secs:.1f} s, over its "
                              f"budget of {P8_BUDGET_S:.0f} s")
@@ -4189,8 +4293,8 @@ def general_times_main(dev: torch.device) -> None:
     """``chip_smoke.py --general-times``: the card, each tensor-core
     function's registers and SASS instruction counts, and general_times of
     conv_q16, conv_w8a16 and conv_s8, with none of phase 1's checks, so a
-    copy of this script run from an older tree's root times that tree's
-    kernels; where the tree has the stream-K kernel, also convk_sweep."""
+    copy of this script run from an earlier tree's root times that tree's
+    kernels; then convk_sweep."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
@@ -4208,8 +4312,7 @@ def general_times_main(dev: torch.device) -> None:
                                       "library_graph_ms": f["library_graph_ms"],
                                       "bound_ms": f["bound"][0]}
                            for b, f in by.items()} for name, by in times.items()}))
-    if hasattr(tc, "stream_k"):
-        convk_sweep(dev)
+    convk_sweep(dev)
 
 
 def run(dev: torch.device) -> int:

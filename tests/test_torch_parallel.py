@@ -21,6 +21,12 @@ each test below reads its part of the result:
   tp all-reduce of each sharded conv's input gradient and the dp sum add
   in another order than one process does;
 - the dryrun's five stages at 32x32 (``parallel.dryrun.run_stages``);
+- the mixed cfg of ``test_torch_general_conv.py`` (a 7x7/s2 entry, a
+  3x3/s2, a 5x5, a 2x2/s2, a VALID 3x3, a 1x1/s2 and a 3x3 head) at 96x96,
+  b=4, over (dp=4, sp=2) in int16 and int8 (its head on ``conv_s8``'s
+  int16 output): the heads ``torch.equal`` to the one-process forward and
+  ``np.array_equal`` to the JAX package's unsharded head on the same
+  frames, H gathered before the first layer, a strided conv;
 - no rank imports JAX or the JAX package.
 
 Two small worlds: one where a rank raises, which must fail within 60 s and
@@ -54,18 +60,44 @@ from yolotpu_torch.train import make_train_step, zeros_like_velocity
 from yolotpu_torch.weights import WeightStore
 
 import torch_parallel_ranks as ranks
+from test_torch_general_conv import MIXED_CFG, MIXED_SIZE, NET_TIERS, _net
 
 N = 8
 SIZE, BATCH = 64, 4
 
 
+SP_TIERS = ("int16", "int8")
+
+
+def _mixed_job(root: str) -> dryrun.Job:
+    """The mixed cfg as a job for ``ranks.sp_general``: its text as
+    ``net.cfg`` under ``root``, BATCH seeded frames, the int16 and int8 Q
+    tables and params (files under ``root``, as dryrun.Job reads them)."""
+    spec, store = _net(MIXED_CFG, True, SP_TIERS)
+    with open(os.path.join(root, "net.cfg"), "w") as f:
+        f.write(MIXED_CFG)
+    for tier in SP_TIERS:
+        os.makedirs(os.path.join(root, tier))
+        for name, p in dryrun.TIER_PARAMS[tier](spec, store).items():
+            for leaf, v in p.items():
+                np.save(os.path.join(root, tier, f"{name}.{leaf}.npy"),
+                        v.numpy())
+    x = np.random.default_rng(96).random((BATCH, MIXED_SIZE, MIXED_SIZE, 3),
+                                         dtype=np.float32)
+    qtables = {"int16": store.qtables, "int8": store.qtables8}
+    return dryrun.Job(MIXED_SIZE, time.time(), {}, x, (), SP_TIERS, qtables,
+                      root)
+
+
 @pytest.fixture(scope="module")
 def jobs(tmp_path_factory):
-    """yolov2 64x64 for the cases, 32x32 for the dryrun; their weights in
-    files that every rank maps."""
+    """yolov2 64x64 for the cases, 32x32 for the dryrun, the mixed cfg for
+    the general convs under sp; their weights in files that every rank
+    maps."""
     return (dryrun.make_job(N, str(tmp_path_factory.mktemp("job64")), SIZE,
                             BATCH, ranks.TIERS),
-            dryrun.make_job(N, str(tmp_path_factory.mktemp("job32")), 32))
+            dryrun.make_job(N, str(tmp_path_factory.mktemp("job32")), 32),
+            _mixed_job(str(tmp_path_factory.mktemp("mixed"))))
 
 
 @pytest.fixture(scope="module")
@@ -112,6 +144,26 @@ def jax_heads(jobs):
         fwd = jax.jit(jy.build_forward(jspec, tier, qt, compute="int32",
                                        outputs=("head",)))
         out[tier] = np.asarray(fwd(params(jspec, jstore),
+                                   jnp.asarray(job.x))["head"])
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_mixed_heads(jobs):
+    """The JAX package's unsharded head of the mixed cfg in each sp tier on
+    the sp case's frames, run with the job's Q tables; its weights come from
+    its own host layer (seed 0, the same calibration image), which gave it
+    the same tables."""
+    job = jobs[2]
+    jspec, jstore = _net(MIXED_CFG, False, SP_TIERS)
+    out = {}
+    for tier in SP_TIERS:
+        qattr, jparams, _ = NET_TIERS[tier]
+        qt = jweights.QTables(**vars(job.qtables[tier]))
+        assert getattr(jstore, qattr) == qt, tier
+        fwd = jax.jit(jy.build_forward(jspec, tier, qt, compute="int32",
+                                       outputs=("head",)))
+        out[tier] = np.asarray(fwd(jparams(jspec, jstore),
                                    jnp.asarray(job.x))["head"])
     return out
 
@@ -184,6 +236,27 @@ def test_collective_bytes_follow_the_shapes(world, case):
         want = {"sp_halo": halo, "sp_gather": gather}
     for rec in world:
         assert rec["bytes"][case] == want
+
+
+@pytest.mark.parametrize("tier", SP_TIERS)
+def test_general_convs_under_sp_equal_one_process(world, jobs,
+                                                  jax_mixed_heads, tier):
+    """The mixed cfg over (dp=4, sp=2): the head equals the one-process
+    forward of the whole batch and the JAX package's unsharded head on the
+    same frames; its first layer, a 7x7/s2 conv, cannot run
+    on a slab, so each rank's only collective is the gather of its dp
+    group's quantized input (one frame, the other 48 rows)."""
+    job = jobs[2]
+    spec = _net(MIXED_CFG, True, SP_TIERS)[0]
+    one = YoloV2Q(spec, job.qtables[tier], job.params(tier), "cpu", tier,
+                  outputs=("head",))(torch.from_numpy(job.x))["head"]
+    got = world[0]["sp_general"][tier]
+    assert torch.equal(torch.from_numpy(got), one)
+    np.testing.assert_array_equal(got, jax_mixed_heads[tier])
+    width = 2 if tier == "int16" else 1
+    for rec in world:
+        assert rec["bytes"]["sp_general"][tier] == {
+            "sp_gather": MIXED_SIZE // 2 * MIXED_SIZE * 3 * width}
 
 
 def _hold_step(got: dict, loss: float, params: dict, velocity: dict) -> None:

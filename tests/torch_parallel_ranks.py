@@ -8,6 +8,7 @@ import os
 import torch
 import torch.distributed as dist
 
+from yolotpu_torch.graph import NetworkSpec
 from yolotpu_torch.models import zoo
 from yolotpu_torch.parallel import dryrun
 from yolotpu_torch.parallel.forward import ShardedYoloV2Q, gather_batch
@@ -20,11 +21,13 @@ TIERS = ("int16", "int8", "w8a16")
 CLIPS = (0.0, 1.0)
 
 
-def cases(device, job, job_dryrun) -> dict:
+def cases(device, job, job_dryrun, job_sp) -> dict:
     """Every multi-rank case of the CPU tests, in one world of 8: the
     sharded forwards of ``job`` (each tier under (dp, tp), int16 under
-    (dp, sp)), its train step with the clip off and on, and the dryrun's
-    five stages on ``job_dryrun``. Rank 0 returns the gathered outputs."""
+    (dp, sp)), its train step with the clip off and on, the dryrun's five
+    stages on ``job_dryrun``, and ``job_sp``'s cfg, whose general convs
+    gather H, under (dp, sp=2) (``sp_general``). Rank 0 returns the
+    gathered outputs."""
     rank, n = dist.get_rank(), dist.get_world_size()
     spec = zoo.build("yolov2", width=job.size, height=job.size)
     mesh, mesh_sp = make_mesh(n), make_mesh_sp(n)
@@ -57,12 +60,31 @@ def cases(device, job, job_dryrun) -> dict:
             "params": dryrun.gather_params_np(p, shardings, rank),
             "velocity": dryrun.gather_params_np(v, shardings, rank)}
         out["bytes"][f"train_clip{clip}"] = tally
+    out["sp_general"] = sp_general(device, job_sp)
+    out["bytes"]["sp_general"] = out["sp_general"].pop("bytes")
     out["dryrun"] = dryrun.run_stages(device, job_dryrun)
     out["loaded_after"] = dryrun.jax_modules()
     if rank:
         return {k: out[k] for k in ("loaded", "loaded_after", "bytes")}
     return {k: dryrun.to_numpy(v) if k.startswith(("tp_", "sp_")) else v
             for k, v in out.items()}
+
+
+def sp_general(device, job) -> dict:
+    """The cfg ``net.cfg`` under ``job.root`` in each of the job's tiers over
+    a (dp, sp=2) mesh of the world, each rank on its H slab of its frames:
+    each tier's gathered head, and the bytes each collective kind received
+    per tier."""
+    spec = NetworkSpec.from_cfg(os.path.join(job.root, "net.cfg"))
+    mesh = make_mesh_sp(sp=2)
+    x = spatial_batch_sharding(mesh)(torch.from_numpy(job.x)).contiguous()
+    out = {"bytes": {}}
+    for tier in job.tiers:
+        model = ShardedYoloV2Q(spec, job.qtables[tier], job.params(tier), mesh,
+                               device, tier, outputs=("head",))
+        out[tier] = gather_batch(model(x), mesh)["head"]
+        out["bytes"][tier] = dict(model.tally)
+    return out
 
 
 def fail_on_rank1(device, pid_dir: str) -> None:

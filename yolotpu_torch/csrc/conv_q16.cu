@@ -5,9 +5,9 @@
 // M = B*Ho*Wo output pixels, K = k*k*C taps x input channels (tap-major,
 // the HWIO weight order), N output channels; the im2col matrix is never
 // stored, each A chunk is gathered from the input as it is copied to shared
-// memory, padding and windows past the edge as zeros (igemm_tc.cuh,
-// ConvKTc<int16_t>), on the Q16 scheme and the per-layer epilogue
-// (EpiLayer) of conv3x3_q16.cu.
+// memory, padding and windows past the edge as zeros (convk_tc.cuh:
+// ConvRows), on the Q16 scheme and the per-layer epilogue (EpiLayer) of
+// conv3x3_q16.cu.
 //
 // Replaces no Pallas kernel: the JAX package runs such a conv through XLA,
 // lax.conv_general_dilated with int32 accumulation in convops.conv_int16
@@ -48,8 +48,8 @@ extern "C" int yq16_conv(const void* x, const void* wp, const void* bias, void* 
     if (k < 1 || stride < 1 || pad < 0 || H + 2 * pad < k || W + 2 * pad < k)
         return (int)cudaErrorInvalidValue;
     const int Ho = (H + 2 * pad - k) / stride + 1, Wo = (W + 2 * pad - k) / stride + 1;
-    const ConvKTc<int16_t>::Params p{(const int16_t*)x, H, W, C, k, stride, pad,
-                                     Ho, Wo, vec16(x, 2LL * C)};
+    const yq::convk::Params<int16_t> p{(const int16_t*)x, H, W, C, k, stride, pad,
+                                       Ho, Wo, vec16(x, 2LL * C)};
     const EpiLayer e{(const int32_t*)bias, (int16_t*)out, shift, leaky};
     const long long M = (long long)B * Ho * Wo;
     return (int)yq::convk::launch<Q16>(bm, bn, p, wp, e, ws, M, N, k * k * C, grid, quantum, slots,

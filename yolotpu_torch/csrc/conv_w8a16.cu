@@ -4,8 +4,8 @@
 // 1x1 or 3x3/s1). An implicit GEMM (M = B*Ho*Wo output pixels, K = k*k*C
 // taps x input channels, tap-major, the HWIO weight order; N output
 // channels) whose A operand is gathered from the input as it is copied to
-// shared memory, padding as zeros (igemm_tc.cuh, ConvKTc<int16_t>), on the
-// W8A16 scheme and the per-channel epilogue of conv3x3_w8a16.cu.
+// shared memory, padding as zeros (convk_tc.cuh: ConvRows), on the W8A16
+// scheme and the per-channel epilogue of conv3x3_w8a16.cu.
 //
 // Replaces no Pallas kernel: the JAX package runs such a conv through XLA,
 // the one s8 lax.conv_general_dilated over its batch-stacked high and
@@ -41,8 +41,8 @@ extern "C" int yq8_conv_w8a16(const void* x, const void* wp, const void* bias,
     if (k < 1 || stride < 1 || pad < 0 || H + 2 * pad < k || W + 2 * pad < k)
         return (int)cudaErrorInvalidValue;
     const int Ho = (H + 2 * pad - k) / stride + 1, Wo = (W + 2 * pad - k) / stride + 1;
-    const ConvKTc<int16_t>::Params p{(const int16_t*)x, H, W, C, k, stride, pad,
-                                     Ho, Wo, vec16(x, 2LL * C)};
+    const yq::convk::Params<int16_t> p{(const int16_t*)x, H, W, C, k, stride, pad,
+                                       Ho, Wo, vec16(x, 2LL * C)};
     const W8A16::Epi e{(const int32_t*)bias, (const int32_t*)shift, (int16_t*)out, leaky};
     const long long M = (long long)B * Ho * Wo;
     return (int)yq::convk::launch<W8A16>(bm, bn, p, wp, e, ws, M, N, k * k * C, grid, quantum, slots,

@@ -1,25 +1,31 @@
-// The general convs with int16 activations on the 8-bit tensor cores,
-// designed for Hopper: the body of conv_q16.cu (scheme Q16, EpiLayer) and
-// conv_w8a16.cu (scheme W8A16, EpiChannel<int16_t>).
+// The general convs on the 8-bit tensor cores, designed for Hopper: the body
+// of conv_q16.cu (scheme Q16, EpiLayer), conv_w8a16.cu (W8A16,
+// EpiChannel<int16_t>) and conv_s8.cu (S8, EpiChannel<int8_t>; S8Out16,
+// EpiChannel<int16_t>, for the int8 tier's head16 conv).
 //
 //   out[m, n] = requant(sum_k A[m, k] * w[k, n]  (mod 2^32), bias[n], shift)
 //
 // with A the implicit im2col of any k x k conv, any stride and zero padding
-// (ConvKTc's geometry in igemm_tc.cuh, loaded by ConvRows below). It reuses
-// igemm_tc.cuh's operand schemes, epilogues, combine<S> and its wgmma,
-// ldmatrix and cp.async helpers, whose code it does not change. What
-// differs from igemm_tc_kernel, and why (PERF.md, section 6):
+// (Params and ConvRows below). It reuses igemm_tc.cuh's operand schemes,
+// epilogues, combine<S> and its wgmma, ldmatrix and cp.async helpers, whose
+// code it does not change. What differs from igemm_tc_kernel, and why
+// (PERF.md, section 6):
 //
 // Warp-specialized blocks. A block is one producer warpgroup and one or two
 // consumer warpgroups (64 rows of the output tile each). The producers
 // gather each stage's A rows by cp.async and copy its B stage by TMA; both
 // complete on the stage's `full` mbarrier. The consumers wait on it, split
-// the int16 bytes in registers and run the stage's wgmma, then arrive on
-// its `empty` mbarrier, which lets the producers refill it; they also run
-// the epilogues. setmaxnreg gives the consumers the registers: in the first
-// design (one block per tile, each thread loading and multiplying) the
-// loads' address work and the wgmma's wait sat in one thread's path, and a
-// K step took about 2,000 clocks.
+// the int16 bytes in registers (int8 A is the fragment as ldmatrix gives
+// it) and run the stage's wgmma, then arrive on its `empty` mbarrier, which
+// lets the producers refill it; they also run the epilogues. setmaxnreg
+// gives the consumers the registers: in the first design (one block per
+// tile, each thread loading and multiplying) the loads' address work and
+// the wgmma's wait sat in one thread's path, and a K step took about 2,000
+// clocks.
+//
+// A K step is 128 bytes of A a row: 64 k of int16 (two 32-k chunks) or 128
+// k of int8 (four), so an S8 conv gathers the same bytes in half the K
+// steps of an int16 one, and its B stage is as large as Q16's.
 //
 // A persistent schedule (ops/tc.py: stream_k). The grid is at most the SMs
 // times the blocks that stay on one. The work is every (output tile, K
@@ -55,7 +61,9 @@
 // What bounds it on an H100: a K step is about 700 clocks for one block
 // alone (the consumer's wait, ldmatrix and byte split, and the wgmma's
 // latency, about as long as the producers' gather), so two or three blocks
-// on an SM keep the tensor cores a third to a half busy (PERF.md).
+// on an SM keep the int16 schemes' tensor cores a third to a half busy
+// (PERF.md); an S8 step, with half Q16's tensor-core work at 64 columns
+// and the same gather, takes about as long.
 #pragma once
 
 #include "igemm_tc.cuh"
@@ -169,17 +177,20 @@ struct Mma<32> {
     }
 };
 
-// The tile of scheme S (int16 A: Q16 or W8A16) with BN output columns and
-// NC consumer warpgroups of 64 rows each (BM = 64 NC), and the block's one
-// producer warpgroup. The blocks per SM and the registers a producer and a
-// consumer thread keep after setmaxnreg fill the SM's 65,536 registers.
+// The tile of scheme S (int16 A: Q16 or W8A16; int8 A: S8) with BN output
+// columns and NC consumer warpgroups of 64 rows each (BM = 64 NC), and the
+// block's one producer warpgroup. The blocks per SM and the registers a
+// producer and a consumer thread keep after setmaxnreg fill the SM's 65,536
+// registers; the ring's stages fill its shared memory.
 template <class S, int BN_, int NC>
 struct KTile {
-    static_assert(sizeof(typename S::A) == 2 && S::SETS >= 2, "int16 activations");
+    static constexpr int AB = sizeof(typename S::A);   // bytes of an A value
+    static_assert((AB == 2 && S::SETS >= 2) || (AB == 1 && S::SETS == 1),
+                  "int16 activations in two or three s32 sets, int8 in one");
     static_assert(BN_ == 32 || BN_ == 64, "a 32- or 64-wide tile");
     static_assert(NC == 1 || NC == 2, "one or two consumer warpgroups");
     static constexpr int BN = BN_, BM = 64 * NC, CONSUMERS = 128 * NC, THREADS = 128 + CONSUMERS;
-    static constexpr int BK = 64, KC = 2;              // k per K step, 32-k chunks per step
+    static constexpr int BK = tc::A_ROW / AB, KC = BK / 32;   // k per K step, 32-k chunks per step
     static constexpr int KCHUNK = KMAX / BK;           // K steps per s32 partial sum
     static constexpr int NACC = BN / 2;                // s32 per consumer thread and set
     static constexpr int PIECE = 32 * BN;              // bytes of one plane of a (32 k, BN n) chunk
@@ -187,12 +198,23 @@ struct KTile {
     // bulk copies per B stage: the whole stage where BN = 64, else one per
     // plane of each 32-k chunk (the planes are packed 64 columns wide)
     static constexpr int COPIES = BN == 64 ? 1 : KC * S::PLANES;
+    static_assert(COPIES <= 4, "the producer's four warps take one copy each");
     static constexpr int A_STAGE = BM * A_LD;
     // three blocks on an SM where a consumer's accumulators take at most 64
-    // registers (a 4-stage ring each), else two (6 stages), or one of two
-    // consumer warpgroups (6 stages)
+    // registers (S8, W8A16, Q16 at 32 columns), else two, or one of two
+    // consumer warpgroups; a ring of 6 stages, or of 4 at three blocks (S8:
+    // as many as the SM's 228 KB of shared memory holds, less the 1 KB the
+    // card keeps per block and the block's static variable: 4, or 5 at 32
+    // columns). Four S8 blocks (64 registers a thread) were slower on an
+    // H100. The int16 schemes keep 4: at the depth S8's rule gives them
+    // (W8A16 5, or 6 at 32 columns; Q16 at 32 columns 5) yolov2-s2's five
+    // strided convs at batch 8 took W8A16 0.2191-0.2211 ms against
+    // 0.2170-0.2177 at 4, Q16 0.2516-0.2517 against 0.2527-0.2529, on an
+    // H100 80GB at 700 W (PERF.md, Findings).
     static constexpr int MIN_BLOCKS = NC == 2 ? 1 : S::SETS * NACC <= 64 ? 3 : 2;
-    static constexpr int STAGES = MIN_BLOCKS == 3 ? 4 : 6;
+    static constexpr int STAGES =
+        MIN_BLOCKS != 3 ? 6
+        : AB == 1 ? (233472 / MIN_BLOCKS - 2048) / (A_STAGE + B_STAGE + 16) : 4;
     static constexpr int SMEM = STAGES * (A_STAGE + B_STAGE) + 2 * STAGES * 8;   // + mbarriers
     static constexpr int PRODUCER_REGS = MIN_BLOCKS == 3 ? 48 : NC == 1 ? 56 : 72;
     static constexpr int CONSUMER_REGS = MIN_BLOCKS == 3 ? 112 : NC == 1 ? 200 : 216;
@@ -201,6 +223,8 @@ struct KTile {
     static_assert(128 * PRODUCER_REGS + CONSUMERS * CONSUMER_REGS <=
                       THREADS * (65536 / (THREADS * MIN_BLOCKS) / 8 * 8),
                   "the warpgroups' registers fit the block's");
+    static_assert(STAGES >= 3 && MIN_BLOCKS * (SMEM + 2048) <= 233472,
+                  "the ring fits the SM's shared memory");
     static_assert((STAGES * (A_STAGE + B_STAGE)) % 16 == 0, "barriers 8-byte aligned");
 };
 
@@ -229,18 +253,36 @@ __device__ __forceinline__ void consumer_sync() {
     asm volatile("bar.sync 1, %0;\n" ::"n"(COUNT) : "memory");
 }
 
-// The A operand of a tile's ROWS = 16 R rows: the implicit im2col of
-// ConvKTc's geometry (row m the output pixel (b, oy, ox), column
-// kk = (dy k + dx) C + c), producer thread t copying bytes 16 c8 .. 16 c8 + 15
-// of rows r0 + 16 j (j < R) each K step, with c8 = t % 8 and r0 = t / 8.
-// Made for the producer's loop: the geometry is read from the kernel's
-// parameters, each row keeps its window's corner and its offset into x, and
-// the chunk's (dy, dx, c) advance by one K step without a division; where
-// C % 8 != 0 (or x is not 16-byte aligned) each value is gathered on its
-// own, with igemm_tc.cuh's gather16.
-template <int R>
+// The geometry of a general conv: x (B, H, W, C) row-major, a k x k window
+// with stride `stride` and `pad` pixels of zero padding on each side
+// (darknet's pad = k / 2, or an explicit padding=), the (B, Ho, Wo) output;
+// vec: each 16 bytes of a pixel's channels are one aligned copy (C a
+// multiple of 16 / sizeof(T) and x 16-byte aligned).
+template <class T>
+struct Params {
+    const T* x;
+    int H, W, C;
+    int k, stride, pad;
+    int Ho, Wo;
+    int vec;
+};
+
+// The A operand of a tile's ROWS = 16 R rows: the implicit im2col of the
+// conv, row m the output pixel (b, oy, ox) in that order, column
+// kk = (dy k + dx) C + c tap-major (the HWIO weight order, so K = k^2 C and
+// the weights pack as a (K, N) matrix); row m at column kk reads the input
+// pixel (oy s + dy - p, ox s + dx - p), channel c, a zero outside the image
+// and past K. Producer thread t copies bytes 16 c8 .. 16 c8 + 15 (V values
+// of T) of rows r0 + 16 j (j < R) each K step, with c8 = t % 8 and
+// r0 = t / 8. Made for the producer's loop: the geometry is read from the
+// kernel's parameters, each row keeps its window's corner and its offset
+// into x; with vec the chunk's V values share one tap and make one 16-byte
+// copy, and the chunk's (dy, dx, c) advance by one K step without a
+// division, otherwise each value is gathered on its own.
+template <class T, int R>
 struct ConvRows {
-    using P = tc::ConvKTc<int16_t>::Params;
+    static constexpr int V = 16 / (int)sizeof(T), BK = tc::A_ROW / (int)sizeof(T);
+    using P = Params<T>;
     long long base[R];   // row j's pixel under tap (0, 0), times C, into x
     int iy0[R], ix0[R];  // that pixel; iy0 far negative past M
     int k, c, dy, dx;    // this thread's chunk: its first k, and k's (dy, dx, c)
@@ -258,7 +300,7 @@ struct ConvRows {
             ix0[j] = ox * p.stride - p.pad;
             base[j] = (((long long)b * p.H + iy0[j]) * p.W + ix0[j]) * p.C;
         }
-        k = 8 * (t & 7) + kt * tc::A_ROW / 2;
+        k = V * (t & 7) + kt * BK;
         const int tap = k / p.C;
         c = k - tap * p.C;
         dy = tap / p.k;
@@ -268,12 +310,12 @@ struct ConvRows {
     // fill the chunk's 16 bytes of the R rows of stage sA for the current K
     // step, arrive on `full` once they land, and move to the next K step
     __device__ __forceinline__ void load(const P& p, uint8_t* sA, int t, uint64_t* full) {
+        constexpr int ROW = A_LD / (int)sizeof(T);   // values between rows
         const int K = p.k * p.k * p.C;
-        int16_t* dst = reinterpret_cast<int16_t*>(sA + (t >> 3) * A_LD) + 8 * (t & 7);
+        T* dst = reinterpret_cast<T*>(sA + (t >> 3) * A_LD) + V * (t & 7);
         if (p.vec) {
-            // C % 8 == 0: the chunk's 8 values share one tap
             const int off = (dy * p.W + dx) * p.C + c;
-            const int16_t* src[R];
+            const T* src[R];
             bool ok[R];
 #pragma unroll
             for (int j = 0; j < R; ++j) {
@@ -282,46 +324,64 @@ struct ConvRows {
                 src[j] = ok[j] ? p.x + base[j] + off : p.x;
             }
 #pragma unroll
-            for (int j = 0; j < R; ++j) tc::cp_async16(dst + 16 * j * (A_LD / 2), src[j], ok[j]);
+            for (int j = 0; j < R; ++j) tc::cp_async16(dst + 16 * j * ROW, src[j], ok[j]);
             cp_async_arrive(full);
+            c += BK;
+            while (c >= p.C) {
+                c -= p.C;
+                if (++dx == p.k) dx = 0, ++dy;
+            }
         } else {
+            // value by value, a 32-bit word at a time, walking (ty, tx, cc)
+            // from k: few registers, which the producer's setmaxnreg keeps
+            using U = std::make_unsigned_t<T>;
+            constexpr int PER = 4 / (int)sizeof(T);   // values a word
+            const int tap = k / p.C, c0 = k - tap * p.C;
+            const int ty0 = tap / p.k, tx0 = tap - ty0 * p.k;
 #pragma unroll
             for (int j = 0; j < R; ++j) {
-                *reinterpret_cast<int4*>(dst + 16 * j * (A_LD / 2)) =
-                    tc::gather16<int16_t>(k, K, [&](int kk) -> int16_t {
-                        const int tap = kk / p.C, cc = kk - tap * p.C;
-                        const int ty = tap / p.k, tx = tap - ty * p.k;
+                uint32_t* row = reinterpret_cast<uint32_t*>(dst + 16 * j * ROW);
+                int cc = c0, tx = tx0, ty = ty0;
+#pragma unroll 1
+                for (int w = 0; w < 4; ++w) {
+                    uint32_t word = 0;
+#pragma unroll
+                    for (int i = 0; i < PER; ++i) {
                         const int iy = iy0[j] + ty, ix = ix0[j] + tx;
-                        if ((unsigned)iy >= (unsigned)p.H || (unsigned)ix >= (unsigned)p.W)
-                            return 0;
-                        return p.x[base[j] + (ty * p.W + tx) * p.C + cc];
-                    });
+                        if (k + PER * w + i < K && (unsigned)iy < (unsigned)p.H &&
+                            (unsigned)ix < (unsigned)p.W)
+                            word |= (uint32_t)(U)p.x[base[j] + (ty * p.W + tx) * p.C + cc]
+                                    << (8 * (int)sizeof(T) * i);
+                        if (++cc == p.C) {
+                            cc = 0;
+                            if (++tx == p.k) tx = 0, ++ty;
+                        }
+                    }
+                    row[w] = word;
+                }
             }
             mbar_arrive(full);
         }
-        k += tc::A_ROW / 2;
-        c += tc::A_ROW / 2;
-        while (c >= p.C) {
-            c -= p.C;
-            if (++dx == p.k) dx = 0, ++dy;
-        }
+        k += BK;
     }
 };
 
 // Requantize the sums of out[m, n] and out[m, n + 1] (columns past N
-// dropped) and store them, as one 4-byte store where N is even.
+// dropped) and store them, as one store of both where N is even.
 template <class Epi>
 __device__ __forceinline__ void store2(const Epi& e, long long m, int n, int N, uint32_t a0,
                                        uint32_t a1, const typename Epi::Col& c0,
                                        const typename Epi::Col& c1) {
-    static_assert(sizeof(typename Epi::Out) == 2, "int16 output");
-    int16_t* dst = e.out + m * N + n;
-    const int16_t v0 = e.requant(a0, c0);
+    using Out = typename Epi::Out;
+    using U = std::make_unsigned_t<Out>;
+    // the pair as one unsigned word of twice the output's width
+    using Pair = std::conditional_t<sizeof(Out) == 2, uint32_t, uint16_t>;
+    Out* dst = e.out + m * N + n;
+    const Out v0 = e.requant(a0, c0);
     if (n + 1 < N) {
-        const int16_t v1 = e.requant(a1, c1);
+        const Out v1 = e.requant(a1, c1);
         if ((N & 1) == 0) {
-            *reinterpret_cast<uint32_t*>(dst) =
-                (uint32_t)(uint16_t)v0 | ((uint32_t)(uint16_t)v1 << 16);
+            *reinterpret_cast<Pair*>(dst) = (Pair)((Pair)(U)v0 | ((Pair)(U)v1 << (8 * sizeof(Out))));
             return;
         }
         dst[1] = v1;
@@ -339,7 +399,7 @@ __device__ __forceinline__ void store2(const Epi& e, long long m, int n, int N, 
 // producer refill it; they also run the epilogues.
 template <class S, int BN, int NC>
 __global__ void __launch_bounds__(KTile<S, BN, NC>::THREADS, KTile<S, BN, NC>::MIN_BLOCKS)
-convk_tc_kernel(const tc::ConvKTc<int16_t>::Params p, const uint8_t* __restrict__ wp,
+convk_tc_kernel(const Params<typename S::A> p, const uint8_t* __restrict__ wp,
                 const typename S::Epi e, uint32_t* __restrict__ ws, long long M, int N, int K,
                 int quantum, int slots) {
     using T = KTile<S, BN, NC>;
@@ -389,7 +449,7 @@ convk_tc_kernel(const tc::ConvKTc<int16_t>::Params p, const uint8_t* __restrict_
                    (nt * BN % 64) * 32;
         };
         const uint8_t* src = b_src();
-        ConvRows<4 * NC> ld;
+        ConvRows<typename S::A, 4 * NC> ld;
         ld.seek(p, mt * BM, M, wt, kt);
         for (int j = 0; j < nunits; ++j) {
             const int slot = j % STAGES;
@@ -450,21 +510,27 @@ convk_tc_kernel(const tc::ConvKTc<int16_t>::Params p, const uint8_t* __restrict_
             auto bplane = [&](int kc, int plane) {
                 return tc::b_desc(b + (kc * S::PLANES + plane) * T::PIECE);
             };
-            // the high bytes of rows g and g+8 in fa[0], the low bytes in fa[1]
-            uint32_t fa[2][KC][4];
+            // rows g and g+8 of each 32-k chunk: for int16 A the high bytes
+            // in fa[0] and the low bytes in fa[1]
+            uint32_t fa[T::AB][KC][4];
 #pragma unroll
             for (int kc = 0; kc < KC; ++kc) {
-                uint32_t r[4], q[4];
-                tc::ldmatrix_x4(r, a + kc * 64);
-                tc::ldmatrix_x4(q, a + kc * 64 + 32);
-                fa[0][kc][0] = __byte_perm(r[0], r[2], 0x7531);
-                fa[0][kc][1] = __byte_perm(r[1], r[3], 0x7531);
-                fa[0][kc][2] = __byte_perm(q[0], q[2], 0x7531);
-                fa[0][kc][3] = __byte_perm(q[1], q[3], 0x7531);
-                fa[1][kc][0] = __byte_perm(r[0], r[2], 0x6420);
-                fa[1][kc][1] = __byte_perm(r[1], r[3], 0x6420);
-                fa[1][kc][2] = __byte_perm(q[0], q[2], 0x6420);
-                fa[1][kc][3] = __byte_perm(q[1], q[3], 0x6420);
+                if constexpr (T::AB == 2) {
+                    uint32_t r[4], q[4];
+                    tc::ldmatrix_x4(r, a + kc * 64);
+                    tc::ldmatrix_x4(q, a + kc * 64 + 32);
+                    fa[0][kc][0] = __byte_perm(r[0], r[2], 0x7531);
+                    fa[0][kc][1] = __byte_perm(r[1], r[3], 0x7531);
+                    fa[0][kc][2] = __byte_perm(q[0], q[2], 0x7531);
+                    fa[0][kc][3] = __byte_perm(q[1], q[3], 0x7531);
+                    fa[1][kc][0] = __byte_perm(r[0], r[2], 0x6420);
+                    fa[1][kc][1] = __byte_perm(r[1], r[3], 0x6420);
+                    fa[1][kc][2] = __byte_perm(q[0], q[2], 0x6420);
+                    fa[1][kc][3] = __byte_perm(q[1], q[3], 0x6420);
+                } else {
+                    // a 32-k chunk of int8 (32 bytes) is the fragment as it is
+                    tc::ldmatrix_x4(fa[0][kc], a + kc * 32);
+                }
             }
             tc::wgmma_fence();
 #pragma unroll
@@ -475,16 +541,18 @@ convk_tc_kernel(const tc::ConvKTc<int16_t>::Params p, const uint8_t* __restrict_
                     MMA::su(acc[1], fa[0][kc], bl);
                     MMA::us(acc[1], fa[1][kc], bh);
                     MMA::uu(acc[2], fa[1][kc], bl);
-                } else {   // W8A16: xh*w, xl*w
+                } else if constexpr (S::SETS == 2) {   // W8A16: xh*w, xl*w
                     const uint64_t bw = bplane(kc, 0);
                     MMA::ss(acc[0], fa[0][kc], bw);
                     MMA::us(acc[1], fa[1][kc], bw);
+                } else {   // S8
+                    MMA::ss(acc[0], fa[0][kc], bplane(kc, 0));
                 }
             }
             tc::wgmma_commit();
             tc::wgmma_wait_all();
 #pragma unroll
-            for (int p2 = 0; p2 < 2; ++p2)
+            for (int p2 = 0; p2 < T::AB; ++p2)
 #pragma unroll
                 for (int kc = 0; kc < KC; ++kc)
 #pragma unroll
@@ -599,7 +667,7 @@ convk_tc_kernel(const tc::ConvKTc<int16_t>::Params p, const uint8_t* __restrict_
 // slots counters, which are zeroed here. With slots == 0 ws may be null.
 // Returns cudaGetLastError() after the launch.
 template <class S, int BN, int NC>
-inline cudaError_t launch_tile(const tc::ConvKTc<int16_t>::Params& p, const void* wp,
+inline cudaError_t launch_tile(const Params<typename S::A>& p, const void* wp,
                                const typename S::Epi& e, void* ws, long long M, int N, int K,
                                int grid, int quantum, int slots, void* stream) {
     using T = KTile<S, BN, NC>;
@@ -624,7 +692,7 @@ inline cudaError_t launch_tile(const tc::ConvKTc<int16_t>::Params& p, const void
 }
 
 template <class S>
-inline cudaError_t launch(int bm, int bn, const tc::ConvKTc<int16_t>::Params& p,
+inline cudaError_t launch(int bm, int bn, const Params<typename S::A>& p,
                           const void* wp, const typename S::Epi& e, void* ws, long long M,
                           int N, int K, int grid, int quantum, int slots, void* stream) {
 #define YQ_CONVK_TILE(BM_, BN_)                                                              \

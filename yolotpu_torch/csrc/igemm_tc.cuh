@@ -1,8 +1,8 @@
 // Exact integer GEMM on the 8-bit tensor cores, with the fused requant: the
 // body of mm_q16.cu, conv3x3_q16.cu, conv3x3_pool_q16.cu, mm_w8a16.cu,
-// conv3x3_w8a16.cu, mm_s8.cu, conv3x3_s8.cu and of the general conv
-// conv_s8.cu (the int16-activation general convs, conv_q16.cu and
-// conv_w8a16.cu, run on convk_tc.cuh, which reuses the pieces below).
+// conv3x3_w8a16.cu, mm_s8.cu and conv3x3_s8.cu (the general convs,
+// conv_q16.cu, conv_w8a16.cu and conv_s8.cu, run on convk_tc.cuh, which
+// reuses the pieces below).
 //
 //   out[m, n] = requant(sum_k A[m, k] * w[k, n]  (mod 2^32), bias[n], shift)
 //
@@ -42,10 +42,9 @@
 // row (BK = 64 int16 or 128 int8 values of k) through a STAGES-deep ring of
 // shared-memory tiles filled by cp.async (16 bytes per copy; a copy with
 // source size 0 writes zeros, for SAME padding and ragged edges). The A tile
-// arrives from a Loader: the activation rows (1x1 convs), the implicit
-// im2col of a SAME 3x3 window, or that of any k x k window with any stride
-// and padding; rows or channels that do not come in whole 16-byte chunks are
-// gathered by the threads into the same tiles. The block
+// arrives from a Loader: the activation rows (1x1 convs) or the implicit
+// im2col of a SAME 3x3 window; rows or channels that do not come in whole
+// 16-byte chunks are gathered by the threads into the same tiles. The block
 // is one warpgroup: wgmma (m64n64k32) takes A from registers and B from
 // shared memory through a descriptor.
 // ldmatrix (b16) brings each warp's 16 rows of a 32-k chunk to registers.
@@ -368,8 +367,7 @@ __device__ __forceinline__ int4 gather16(int k, int K, F value) {
 // ConvTc<T, true>: the same with the pixels visited window-major for a conv
 // a 2x2/s2 pool follows (H and W even): row m is member q = m & 3 of pool
 // window m >> 2, the pixel (2 ho + q / 2, 2 wo + q % 2) of window (b, ho, wo),
-// so rows 4i .. 4i+3 are the four members of window i; ConvKTc<T>: the
-// implicit im2col of any k x k conv, stride s, zero padding p. vec: 16-byte
+// so rows 4i .. 4i+3 are the four members of window i. vec: 16-byte
 // copies (the row length in bytes is a multiple of 16 and the base 16-byte
 // aligned); otherwise each value is loaded on its own (ConvTc gathers a C
 // small enough that one K step holds all of 9C, the entry conv, by kernel
@@ -533,80 +531,6 @@ struct ConvTc {
             *reinterpret_cast<int4*>(row(sA, j) + V * c8) =
                 m[j] >= 0 ? gather16<T>(k, K, [&](int kk) { return at(j, kk); })
                           : make_int4(0, 0, 0, 0);
-        }
-    }
-};
-
-// The implicit im2col of a k x k conv with stride s and p pixels of zero
-// padding on each side (darknet's p = k / 2, or an explicit padding=): row m
-// is the output pixel (b, oy, ox) of the (B, Ho, Wo) output, m in that
-// order, and column kk = (dy k + dx) C + c runs tap-major, the HWIO weight
-// order, so K = k^2 C and the weights pack as a (K, N) matrix. Row m at
-// column kk reads the input pixel (oy s + dy - p, ox s + dx - p), channel c;
-// a pixel outside the image, and any kk past K, is a zero (a cp.async of
-// source size 0). With vec (C % V == 0 and x 16-byte aligned) a chunk's V
-// values share one tap and arrive in one 16-byte copy; otherwise each value
-// is gathered on its own into the same tiles. Offsets into x are 64-bit.
-template <class T_>
-struct ConvKTc {
-    using T = T_;
-    static constexpr int V = 16 / (int)sizeof(T);  // values per chunk
-    struct Params {
-        const T* x;  // (B, H, W, C) row-major
-        int H, W, C;
-        int k, stride, pad;
-        int Ho, Wo;
-        int vec;
-    };
-    const T* x;
-    int H, W, C, ks, K, vec, r0, c8;
-    long long img[4];    // each row's image, as the pixel index b*H*W; -1 past M
-    int iy0[4], ix0[4];  // the input pixel under tap (0, 0) of its window
-
-    __device__ ConvKTc(const Params& p, long long m0, long long M, int tid)
-        : x(p.x), H(p.H), W(p.W), C(p.C), ks(p.k), K(p.k * p.k * p.C), vec(p.vec),
-          r0(tid >> 3), c8(tid & 7) {
-        const long long howo = (long long)p.Ho * p.Wo;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const long long mm = m0 + r0 + ROW_STEP * j;
-            const long long b = mm < M ? mm / howo : 0;
-            const int r = mm < M ? (int)(mm - b * howo) : 0;
-            const int oy = r / p.Wo, ox = r - oy * p.Wo;
-            img[j] = mm < M ? b * p.H * p.W : -1;
-            iy0[j] = oy * p.stride - p.pad;
-            ix0[j] = ox * p.stride - p.pad;
-        }
-    }
-
-    // the value of row j at column kk (< K): 0 in the padding
-    __device__ __forceinline__ T at(int j, int kk) const {
-        const int tap = kk / C, c = kk - tap * C;
-        const int dy = tap / ks, dx = tap - dy * ks;
-        const int iy = iy0[j] + dy, ix = ix0[j] + dx;
-        if (iy < 0 || iy >= H || ix < 0 || ix >= W) return 0;
-        return x[(img[j] + (long long)iy * W + ix) * C + c];
-    }
-
-    __device__ __forceinline__ void load(uint8_t* sA, int k0) const {
-        const int k = k0 + V * c8;
-        // with vec, C % V == 0: the chunk's V values share one tap
-        const int tap = k < K ? k / C : 0, c = k - tap * C;
-        const int dy = tap / ks, dx = tap - dy * ks;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            T* dst = reinterpret_cast<T*>(sA + (r0 + ROW_STEP * j) * A_LD) + V * c8;
-            if (vec) {
-                const int iy = iy0[j] + dy, ix = ix0[j] + dx;
-                const bool ok =
-                    img[j] >= 0 && k < K && iy >= 0 && iy < H && ix >= 0 && ix < W;
-                const T* src = ok ? x + (img[j] + (long long)iy * W + ix) * C + c : x;
-                cp_async16(dst, src, ok);
-            } else {
-                *reinterpret_cast<int4*>(dst) =
-                    img[j] >= 0 ? gather16<T>(k, K, [&](int kk) { return at(j, kk); })
-                                : make_int4(0, 0, 0, 0);
-            }
         }
     }
 };

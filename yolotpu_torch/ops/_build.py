@@ -46,7 +46,8 @@ SIGNATURES = {
     "yq_nms_greedy": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     "yq16_conv": (_P, _P, _P, _P, _P, *(_I,) * 15, _P),
     "yq16_conv_config": (_I, _I, _I),
-    "yq8_conv_s8": (_P, _P, _P, _P, _P, _P, *(_I,) * 11, _P),
+    "yq8_conv_s8": (_P, _P, _P, _P, _P, _P, *(_I,) * 15, _P),
+    "yq8_conv_s8_config": (_I, _I, _I),
     "yq8_conv_w8a16": (_P, _P, _P, _P, _P, _P, *(_I,) * 14, _P),
     "yq8_conv_w8a16_config": (_I, _I, _I),
 }

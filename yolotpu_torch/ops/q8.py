@@ -30,8 +30,9 @@ broadcast once, when the model is built.
 
 All of them run on the 8-bit tensor cores (``csrc/igemm_tc.cuh`` and
 ``ops.tc``, the body they share with ``q16``'s tensor-core kernels;
-conv_w8a16 on the general convs' own kernel, ``csrc/convk_tc.cuh``) in two
-operand schemes: ``tc.S8`` (mm_s8, conv3x3_s8, conv3x3_int8, conv_s8: int8
+conv_s8 and conv_w8a16 on the general convs' own kernel,
+``csrc/convk_tc.cuh``, launched by ``tc.launch_convk``) in two operand
+schemes: ``tc.S8`` (mm_s8, conv3x3_s8, conv3x3_int8, conv_s8: int8
 x int8, one s32 sum) and ``tc.W8A16`` (mm_w8a16, conv3x3_w8a16,
 conv_w8a16: each int16
 activation cut into an s8 high and a u8 low byte against the int8 weight,
@@ -184,15 +185,14 @@ def _launch(name: str, fn: str, x: torch.Tensor, w: torch.Tensor,
             bias: torch.Tensor, shift: torch.Tensor, leaky: bool,
             out_dtype: torch.dtype, planes, scheme: tc.Scheme,
             *flags: int,
-            conv: tuple[int, int] | None = None,
-            launch=tc.launch) -> torch.Tensor:
+            conv: tuple[int, int] | None = None) -> torch.Tensor:
     """Launch ``scheme``'s kernel ``fn`` on checked operands: x (M, K) against
     w (K, N), or x NHWC against w (3, 3, C, N), or with ``conv`` = (stride,
     pad) x NHWC against w (k, k, C, N) in a general conv whose geometry
     ``q16.check_conv`` has passed; the entry point's ints are x's shape, N,
-    for a general conv k, stride and pad, then leaky and ``flags``;
-    ``launch`` is ``tc.launch``, or ``tc.launch_convk`` for the general
-    conv kernel of int16 activations."""
+    for a general conv k, stride and pad, then leaky and ``flags``. A
+    general conv launches through ``tc.launch_convk``, the others through
+    ``tc.launch``."""
     n = w.shape[-1]
     k = w.numel() // n
     shape, geometry = (*x.shape[:-1], n), ()
@@ -204,6 +204,7 @@ def _launch(name: str, fn: str, x: torch.Tensor, w: torch.Tensor,
     _build.check_rows(name, m)
     tc.check_planes(name, planes, k, n, x.device, scheme)
     out = torch.empty(shape, dtype=out_dtype, device=x.device)
+    launch = tc.launch if conv is None else tc.launch_convk
     return launch(name, fn, out, m, n, k,
                   (x.data_ptr(), planes.data_ptr(), bias.data_ptr(),
                    shift.data_ptr()),
@@ -320,5 +321,4 @@ def conv_w8a16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     if x.device.type == "cpu":
         return conv_w8a16_plain(x, w, bias, shift, leaky, stride, pad)
     return _launch("conv_w8a16", "yq8_conv_w8a16", x, w, bias, shift, leaky,
-                   torch.int16, planes, tc.W8A16, conv=(stride, pad),
-                   launch=tc.launch_convk)
+                   torch.int16, planes, tc.W8A16, conv=(stride, pad))

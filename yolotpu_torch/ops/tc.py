@@ -21,10 +21,10 @@ does, so the CPU tests hold the layout and each scheme's exactness. Where
 the output tiles cannot fill the card, ``split`` cuts K over blocks, and
 ``launch`` allocates the workspace the kernel zeroes.
 
-The general convs with int16 activations (``q16.conv_q16``, scheme Q16, and
-``q8.conv_w8a16``, W8A16) run on a kernel of their own, ``csrc/convk_tc.cuh``,
-on the same schemes and planes: a persistent grid walks every (output tile,
-K step) unit of the conv in shares that ``stream_k`` plans, on a tile that
+The general convs (``q16.conv_q16``, scheme Q16; ``q8.conv_w8a16``, W8A16;
+``q8.conv_s8``, S8) run on a kernel of their own, ``csrc/convk_tc.cuh``, on
+the same schemes and planes: a persistent grid walks every (output tile, K
+step) unit of the conv in shares that ``stream_k`` plans, on a tile that
 ``convk_tile`` chooses from the shape, and ``launch_convk`` allocates the
 workspace of the tiles that several blocks share.
 """
@@ -210,13 +210,13 @@ def split(m: int, n: int, k: int, sms: int, scheme: Scheme) -> int:
 # per scheme and tile the blocks per SM that stream_k fills, the kernel's
 # MIN_BLOCKS (chip_smoke.py checks that the card keeps them): a block is one
 # producer warpgroup and BM / 64 consumer warpgroups; three blocks of one
-# consumer where its accumulators take at most 64 registers (W8A16, and
-# Q16 at 32 columns), else two, or one of two consumers, fill an SM's
+# consumer where its accumulators take at most 64 registers (S8, W8A16,
+# and Q16 at 32 columns), else two, or one of two consumers, fill an SM's
 # registers.
 CONVK_TILES = ((64, 64), (64, 32), (128, 64), (128, 32))
 CONVK_BLOCKS = {(s, bm, bn): 1 if bm == 128 else
-                3 if (s == "w8a16" or bn == 32) else 2
-                for s in ("q16", "w8a16") for bm, bn in CONVK_TILES}
+                3 if (s != "q16" or bn == 32) else 2
+                for s in ("q16", "w8a16", "s8") for bm, bn in CONVK_TILES}
 # K steps of 64 x 64 tiles per block of the card from which a Q16 conv takes
 # 128-row tiles (convk_tile).
 CONVK_WIDE = 16
