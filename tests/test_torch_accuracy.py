@@ -238,7 +238,7 @@ def _evidence(tmp_path, **over) -> str:
 ])
 def test_report_reads_only_matching_evidence(tmp_path, monkeypatch, over,
                                              found):
-    monkeypatch.setattr(report, "PLANS_DIR", _evidence(tmp_path, **over))
+    monkeypatch.setenv("YOLO2_PLAN_DIR", _evidence(tmp_path, **over))
     doc = report.accuracy_evidence("int16", 64)
     assert (doc is not None) == found
     assert report.accuracy_evidence("int8", 64) is None
@@ -252,7 +252,7 @@ def test_report_run_bundles_the_accuracy_block(tmp_path, monkeypatch):
             "--height", "64", "--batch", "1", "--steps", "1",
             "--synthetic-weights", "--device", "cpu", "--no-batch1-p50"]
     for over, found in (({}, True), ({"resolution": 128}, False)):
-        monkeypatch.setattr(report, "PLANS_DIR", _evidence(tmp_path, **over))
+        monkeypatch.setenv("YOLO2_PLAN_DIR", _evidence(tmp_path, **over))
         for d in (tmp_path / "reports").glob("*") if (
                 tmp_path / "reports").exists() else ():
             for f in d.iterdir():

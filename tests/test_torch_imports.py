@@ -11,7 +11,8 @@ kernel path never falls back.
   the native library, and the runtime CLIs; a darknet blob through
   weight_gen and back, the runtime CLI's --profile, a report bundle and the
   pipeline; a step of the training CLI with its checkpoint and export, and
-  the accuracy protocol's hash and metrics) at 64x64 on the CPU.
+  the accuracy protocol's hash and metrics; the plan search's grid, and its
+  refusal without a card) at 64x64 on the CPU.
 - With no card, Engine(device="cuda") raises, and a kernel launch raises
   without counting a launch.
 - The nvcc command targets sm_90a and compiles only the port's csrc/*.cu
@@ -81,6 +82,11 @@ summary = StreamRunner(eng, StreamConfig(mode="video")).run(Src())
 assert summary["count"] == 2 and native.available()
 import torch
 assert gpu_check.main(["enumerate"]) == (0 if torch.cuda.is_available() else 1)
+# the plan search's grid, and its refusal without a card
+from yolotpu_torch.tools import plan_search
+assert len(plan_search.grid(zoo.build("yolov2"))) == 54
+if not torch.cuda.is_available():
+    assert plan_search.main([]) == 2
 # the artifact-to-report flow: a darknet blob through weight_gen, reloaded;
 # main --profile; a report bundle; the pipeline
 from yolotpu_torch import darknet
@@ -175,7 +181,8 @@ def test_port_sources_never_import_jax():
             "yolotpu_torch.eval", "yolotpu_torch.accuracy",
             "yolotpu_torch.cli.train", "yolotpu_torch.tools.accuracy_protocol",
             "yolotpu_torch.tools.int8_accuracy_sweep",
-            "yolotpu_torch.tools.roofline", "yolotpu_torch.parallel.mesh",
+            "yolotpu_torch.tools.roofline", "yolotpu_torch.tools.plan_search",
+            "yolotpu_torch.parallel.mesh",
             "yolotpu_torch.parallel.dryrun", "yolotpu_torch.parallel.comm",
             "yolotpu_torch.parallel.forward",
             "yolotpu_torch.parallel.launch"} <= names

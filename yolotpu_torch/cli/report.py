@@ -14,7 +14,8 @@ summary.md`` with a ``compare`` diff view (``scripts/yolo2_report.py``,
   its graph's capture time, the device's peak allocated memory, and with
   ``--profile-layers`` the per-layer rows of ``profile_prefix``;
 - environment: the card's name and power limit, torch and CUDA versions,
-  precision/compute mode.
+  precision/compute mode, and the engine's plan (``plan``: the plan file it
+  read, ``Engine.plan_source``, or null, and each conv's kind).
 
 Subcommands: init, run, list, compare, parse-log. ``run`` serves on
 ``--device`` (cuda by default; with no card it raises; cpu runs the
@@ -45,16 +46,16 @@ import time
 from datetime import datetime
 
 REPORT_DIR = "reports"
-PLANS_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "plans")
 
 
 def accuracy_evidence(precision: str, resolution: int) -> dict | None:
     """The port's accuracy evidence for a tier at a resolution
-    (``accuracy_<precision>.json`` in ``PLANS_DIR``), or None where there is
-    none or it is stale: another protocol hash or another resolution."""
+    (``accuracy_<precision>.json`` in ``engine_plan.plan_dir()``), or None
+    where there is none or it is stale: another protocol hash or another
+    resolution."""
     from ..accuracy import protocol_hash
-    path = os.path.join(PLANS_DIR, f"accuracy_{precision}.json")
+    from ..models.engine_plan import plan_dir
+    path = os.path.join(plan_dir(), f"accuracy_{precision}.json")
     if not os.path.exists(path):
         return None
     with open(path) as f:
@@ -157,6 +158,9 @@ def _metrics_run(args) -> dict:
         "torch_version": torch.__version__,
         "cuda_version": torch.version.cuda,
         "power_limit_w": power_limit_w() if cuda else None,
+        "plan": {"source": eng.plan_source,
+                 "kinds": {str(i): k for i, k in
+                           (eng.model.kinds if eng.model else {}).items()}},
         "build_seconds": round(build_s, 2),
         "capture_seconds": round(capture_s, 2),
         "memory": ({"max_memory_allocated_bytes":
@@ -164,6 +168,17 @@ def _metrics_run(args) -> dict:
                    if cuda else {}),
         "latency": summary,
     }
+
+
+def _plan_line(plan: dict | None) -> str:
+    """The engine's plan in one line: its file (or the default rule) and the
+    convs whose kind is not the rule's "mm" or "conv3"."""
+    if not plan:
+        return "not recorded"
+    kinds = plan.get("kinds", {})
+    other = [f"{i}:{k}" for i, k in kinds.items() if k not in ("mm", "conv3")]
+    return (f"{plan.get('source') or 'the default rule'}"
+            + (f" ({', '.join(other)})" if other else ""))
 
 
 def _render_summary(meta: dict, metrics: dict) -> str:
@@ -179,6 +194,7 @@ def _render_summary(meta: dict, metrics: dict) -> str:
         f" torch {metrics['torch_version']}, CUDA {metrics['cuda_version']}",
         f"- build: {metrics['build_seconds']} s, graph capture:"
         f" {metrics['capture_seconds']} s",
+        f"- plan: {_plan_line(metrics.get('plan'))}",
         "",
         "## Latency / throughput",
         f"- steps: {lat.get('count', 0)}",

@@ -51,15 +51,40 @@ pool, as ``yolotpu`` does (its ``xla_fallback``). A conv whose activation is
 not linear or leaky, or with groups, raises NotImplementedError in every
 integer tier, as in ``yolotpu``, whose integer convs refuse any other
 activation (``convops.conv_int16``, ``conv_w8a16``, ``conv_int8``) and
-have no grouped form. No plan file is read until one has been measured on
-the card.
+have no grouped form.
+
+The plan of a card (``resolve_knobs``), in the order of precedence of
+``yolotpu``'s ``resolve_knobs``: the env lever, then the card's plan file,
+then the rule above. ``YOLO2_Q16_PLAN`` wins per layer. The plan file is
+``<plan_dir()>/<device_kind_slug(name)>.json`` for a CUDA device of that
+name, written by ``python -m yolotpu_torch.tools.plan_search --emit-plan``;
+``plan_dir()`` is ``yolotpu_torch/plans/`` unless ``YOLO2_PLAN_DIR`` names
+another, never the JAX package's ``plans/``, whose files were measured on a
+TPU. A file's ``plan`` ({conv idx: kind}) applies only to the network it
+was measured on: the one whose ``plan_key`` the file stores (a kind that
+folds a pool at one network's conv may be illegal at the same index of
+another). A CUDA device with no file runs the rule and logs it once per
+device name; on the CPU no file is read. ``yolotpu``'s other knobs do not
+carry over. Its ``entry`` ("sd" runs a C<=4 entry conv as "entry_sd") is
+a per-layer kind here (``YOLO2_Q16_PLAN="0:entry_sd"``), since the search
+measures kinds per layer. ``max_hw`` and ``xla_min_c``
+(``YOLO2_Q16_PALLAS_MAX_HW``, ``YOLO2_Q16_XLA_MIN_C``,
+``YOLO2_Q16_XLA_DEC8``) only send a regular 3x3 to "xla" or "xla8", which
+run the same ``conv3x3_q16`` here as "conv3" does (the table above): they
+cannot change a launch.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import os
+import re
+
+import torch
 
 from ..graph import ConvSpec, MaxPoolSpec, NetworkSpec, RouteSpec
+from ..runtime import logging as ylog
 
 PRODUCTION_KINDS = ("mm", "conv3", "entry_sd", "xla")
 EVIDENCE_KINDS = ("entryf", "entry8", "entry_sdmm", "entry_s2d", "conv3p2",
@@ -89,15 +114,102 @@ def plan_overrides() -> dict[int, str]:
     return _parse_plan_items(os.environ.get("YOLO2_Q16_PLAN", ""))
 
 
-def tier_overrides(spec: NetworkSpec, precision: str) -> dict[int, str] | None:
-    """The overrides a tier's model over ``spec`` is built with:
-    ``plan_overrides()`` for int16 (None for the other tiers), less a kind
-    that folds the pool after ``spec``'s last layer, which ``spec`` does not
-    hold (a prefix of the network ending at that conv)."""
+# ---------------------------------------------------------------------------
+# The card's plan file: <plan_dir()>/<device_kind_slug(name)>.json
+# ---------------------------------------------------------------------------
+
+_warned_kinds: set[str] = set()
+
+
+def device_kind_slug(kind: str) -> str:
+    return re.sub(r"[^a-z0-9]+", "_", kind.lower()).strip("_")
+
+
+def plan_dir() -> str:
+    """The port's plans/ directory: YOLO2_PLAN_DIR overrides; the default is
+    ``yolotpu_torch/plans/``."""
+    env = os.environ.get("YOLO2_PLAN_DIR")
+    if env:
+        return env
+    return os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "plans")
+
+
+def current_device_kind(device: torch.device | str) -> str:
+    """The name a plan file is keyed by: the card's for a CUDA device,
+    "cpu" for any other."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    return torch.cuda.get_device_name(device)
+
+
+def plan_key(spec: NetworkSpec) -> str:
+    """A digest of what a per-layer plan depends on: each conv's and pool's
+    index, shape, stride, padding and activation, and every route's
+    sources."""
+    rows = []
+    for l in spec.layers:
+        if isinstance(l, ConvSpec):
+            rows.append(("conv", l.idx, l.size, l.stride, l.pad, l.c, l.n,
+                         l.h, l.w, l.activation, l.groups))
+        elif isinstance(l, MaxPoolSpec):
+            rows.append(("maxpool", l.idx, l.size, l.stride, l.padding, l.c,
+                         l.h, l.w))
+        elif isinstance(l, RouteSpec):
+            rows.append(("route", l.idx, *l.layers))
+    return hashlib.sha256(json.dumps(rows).encode()).hexdigest()[:16]
+
+
+def load_chip_plan(device_kind: str, spec: NetworkSpec) -> dict | None:
+    """The knobs of the plan file of ``device_kind`` for ``spec`` ({"plan",
+    "source": the file}), or None where there is no file; the file's
+    per-layer plan only where its ``plan_key`` is ``spec``'s."""
+    path = os.path.join(plan_dir(), f"{device_kind_slug(device_kind)}.json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        doc = json.load(f)
+    plan = {int(i): k for i, k in doc.get("plan", {}).items()}
+    for k in plan.values():
+        if k not in ALL_KINDS:
+            raise ValueError(f"{path}: unknown engine kind {k!r}")
+    return {"plan": plan if doc.get("plan_key") == plan_key(spec) else {},
+            "source": path}
+
+
+def resolve_knobs(spec: NetworkSpec, device: torch.device | str) -> dict:
+    """The plan of ``spec`` on ``device``: the env lever > the card's plan
+    file > the rule (logged once per device name on a card with no
+    file)."""
+    kind = current_device_kind(device)
+    knobs = None if kind == "cpu" else load_chip_plan(kind, spec)
+    if knobs is None:
+        knobs = {"plan": {}, "source": None}
+        if kind != "cpu" and kind not in _warned_kinds:
+            _warned_kinds.add(kind)
+            ylog.info(
+                f"engine_plan: no measured plan for device kind {kind!r} in "
+                f"{plan_dir()}; using the default rule (run python -m "
+                "yolotpu_torch.tools.plan_search --emit-plan to derive one)")
+    knobs["plan"] = {**knobs["plan"], **plan_overrides()}   # env wins
+    return knobs
+
+
+def tier_overrides(spec: NetworkSpec, precision: str,
+                   device: torch.device | str = "cpu",
+                   full: NetworkSpec | None = None) -> dict[int, str] | None:
+    """The overrides of a tier's model over ``spec`` on ``device``: for
+    int16 the per-layer plan of ``resolve_knobs``, less a kind that folds
+    the pool after ``spec``'s last layer, which ``spec`` does not hold (a
+    prefix of the network ending at that conv); None for the other tiers.
+    ``full`` is the network ``spec`` is a prefix of, whose plan it takes
+    (``spec`` itself by default)."""
     if precision != "int16":
         return None
+    knobs = resolve_knobs(spec if full is None else full, device)
     last = spec.layers[-1].idx
-    return {i: k for i, k in plan_overrides().items()
+    return {i: k for i, k in knobs["plan"].items()
             if i != last or k not in POOL_ORDER}
 
 

@@ -25,9 +25,11 @@ host included, runs under the watchdog ``Engine._guarded``
 steps around the network (letterbox, region activation, box decode, NMS,
 region dumps) are the port's copies of the JAX package's numpy code.
 ``PredictResult``, ``maybe_dump_region``, ``load_or_synthesize`` and
-``_first_existing`` mirror ``yolotpu/runtime/engine.py``. In the int16 tier
-``YOLO2_Q16_PLAN`` ("idx:kind,...") overrides the engine kind of conv
-layers, as it does in ``yolotpu`` (``models.engine_plan``).
+``_first_existing`` mirror ``yolotpu/runtime/engine.py``. The int16 tier
+runs the plan of its network on its device (``models.engine_plan.
+resolve_knobs``: the env lever, then the card's plan file, then the default
+rule), as ``yolotpu``'s ``params_q16`` loads the plan of its chip;
+``plan_source`` names the plan file the engine read, or is None.
 """
 
 from __future__ import annotations
@@ -244,6 +246,7 @@ class Engine:
         self._guard_lock = threading.Lock()
         self._cuda_index = None
         self._debug = None    # the "acts" model of predict_layers
+        self.plan_source = None   # the plan file of the int16 tier, if any
         if backend == "golden":
             self._golden = GoldenNet(spec)
             self.params = self.model = None
@@ -252,9 +255,13 @@ class Engine:
             self._cuda_index = (self.device.index if self.device.index
                                 is not None else torch.cuda.current_device())
         self.params = tier_params(spec, store, precision, self.device)
-        # the int16 tier's per-layer engine lever, read as yolotpu's
-        # params_q16 reads it; no plan file until one is measured on the card
-        self._overrides = engine_plan.tier_overrides(spec, precision)
+        # the int16 tier's plan on this device, as yolotpu's params_q16
+        # resolves it for its chip
+        self._overrides = engine_plan.tier_overrides(spec, precision,
+                                                     self.device)
+        if precision == "int16":
+            self.plan_source = engine_plan.resolve_knobs(
+                spec, self.device)["source"]
         self.model = YoloV2Q(spec, self.qtables, self.params, self.device,
                              precision, self._overrides,
                              ("head", "detections") if device_nms else ("head",),

@@ -194,14 +194,17 @@ def _tier(spec: NetworkSpec, store, precision: str, compute: str,
 
 
 def _model(spec: NetworkSpec, tier: tuple, precision: str,
-           device: torch.device, outputs: tuple[str, ...]):
-    """The tier's YoloV2Q over ``spec``, under the engine's plan
-    (``engine_plan.tier_overrides``)."""
+           device: torch.device, outputs: tuple[str, ...],
+           full: NetworkSpec | None = None):
+    """The tier's YoloV2Q over ``spec``, under the engine's plan on
+    ``device`` (``engine_plan.tier_overrides``); a prefix of ``full`` takes
+    ``full``'s plan."""
     from ..models import engine_plan
     from ..models.yolov2 import YoloV2Q
     params, qtables = tier
     return YoloV2Q(spec, qtables, params, device, precision,
-                   engine_plan.tier_overrides(spec, precision), outputs)
+                   engine_plan.tier_overrides(spec, precision, device, full),
+                   outputs)
 
 
 def _timing(l, ms: float, batch: int, precision: str,
@@ -362,7 +365,7 @@ def profile_prefix(spec: NetworkSpec, store, precision: str = "int16",
 
     def prefix(n: int):
         pspec = NetworkSpec(net=spec.net, layers=spec.layers[:n])
-        model = _model(pspec, tier, precision, device, ("head",))
+        model = _model(pspec, tier, precision, device, ("head",), spec)
         return model, _prefix_forward(model, pspec,
                                       alive[pspec.layers[-1].idx])
 

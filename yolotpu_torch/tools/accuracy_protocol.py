@@ -79,6 +79,7 @@ def fingerprint(device) -> dict:
 
 
 def main(argv=None) -> int:
+    from ..models.engine_plan import plan_dir
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--size", type=int, default=416,
                     help="train AND eval resolution")
@@ -91,7 +92,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tiers", default="fp32,int16,int8,w8a16")
     ap.add_argument("--thresh", type=float, default=0.05)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    ap.add_argument("--out-dir", default=os.path.join(PKG, "plans"))
+    ap.add_argument("--out-dir", default=plan_dir(),
+                    help="default: engine_plan.plan_dir() (YOLO2_PLAN_DIR)")
     ap.add_argument("--scratch",
                     default=os.path.join(REPO, "build", "accuracy_v2"))
     args = ap.parse_args(argv)

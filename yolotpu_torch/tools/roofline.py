@@ -6,8 +6,9 @@ CUDA graph, timed in turns with the whole forward) at ``--batch``, holds
 every layer against its bound on the H100 (``roofline_table`` against
 ``H100_CHIP``: MACs x 8-bit products over the tensor cores' peak, or fp32
 operations over the fp32 peak, and minimal bytes over the memory rate),
-prints the table and writes ``yolotpu_torch/plans/roofline_<precision>_
-<card>.json`` with the card's name and power limit. ``--device cpu`` runs
+prints the table and writes ``roofline_<precision>_<card>.json`` with the
+card's name and power limit into ``--out-dir`` (``engine_plan.plan_dir()``,
+``yolotpu_torch/plans/`` unless ``YOLO2_PLAN_DIR`` names another). ``--device cpu`` runs
 the same walk eagerly on the host clock (no device number).
 
     python -m yolotpu_torch.tools.roofline [--batch 8] [--precision int16]
@@ -18,16 +19,14 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import re
 import sys
 import time
 
 import numpy as np
 
-PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
 
 def main(argv=None) -> int:
+    from ..models.engine_plan import device_kind_slug, plan_dir
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--precision", default="int16")
@@ -36,7 +35,8 @@ def main(argv=None) -> int:
     ap.add_argument("--width", type=int, default=None)
     ap.add_argument("--height", type=int, default=None)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    ap.add_argument("--out-dir", default=os.path.join(PKG, "plans"))
+    ap.add_argument("--out-dir", default=plan_dir(),
+                    help="default: engine_plan.plan_dir() (YOLO2_PLAN_DIR)")
     args = ap.parse_args(argv)
 
     import torch
@@ -71,7 +71,7 @@ def main(argv=None) -> int:
     doc["date"] = time.strftime("%Y-%m-%d")
     print(render_roofline(doc), flush=True)
 
-    slug = re.sub(r"[^a-z0-9]+", "_", doc["device_kind"].lower()).strip("_")
+    slug = device_kind_slug(doc["device_kind"])
     os.makedirs(args.out_dir, exist_ok=True)
     path = os.path.join(args.out_dir,
                         f"roofline_{args.precision}_{slug}.json")
