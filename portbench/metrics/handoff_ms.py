@@ -1,0 +1,26 @@
+"""handoff_ms (ms a request, the port's engine spans on the device trace's
+clock): for each request of the traced stretch (an ``engine.request`` span
+of ``yolotpu_torch.runtime.trace`` that starts within it), its
+``engine.queue`` span (the job put on the watchdog worker's queue -> the
+worker starts it) and its ``engine.resume`` span (the worker's wake-up of
+the caller -> the caller runs again), summed; averaged. None where the
+port records no span or the stretch holds no request."""
+
+
+def read(run):
+    tl = run.timeline
+    if tl is None or not tl.calls:
+        return None
+    try:
+        from yolotpu_torch.runtime import trace
+    except ImportError:     # a version of the port that records no span
+        return None
+    spans = trace.spans()
+    lo, hi = tl.start, tl.end
+    ids = {s.request for s in spans
+           if s.name == "engine.request" and lo <= s.start_ns * 1e-9 < hi}
+    if not ids:
+        return None
+    ns = sum(s.end_ns - s.start_ns for s in spans if s.request in ids
+             and s.name in ("engine.queue", "engine.resume"))
+    return ns / len(ids) * 1e-6

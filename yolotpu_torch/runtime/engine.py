@@ -20,7 +20,8 @@ NMS (``ops.nms``), so only a top-K table leaves the card;
 ``predict_batch_raw_frames`` letterboxes raw uint8 frames on the device
 (``ops.letterbox``) inside the graph. Every device call, its copy to the
 host included, runs under the watchdog ``Engine._guarded``
-(``YOLO2_LAYER_TIMEOUT_MS``) on the engine's worker thread.
+(``YOLO2_LAYER_TIMEOUT_MS``) on the engine's worker thread. A request
+made under ``torch.profiler`` records its spans (``runtime.trace``).
 ``predict_layers``/``dump_layers`` give every layer's output. The host
 steps around the network (letterbox, region activation, box decode, NMS,
 region dumps) are the port's copies of the JAX package's numpy code.
@@ -59,6 +60,7 @@ from ..quant import (calibrate_activations, calibrate_activations_int8,
                      quantize_weights_w8a16)
 from ..weights import WeightStore
 from . import logging as ylog
+from . import trace
 
 # precision -> (store weights, store Q tables, params function, what is missing
 # when the store has no such weights)
@@ -140,31 +142,43 @@ class _Worker:
             del job     # hold no call (nor its engine) between calls
 
     @staticmethod
-    def _do(fn, args, box, done) -> None:
+    def _do(fn, args, box, done, req) -> None:
         if done.is_set():   # its caller gave up while it was queued
             return
+        if req is not None:
+            req.close("engine.queue")
         try:
             box.append((True, fn(*args)))
         except BaseException as e:  # raised again by run(), in the caller
             box.append((False, e))
+        if req is not None:
+            req.open("engine.resume")
         done.set()
 
     def stop(self) -> None:
         """End the thread once its current call, if any, returns."""
         self._jobs.put(None)
 
-    def run(self, fn, args: tuple, seconds: float):
+    def run(self, fn, args: tuple, seconds: float, req=None):
         """fn(*args) on the worker: (value,), or None when it ran past
         ``seconds``, its wait behind earlier calls included (the worker is
-        then abandoned). fn's exception is raised here."""
+        then abandoned). fn's exception is raised here. ``req``: a traced
+        request (``trace.Request``), whose ``engine.queue`` (the job put
+        here -> the worker starts fn) and ``engine.resume`` (the worker's
+        ``done.set()`` -> the wait here returns) spans this records; or
+        None."""
         box: list = []
         done = threading.Event()
-        self._jobs.put((fn, args, box, done))
+        if req is not None:
+            req.open("engine.queue")
+        self._jobs.put((fn, args, box, done, req))
         if not done.wait(seconds):
             done.set()      # still queued: the worker skips it
             if not box:
                 self.stop()
                 return None
+        if req is not None:
+            req.close("engine.resume")
         ok, val = box[0]
         if not ok:
             raise val
@@ -272,7 +286,8 @@ class Engine:
                                      net.channels)), letterbox=False)
 
     # ------------------------------------------------------------------
-    def _guarded(self, fn, *args, tag: str = "main", key: tuple | None = None):
+    def _guarded(self, fn, *args, tag: str = "main", key: tuple | None = None,
+                 req=None):
         """Per-call watchdog, the board app's wait_for_idle analog
         (yolo2_accel_linux.c:266-381): fn(*args) runs on the engine's worker
         thread, bounded by YOLO2_LAYER_TIMEOUT_MS (default 60000; <= 0 runs
@@ -286,7 +301,8 @@ class Engine:
         (a graph's static input and outputs serve one call at a time), so a
         call's deadline also covers its wait behind earlier calls; the lock
         guards only the watchdog's own state. fn must not call the engine's
-        guarded methods."""
+        guarded methods. ``req``: a traced request, whose hand-off to the
+        worker and back the worker's ``run`` records, or None."""
         try:
             ms = float(os.environ.get("YOLO2_LAYER_TIMEOUT_MS", "60000"))
         except ValueError:
@@ -315,7 +331,7 @@ class Engine:
                     # when the engine goes
                     weakref.finalize(self, self._worker.stop)
                 worker = self._worker
-            out = worker.run(fn, args, ms / 1000.0)
+            out = worker.run(fn, args, ms / 1000.0, req)
             if out is None:
                 with self._guard_lock:
                     if self._worker is worker:
@@ -353,15 +369,29 @@ class Engine:
                 torch.zeros_like(x, device=self.device))
         return self.graphs[key]
 
-    def _run(self, x: torch.Tensor, letterbox: bool = False) -> dict:
+    def _run(self, x: torch.Tensor, letterbox: bool = False,
+             req=None) -> dict:
         """One forward of host NHWC frames: a replay of its graph on a card
         (the frames copied into the graph's input), an eager run on the CPU.
-        Returns the device outputs, which the next replay overwrites."""
+        Returns the device outputs, which the next replay overwrites.
+        ``req``: a traced request, whose ``engine.copy_in`` and
+        ``engine.launch`` spans this records, or None."""
         if self.device.type != "cuda":
-            return self._forward(x.to(self.device), letterbox)
+            if req is None:
+                return self._forward(x.to(self.device), letterbox)
+            with req.span("engine.copy_in"):
+                x = x.to(self.device)
+            with req.span("engine.launch"):
+                return self._forward(x, letterbox)
         g = self._graph(x, letterbox)
-        g.inp.copy_(x)
-        g.graph.replay()
+        if req is None:
+            g.inp.copy_(x)
+            g.graph.replay()
+        else:
+            with req.span("engine.copy_in"):
+                g.inp.copy_(x)      # from pageable memory: it blocks
+            with req.span("engine.launch"):
+                g.graph.replay()
         g.replays += 1
         return g.out
 
@@ -401,9 +431,35 @@ class Engine:
         if self.backend != "device":
             raise ValueError("this call runs on the device backend; the "
                              "engine was built with backend='golden'")
+        # the profiler's switch is thread-local: asked on the caller's
+        if torch.autograd._profiler_enabled():
+            return self._traced_call(frames, fetch, letterbox)
         x = torch.from_numpy(np.ascontiguousarray(frames))
         return self._guarded(lambda v: fetch(self._run(v, letterbox)), x,
                              key=(letterbox, x.dtype, tuple(x.shape)))
+
+    def _traced_call(self, frames: np.ndarray, fetch, letterbox: bool):
+        """``_call`` with its spans recorded (``runtime.trace``): the root
+        ``engine.request`` on the caller's thread, with the counts
+        ``frames`` and ``syncs`` (the blocking points the engine calls: the
+        copy in, and one a table the fetch reads back), and under it
+        ``engine.queue``, ``engine.copy_in``, ``engine.launch``,
+        ``engine.fetch`` and ``engine.resume``."""
+        with trace.request("engine.request", frames=len(frames),
+                           syncs=0) as req:
+            x = torch.from_numpy(np.ascontiguousarray(frames))
+
+            def traced(v):
+                out = self._run(v, letterbox, req)
+                req.attrs["syncs"] += 1
+                with req.span("engine.fetch"):
+                    host = fetch(out)
+                # one blocking read an array
+                req.attrs["syncs"] += len(host) if isinstance(host,
+                                                              dict) else 1
+                return host
+            return self._guarded(traced, x, req=req,
+                                 key=(letterbox, x.dtype, tuple(x.shape)))
 
     def _detections(self, frames: np.ndarray, letterbox: bool = False) -> tuple:
         """The top-K tables of a device-NMS forward, on the host."""
