@@ -9,9 +9,13 @@ engine settings, the seeded weights' shape, the check's limits),
 sent by the arrival process it names, ``loops/<loop>.py``),
 ``metrics/<metric>.py`` (a reader of the window's record or the traced
 stretch), ``references/<name>.py`` (the plain reference). The yardstick
-lives here too: ``work.py`` (operations, bytes, the card's peaks, the
-port's kernels by name), ``stats.py``, ``check.py`` (the comparison that
-decides ``correct``), ``synth.py`` (the seeded inputs). ``system.py`` alone touches the port.
+lives here too: ``netcfg.py`` (darknet's sections and their shapes: convs,
+maxpools, routes, reorgs, shortcuts, upsamples, and one region head or
+several yolo heads), ``darknet_float.py`` (the float64 darknet: forward,
+letterbox, the heads' decode, top-K and NMS), ``work.py`` (operations,
+bytes, the card's peaks, the port's kernels by name), ``stats.py``,
+``check.py`` (the comparison that decides ``correct``), ``synth.py`` (the
+seeded inputs, each head fitted). ``system.py`` alone touches the port.
 ``python3 -m portbench.control`` reads the controls that set the limits.
 CPU tests: ``python -m pytest portbench/tests -q``.
 """

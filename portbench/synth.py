@@ -3,7 +3,11 @@ image and the pool of frames, each in a few large calls of one
 ``torch.Generator`` on the run's device, then handed to the host once, as
 the system under test takes them (numpy arrays). The same seed gives the
 same inputs on the same device. Both the system and the reference get these
-arrays and nothing else."""
+arrays and nothing else.
+
+Any network ``netcfg`` reads: its detection heads (one region, or several
+yolo heads) are fitted each by its own conv, on the float64 darknet of
+``darknet_float.py`` (not on a reference's integer walk)."""
 
 from __future__ import annotations
 
@@ -12,7 +16,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .netcfg import Layer, convs, region
+from .darknet_float import (decode_heads, detections, float_forward,
+                            letterbox, to_unit)
+from .netcfg import Layer, convs, heads
 
 HEAD_ROLES = ("xy", "wh", "obj", "cls")
 
@@ -25,7 +31,7 @@ class Inputs:
 
 
 def head_roles(reg: Layer) -> np.ndarray:
-    """Each output channel of the region's conv -> its role index in
+    """Each output channel of a head's conv -> its role index in
     HEAD_ROLES (x, y; w, h; objectness; a class)."""
     per = reg.coords + 1 + reg.classes
     j = np.arange(reg.num * per) % per
@@ -38,13 +44,13 @@ def make_inputs(layers: list[Layer], wcfg: dict, engine: dict,
     """Weights He-normal (std sqrt(2 / fan_in)), biases normal with
     ``wcfg["bias_std"]``; calibration image uniform in [0, 1); frames
     uniform uint8 of ``pool_shape`` (``raw``: frames the system letterboxes).
-    The region's conv is then set so that on the calibration image each of
+    Each head's conv is then set so that on the calibration image each of
     its output channels has the mean (``head_mean``) and spread
     (``head_std``) of its role, whatever the seed's weights do to the
     features' scale (``fit_head``), and so that the pool's first
-    ``fit_frames`` frames hold ``detections_per_frame`` detections a frame
-    under the ``engine``'s settings (``fit_count``): every seed serves a
-    detector's few confident boxes, and the same load."""
+    ``fit_frames`` frames hold ``detections_per_frame`` detections a frame,
+    over all heads, under the ``engine``'s settings (``fit_count``): every
+    seed serves a detector's few confident boxes, and the same load."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     cs = convs(layers)
@@ -74,54 +80,63 @@ def _grid(v: np.ndarray, step: float) -> np.ndarray:
     return np.round(v / step) * step
 
 
+def _head_inputs(layers: list[Layer], hs: list[Layer], weights: dict,
+                 x: torch.Tensor) -> list[torch.Tensor]:
+    """Each head's conv's input, from one float64 forward of ``x`` up to
+    the last head's conv (a head's conv feeds nothing else, so its own
+    weights move no other head's input)."""
+    ins = {h.idx - 2 for h in hs}
+    acts = float_forward(layers[:hs[-1].idx - 1], weights, x, keep=ins)
+    return [acts[h.idx - 2] for h in hs]
+
+
 def fit_head(layers: list[Layer], weights: dict, calib: np.ndarray,
              wcfg: dict, device: torch.device) -> None:
-    """Rescale and shift the region conv's rows in place: on the calibration
-    image (a float64 forward up to the head's input) each output channel's
+    """Rescale and shift each head conv's rows in place: on the calibration
+    image (a float64 forward up to the heads' inputs) each output channel's
     response gets its role's ``head_std`` and ``head_mean``. The factors are
     rounded to a grid (1/64 of an octave, 1/1024), so that the last bits of
     the forward cannot move them."""
-    from .references.darknet_int import float_forward
-    head = region(layers).idx - 1
+    hs = heads(layers)
     x = torch.from_numpy(calib).to(device).permute(1, 2, 0)[None]
-    feats = float_forward(layers[:head], weights, x, every=True)[head - 1]
-    f = feats.reshape(-1, feats.shape[-1]).cpu().numpy()
-    w, b = weights[head]
-    z = f @ w.reshape(w.shape[0], -1).astype(np.float64).T
-    roles = head_roles(region(layers))
-    std = np.array([wcfg["head_std"][HEAD_ROLES[r]] for r in roles])
-    mean = np.array([wcfg["head_mean"].get(HEAD_ROLES[r], 0.0)
-                     for r in roles])
-    scale = 2.0 ** _grid(np.log2(std / np.maximum(z.std(axis=0), 1e-12)),
-                         1 / 64)
-    w *= scale.astype(np.float32)[:, None, None, None]
-    b[:] = _grid(mean - z.mean(axis=0) * scale, 1 / 1024)
+    for h, feats in zip(hs, _head_inputs(layers, hs, weights, x)):
+        f = feats.reshape(-1, feats.shape[-1]).cpu().numpy()
+        w, b = weights[h.idx - 1]
+        z = f @ w.reshape(w.shape[0], -1).astype(np.float64).T
+        roles = head_roles(h)
+        std = np.array([wcfg["head_std"][HEAD_ROLES[r]] for r in roles])
+        mean = np.array([wcfg["head_mean"].get(HEAD_ROLES[r], 0.0)
+                         for r in roles])
+        scale = 2.0 ** _grid(np.log2(std / np.maximum(z.std(axis=0), 1e-12)),
+                             1 / 64)
+        w *= scale.astype(np.float32)[:, None, None, None]
+        b[:] = _grid(mean - z.mean(axis=0) * scale, 1 / 1024)
 
 
 def fit_count(layers: list[Layer], weights: dict, frames: torch.Tensor,
               raw: bool, wcfg: dict, engine: dict) -> None:
-    """Shift the biases of the region conv's objectness rows, in place, by
+    """Shift the biases of every head conv's objectness rows, in place, by
     one amount on a 1/1024 grid, the least at which the float64 detector
-    (the reference's decode, top-K and NMS under the ``engine``'s settings)
-    finds ``wcfg["detections_per_frame"]`` valid detections a frame or more
-    on average over ``frames`` (uint8, raw ones letterboxed)."""
-    from .references.darknet_int import (decode, detections, float_forward,
-                                         letterbox, to_unit)
-    reg = region(layers)
-    head = reg.idx - 1
+    (the heads' decode, their candidates concatenated, top-K and NMS under
+    the ``engine``'s settings) finds ``wcfg["detections_per_frame"]`` valid
+    detections a frame or more on average over ``frames`` (uint8, raw ones
+    letterboxed)."""
+    hs = heads(layers)
     net_h, net_w = layers[0].h, layers[0].w
     x = letterbox(frames, net_w, net_h) if raw else to_unit(frames)
-    feats = float_forward(layers[:head], weights, x, every=True)[head - 1]
-    w, b = weights[head]
-    z = feats @ torch.from_numpy(w.reshape(w.shape[0], -1)).to(
-        feats.device, torch.float64).T
-    is_obj = head_roles(reg) == HEAD_ROLES.index("obj")
+    zs, biases, is_obj = [], [], []
+    for h, feats in zip(hs, _head_inputs(layers, hs, weights, x)):
+        w, b = weights[h.idx - 1]
+        zs.append(feats @ torch.from_numpy(w.reshape(w.shape[0], -1)).to(
+            feats.device, torch.float64).T)
+        biases.append(b)
+        is_obj.append(head_roles(h) == HEAD_ROLES.index("obj"))
     target = wcfg["detections_per_frame"]
 
     def count(shift: float) -> float:
-        bias = b.astype(np.float64) + shift * is_obj
-        boxes, obj, probs = (t.cpu().numpy() for t in decode(
-            z + torch.from_numpy(bias).to(z.device), reg))
+        outs = [z + torch.from_numpy(b.astype(np.float64) + shift * o).to(
+            z.device) for z, b, o in zip(zs, biases, is_obj)]
+        boxes, obj, probs = (t.cpu().numpy() for t in decode_heads(outs, hs))
         return float(np.mean([
             len(detections(boxes[f], obj[f], probs[f], engine["thresh"],
                            engine["nms"], engine["topk"])[1])
@@ -134,7 +149,8 @@ def fit_count(layers: list[Layer], weights: dict, frames: torch.Tensor,
             lo = mid
         else:
             hi = mid
-    b[is_obj] += np.float32(hi)
+    for b, o in zip(biases, is_obj):
+        b[o] += np.float32(hi)
 
 
 def request_order(seed: int, choices: int):

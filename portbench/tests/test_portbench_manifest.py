@@ -95,7 +95,7 @@ def test_cell_finds_its_config_and_traffic(cell):
     config = M.config(cell)
     assert config["name"] == cell["config"]
     layers = netcfg.layers_of(config)
-    assert netcfg.region(layers).kind == "region"
+    assert netcfg.heads(layers)[0].kind == "region"
     mix = M.traffic(cell)
     assert isinstance(mix, traffic.Traffic) and mix.name == cell["traffic"]
     assert mix.pool_frames % mix.batch == 0

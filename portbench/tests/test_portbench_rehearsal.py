@@ -14,7 +14,7 @@ import torch
 from portbench import system, traffic
 from portbench.cell import run_cell
 from portbench.control import control_numbers
-from portbench.netcfg import layers_of, region
+from portbench.netcfg import heads, layers_of
 from portbench.references.darknet_int import (IntNet, decode, detections,
                                               letterbox, to_unit)
 from portbench.synth import make_inputs
@@ -79,7 +79,7 @@ def test_inputs_hold_the_fitted_detections(raw):
                      torch.device("cpu"))
         x = torch.from_numpy(inputs.pool[:w["fit_frames"]])
         head = net.head_of(letterbox(x, 64, 64) if raw else to_unit(x))
-        boxes, obj, probs = (t.numpy() for t in decode(head, region(layers)))
+        boxes, obj, probs = (t.numpy() for t in decode(head, heads(layers)[0]))
         n = [len(detections(boxes[f], obj[f], probs[f], e["thresh"],
                             e["nms"], e["topk"])[1])
              for f in range(len(boxes))]

@@ -14,7 +14,7 @@ as many 8-bit products as its operand bytes multiply to: 4 for int16 x int16,
 
 from __future__ import annotations
 
-from .netcfg import Layer, convs, region
+from .netcfg import Layer, convs, heads
 
 PEAK_S8_OPS = 1979e12          # 8-bit tensor-core operations a second
 PEAK_BYTES = 3.35e12           # device-memory bytes a second
@@ -49,7 +49,7 @@ def conv_ops(layer: Layer) -> float:
 
 def conv_bytes(layer: Layer, precision: str, head: bool = False) -> float:
     """Bytes of one conv for one frame: input and output at the tier's
-    activation size (the int8 tier's head writes int16), weights at its
+    activation size (the int8 tier's heads write int16), weights at its
     weight size."""
     act, wgt, _ = TIERS[precision]
     out = 2 if head else act
@@ -66,11 +66,12 @@ def frame_ops(layers: list[Layer]) -> float:
 def conv_bound_seconds(layers: list[Layer], precision: str) -> float:
     """The least device time of the network's convs for one frame: for each
     conv the larger of its operations over the tier's peak and its bytes
-    over the memory's, summed."""
+    over the memory's, summed. In the int8 tier every head's conv writes
+    16 bits."""
     peak = tier_peak_ops(precision)
-    head = region(layers).idx - 1
+    head_convs = {h.idx - 1 for h in heads(layers)}
     return sum(max(conv_ops(l) / peak,
                    conv_bytes(l, precision, head=(precision == "int8"
-                                                  and l.idx == head))
+                                                  and l.idx in head_convs))
                    / PEAK_BYTES)
                for l in convs(layers))
