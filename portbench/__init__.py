@@ -18,4 +18,15 @@ bytes, the card's peaks, the port's kernels by name), ``stats.py``,
 seeded inputs, each head fitted). ``system.py`` alone touches the port.
 ``python3 -m portbench.control`` reads the controls that set the limits.
 CPU tests: ``python -m pytest portbench/tests -q``.
+
+A new configuration, of any family whose heads ``netcfg`` reads, comes as
+files and entries alone: its config, ``configs/<config>.json``, with its
+entry in ``BENCHMARK.json``'s ``configs``; its reference module,
+``references/<module>.py``, which the config names by ``reference``; its
+cell, an entry in ``workloads``; its metrics' reader files,
+``metrics/<metric>.py``, with their entries; and its cell's name appended
+to the ``workloads`` lists of the metrics it reports.
+``tests/test_portbench_manifest.py`` holds the document to the rules such
+an addition has to meet, and ``tests/test_portbench_addition.py`` rehearses
+one.
 """

@@ -4,9 +4,12 @@ which device kernels are the port's own.
 Operations are 2 x the multiply-accumulates of every conv, counted from the
 network's layers (not from the kernels launched, so a fused, split or renamed
 kernel reads the same work). A conv's bytes count its input, its weights and
-its output once each, at the tier's element sizes. The peaks are NVIDIA's
-data sheet for the H100 SXM (dense rates, at the full 700 W): 1979e12 8-bit
-tensor-core operations a second and 3.35e12 bytes a second of device memory.
+its output once each, at the tier's element sizes. A residual layer does
+no MACs: a shortcut reads its two inputs and writes their sum, an upsample
+reads its input and writes its output, once each, at the tier's activation
+size. The peaks are NVIDIA's data sheet for the H100 SXM (dense rates, at
+the full 700 W): 1979e12 8-bit tensor-core operations a second and 3.35e12
+bytes a second of device memory.
 The integer tiers run on the 8-bit tensor cores, so a MAC of the tier takes
 as many 8-bit products as its operand bytes multiply to: 4 for int16 x int16,
 2 for int16 x int8, 1 for int8 x int8.
@@ -75,3 +78,22 @@ def conv_bound_seconds(layers: list[Layer], precision: str) -> float:
                                                   and l.idx in head_convs))
                    / PEAK_BYTES)
                for l in convs(layers))
+
+
+def residual_bytes(layers: list[Layer], precision: str) -> int:
+    """Bytes of the network's shortcuts and upsamples for one frame: each
+    input read and each output written once, at the tier's activation
+    size."""
+    n = 0
+    for l in layers:
+        if l.kind == "shortcut":
+            n += 3 * l.h * l.w * l.c
+        elif l.kind == "upsample":
+            n += l.h * l.w * l.c + l.out_h * l.out_w * l.out_c
+    return TIERS[precision][0] * n
+
+
+def residual_bound_seconds(layers: list[Layer], precision: str) -> float:
+    """The least device time of the network's shortcuts and upsamples for
+    one frame: their bytes over the memory's peak."""
+    return residual_bytes(layers, precision) / PEAK_BYTES
