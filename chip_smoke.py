@@ -15,7 +15,7 @@ after 2, 10 after 3):
 
 1. card: name and power limit, torch and CUDA versions, kernel build time,
    each kernel's registers and spills (none allowed), each kernel's
-   tensor-core MMA count (cuobjdump: the ten instantiations of the
+   tensor-core MMA count (cuobjdump: the eleven instantiations of the
    tensor-core body and the sixteen of the general convs' kernel,
    convk_tc_kernel, hold integer wgmma, the latter also TMA bulk copies,
    and the library holds no other kernel but nms_greedy's two passes, whose
@@ -23,10 +23,10 @@ after 2, 10 after 3):
    registers of each operand scheme of the tensor-core body (Q16: mm_q16,
    conv3x3_q16, conv3x3_pool_q16 in its three pool orders; W8A16:
    mm_w8a16, conv3x3_w8a16; S8: mm_s8 with either output, conv3x3_s8,
-   conv3x3_int8) and of each tile of convk_tc_kernel (conv_q16,
-   conv_w8a16, conv_s8 with either output: BM, BN, ring stages, blocks per
-   SM asked and kept, both equal to tc.CONVK_BLOCKS), checked against the
-   wrappers' copy of it;
+   conv3x3_int8, conv3x3_pool_s8) and of each tile of convk_tc_kernel
+   (conv_q16, conv_w8a16, conv_s8 with either output: BM, BN, ring stages,
+   blocks per SM asked and kept, both equal to tc.CONVK_BLOCKS), checked
+   against the wrappers' copy of it;
 2. kernels: each of the six conv kernels against its plain PyTorch version
    on the card at all 23 yolov2 conv shapes of its kind (batch 2) and at
    edge cases (shift extremes, per-channel shift vectors that mix them, sums
@@ -43,6 +43,12 @@ after 2, 10 after 3):
    cases (C=3, 4 and 7, shifts, sums that wrap at shift 31, where the three
    orders must differ, splits of K forced through the workspace exit,
    K beyond one split);
+   the int8 tier's fused conv+pool, conv3x3_pool_s8, at the five yolov2
+   shapes a 2x2/s2 pool follows at batch 1, 2, 8 and 128, each equal to its
+   plain version and to conv3x3_s8 then the maxpool, through both exits of
+   its epilogue (splits forced), at edge cases (C=3, 7, 24, 40, mixed
+   shifts, ragged M and N) and with K beyond one split (K=131,472, whose
+   exact sums leave int32);
    the scalar-shift int8 conv at the int8 tier's 15 3x3 shapes; all
    compared with ``torch.equal``, with both times from CUDA events, and, at
    the model's shapes, the bound (the least time the card could take) and
@@ -94,9 +100,13 @@ after 2, 10 after 3):
    against conv3x3_q16 then the pool, and summed over P1's fused convs
    beside its library call (a float64 matmul on im2col, then the pool),
    each alone on the device in CUDA graph replays, and the fused kernel's
-   device time in P1's forward; then, for each tier's tensor-core convs
-   and P1's fused convs at batch 1 and 8, the device time (CUDA graph
-   replays) of every split of K beside the one ``tc.split`` picks;
+   device time in P1's forward; the int8 tier's four fused convs
+   (conv3x3_pool_s8) against conv3x3_s8 then the pool at batch 1, 8 and
+   128, alone in CUDA graph replays, beside their bound, and the fused
+   kernel's device time in the int8 forward; then, for each tier's
+   tensor-core convs and P1's and the int8 tier's fused convs at batch 1
+   and 8, the device time (CUDA graph replays) of every split of K beside
+   the one ``tc.split`` picks;
 5. runtime: ``cli.gpu_check`` (its five checks must pass; its device table
    names the card's int16 plan); then the streaming runtime through
    ``cli.main``'s own wiring (``load_model``,
@@ -144,8 +154,9 @@ after 2, 10 after 3):
    one), ``compare`` of the two and
    ``parse-log`` of the detect requests' log; ``cli.pipeline`` over its six
    stages (synthetic weights, batch 8, 5 steps), exit 0; the launches of
-   ``mm_q16``, ``conv3x3_q16``, ``mm_s8`` and ``conv3x3_s8`` in this phase
-   (and ``conv3x3_pool_q16`` where the card's plan fuses a pool), read just
+   ``mm_q16``, ``conv3x3_q16``, ``mm_s8``, ``conv3x3_s8`` and
+   ``conv3x3_pool_s8`` in this phase (and ``conv3x3_pool_q16`` where the
+   card's plan fuses a pool), read just
    after it, join the kernels' counts.
 
 7. training and the accuracy protocol, yolov2 416 (published widths and
@@ -196,8 +207,9 @@ after 2, 10 after 3):
    stages in a world of one rank on NCCL (a mesh of 1 x 1: only size-1
    gathers reach NCCL, the batch gathers and stage 5's int16 gather as
    uint8; no tp, sp or dp collective runs there); the ranks' launches of
-   ``mm_q16``, ``conv3x3_q16``, ``nms_greedy``, ``mm_s8`` and
-   ``conv3x3_s8`` (each above 0, no other kernel) join the kernels' counts;
+   ``mm_q16``, ``conv3x3_q16``, ``nms_greedy``, ``mm_s8``, ``conv3x3_s8``
+   and ``conv3x3_pool_s8`` (each above 0, no other kernel) join the
+   kernels' counts;
    then yolov2-s2 at 416 over a (dp=1, sp=2) mesh, two gloo ranks sharing
    the card, b=2, in the int16 and int8 tiers: each rank quantizes its H
    slab, runs conv0 (3x3/s1) on it with one halo row from its neighbour
@@ -257,6 +269,7 @@ blocked from import for the whole run: the port must not need them.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import functools
 import io
@@ -286,7 +299,7 @@ from yolotpu_torch.graph import MaxPoolSpec, NetworkSpec  # noqa: E402
 from yolotpu_torch.image import letterbox_image  # noqa: E402
 from yolotpu_torch.models import engine_plan, zoo  # noqa: E402
 from yolotpu_torch.models.yolov2 import (YoloV2Q, head_fp32,  # noqa: E402
-                                         params_fp32)
+                                         params_fp32, unfused)
 from yolotpu_torch.names import names_for  # noqa: E402
 from yolotpu_torch.ops import (_build, convops, letterbox, nms, pool,  # noqa: E402
                                q8, q16, tc)
@@ -335,6 +348,10 @@ KERNEL_SOURCES = {
                          ":1204/:1261 (K10), :417 (K11), :1521 (K12)"),
     "conv3x3_int8": ("yolotpu_torch/csrc/conv3x3_s8.cu",
                      "yolotpu/ops/pallas_conv.py:123, :85 (K13)"),
+    "conv3x3_pool_s8": ("yolotpu_torch/csrc/conv3x3_pool_s8.cu",
+                        "yolotpu/ops/convops.py:520 (conv_int8's XLA s8 "
+                        "conv) then yolotpu/ops/pool.py:15 (maxpool), the "
+                        "int8 tier's pools (no Pallas kernel)"),
     "nms_greedy": ("yolotpu_torch/csrc/nms_greedy.cu",
                    "yolotpu/ops/nms.py:89 (the vmapped lax.scan of "
                    "greedy_nms_mask, :36-57, on box_iou_matrix, :21-33 and "
@@ -358,9 +375,11 @@ GENERAL_KERNELS = ("conv_q16", "conv_s8", "conv_w8a16")
 KERNEL_MODULE = {name: next(m for m in (q16, q8, nms) if name in m.LAUNCHES)
                  for name in KERNEL_SOURCES}
 TIERS = tuple(YoloV2Q.kernels)   # the integer tiers; fp32 runs no kernel of ours
-# tier -> the names of its (mm, conv3, conv) kernels
+# tier -> the names of its (mm, conv3, conv) kernels, and of its conv fused
+# with the 2x2/s2 pool after it
 TIER_KERNELS = {tier: tuple(f.__name__ for f in fns)
                 for tier, fns in YoloV2Q.kernels.items()}
+TIER_POOLED = {tier: f.__name__ for tier, f in YoloV2Q.pooled.items()}
 # the 8-bit-weight kernels' cases: the spread the requantized sums aim at,
 # by output type, and the bound of x where a case keeps it narrow
 TARGET = {torch.int8: 2 ** 5, torch.int16: 2 ** 13}
@@ -377,14 +396,16 @@ TC_KERNELS = {"mm_q16": (tc.Q16, q16.pack_q16),
               "mm_s8": (tc.S8, q8.pack_s8),
               "conv3x3_s8": (tc.S8, q8.pack_s8),
               "conv3x3_int8": (tc.S8, q8.pack_s8),
+              "conv3x3_pool_s8": (tc.S8, q8.pack_s8),
               "conv_q16": (tc.Q16, q16.pack_q16),
               "conv_w8a16": (tc.W8A16, q8.pack_w8a16),
               "conv_s8": (tc.S8, q8.pack_s8)}
 # the tensor-core instantiations: (kernel, what tells it from the others of
 # the kernel, the scheme's and the loader's part of its mangled name); the
-# int16 output of mm_s8 is a scheme struct of its own, S8Out16, and each
-# pool order of conv3x3_pool_q16 a Q16Pool<order>, with the window-major
-# loader ConvTc<int16_t, true>
+# int16 output of mm_s8 is a scheme struct of its own, S8Out16, each pool
+# order of conv3x3_pool_q16 a Q16Pool<order>, with the window-major loader
+# ConvTc<int16_t, true>, and conv3x3_pool_s8 S8Pool, with ConvTc<int8_t,
+# true>
 TC_INSTANCES = (("mm_q16", "", "3Q16", "MmTcIs"),
                 ("conv3x3_q16", "", "3Q16", "ConvTcIsLb0E"),
                 ("mm_w8a16", "", "5W8A16", "MmTcIs"),
@@ -393,7 +414,8 @@ TC_INSTANCES = (("mm_q16", "", "3Q16", "MmTcIs"),
                 ("mm_s8", " (int16 output)", "7S8Out16", "MmTcIa"),
                 ("conv3x3_s8", "", "2S8", "ConvTcIaLb0E"),
                 *(("conv3x3_pool_q16", f" (order {o})", f"7Q16PoolILi{i}E",
-                   "ConvTcIsLb1E") for i, o in enumerate(q16.POOL_ORDERS)))
+                   "ConvTcIsLb1E") for i, o in enumerate(q16.POOL_ORDERS)),
+                ("conv3x3_pool_s8", "", "6S8Pool", "ConvTcIaLb1E"))
 # the general convs, on their own kernel (csrc/convk_tc.cuh,
 # convk_tc_kernel<scheme, BN, warpgroups>): kernel -> (the entry point of
 # its tile configuration, and per output what tells it from the kernel's
@@ -408,7 +430,10 @@ CONVK_KERNELS = {"conv_q16": ("yq16_conv_config", (("", "3Q16"),)),
 # SASS opcodes of a bulk copy by the Tensor Memory Accelerator
 BULK_OPS = ("UBLKCP", "UTMALDG")
 # int8 x int8
-INT8_KERNELS = ("mm_s8", "conv3x3_s8", "conv3x3_int8", "conv_s8")
+INT8_KERNELS = ("mm_s8", "conv3x3_s8", "conv3x3_int8", "conv_s8",
+                "conv3x3_pool_s8")
+# the convs fused with the 2x2/s2 pool after them
+POOLED_KERNELS = ("conv3x3_pool_q16", "conv3x3_pool_s8")
 # the card's peaks, one definition with the profiler's roofline
 # (runtime.profiler.H100_CHIP, the NVIDIA H100 SXM data sheet, dense): 8-bit
 # tensor-core multiply-adds per second (1,979 T int8 ops), device memory
@@ -462,7 +487,8 @@ class PlainYoloV2Q(YoloV2Q):
                         q8.conv_s8_plain),
                "w8a16": (q8.mm_w8a16_plain, q8.conv3x3_w8a16_plain,
                          q8.conv_w8a16_plain)}
-    pooled = {"int16": q16.conv3x3_pool_q16_plain}
+    pooled = {"int16": q16.conv3x3_pool_q16_plain,
+              "int8": q8.conv3x3_pool_s8_plain}
 
 
 def reset_launches() -> None:
@@ -471,17 +497,30 @@ def reset_launches() -> None:
     nms.reset_launches()
 
 
+def route_kernel(tier: str, route: str) -> str:
+    """The name of the kernel that runs ``route`` in ``tier``."""
+    mm, c3, conv = TIER_KERNELS[tier]
+    return {"mm": mm, "conv3": c3, "conv": conv,
+            "conv3_pool": TIER_POOLED.get(tier)}[route]
+
+
 def route_launches(tier: str, route: dict) -> dict[str, int]:
     """Kernel -> its launches in one forward of a ``tier`` model whose convs
     take ``route`` ({conv idx: (route, pool order)}, as engine_plan.kernels
     gives it)."""
-    mm, c3, conv = TIER_KERNELS[tier]
-    name = {"mm": mm, "conv3": c3, "conv": conv,
-            "conv3_pool": "conv3x3_pool_q16"}
     out: dict[str, int] = {}
     for k, _ in route.values():
-        out[name[k]] = out.get(name[k], 0) + 1
+        name = route_kernel(tier, k)
+        out[name] = out.get(name, 0) + 1
     return out
+
+
+def unfused_copy(model: YoloV2Q) -> YoloV2Q:
+    """``model`` (its buffers shared) with every conv that computes its
+    pool run unfused, the pool as its own op: the convs alone."""
+    m = copy.copy(model)
+    m.route, m.folded = unfused(model.route), set()
+    return m
 
 
 @contextlib.contextmanager
@@ -571,13 +610,15 @@ def library_call(name: str, x: torch.Tensor, w: torch.Tensor,
     b = w.reshape(-1, w.shape[-1])
     if name in INT8_KERNELS and int_mm_ok(a, b):
         a, b = a.contiguous(), b.contiguous()
-        return (lambda: torch._int_mm(a, b)), "_int_mm"
-    a, b = a.to(torch.float64), b.to(torch.float64)
-    if name == "conv3x3_pool_q16":
+        fn, what = (lambda: torch._int_mm(a, b)), "_int_mm"
+    else:
+        a, b = a.to(torch.float64), b.to(torch.float64)
+        fn, what = (lambda: a @ b), "matmul fp64"
+    if name in POOLED_KERNELS:
         sums = (*x.shape[:3], w.shape[-1])
-        return (lambda: pool.maxpool((a @ b).reshape(sums), 2, 2, 0),
-                "matmul fp64 + maxpool")
-    return (lambda: a @ b), "matmul fp64"
+        return (lambda: pool.maxpool(fn().reshape(sums), 2, 2, 0),
+                what + " + maxpool")
+    return fn, what
 
 
 def add_bound(acc: list, part: tuple) -> None:
@@ -1325,6 +1366,100 @@ def phase_kernels_pool(check: KernelCheck, dev: torch.device) -> None:
                           wraps=True, order=order)
             cases += 1
     say(f"[kernels] {cases} conv3x3_pool_q16 split-K cases equal")
+
+
+def phase_kernels_pool8(check: KernelCheck, dev: torch.device) -> None:
+    """conv3x3_pool_s8 against its plain version and against conv3x3_s8
+    then pool.maxpool on the card, both with torch.equal: the yolov2 416
+    convs a 2x2/s2 pool follows at batch BATCH_SHAPES (timed), 1, 8 and
+    128, K split as the wrapper chooses; both exits of the epilogue (the
+    staged tile, and the workspace's, splits forced); edge cases; K beyond
+    one s32 partial sum."""
+    def on(*arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in arrays)
+
+    def both(label, args, **kw):
+        got = check.compare("conv3x3_pool_s8", label, args, **kw)
+        x, w, b, s, leaky = args
+        want = pool.maxpool(q8.conv3x3_s8(x, w, b, s, leaky,
+                                          planes=q8.pack_s8(w)), 2, 2, 0)
+        if not torch.equal(got, want):
+            raise AssertionError(f"conv3x3_pool_s8 {label}: != conv3x3_s8 "
+                                 "then the maxpool")
+        return got
+
+    rng = np.random.default_rng(18)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    say(f"[kernels] conv3x3_pool_s8: the yolov2 416x416 convs a 2x2/s2 pool "
+        f"follows ({POOL_CONVS}) at batch {BATCH_SHAPES} (timed), 1, "
+        f"{BATCH_SLICE} and 128, K split as the wrapper chooses (tc.split), "
+        "full-range operands, a shift per column; each equal to its plain "
+        "version and to conv3x3_s8 then the maxpool")
+    spec = zoo.build("yolov2")
+    exits = set()
+    for l in spec.conv_layers():
+        if l.idx not in POOL_CONVS:
+            continue
+        leaky = l.activation == "leaky"
+        wshape = (3, 3, l.c, l.n)
+        for bsz in (BATCH_SHAPES, 1, BATCH_SLICE, 128):
+            args = on(*full_operands8(rng, (bsz, l.h, l.w, l.c), wshape,
+                                      np.int8, torch.int8))
+            kps = tc.split(bsz * l.h * l.w, l.n, 9 * l.c, sms, tc.S8)
+            splits = -(-(-(-9 * l.c // tc.S8.bk)) // kps)
+            exits.add(splits > 1)
+            label = f"conv{l.idx} {l.h}x{l.w}x{l.c}->{l.n} b={bsz}"
+            both(label, args + (leaky,), timed=bsz == BATCH_SHAPES)
+            say(f"  conv3x3_pool_s8 {label}: equal, K {9 * l.c} in {splits} "
+                f"splits of {kps * tc.S8.bk}")
+            del args
+        torch.cuda.empty_cache()
+
+    say("[kernels] conv3x3_pool_s8 edge cases, leaky on/off: shift vectors "
+        f"mixing {SHIFTS} over the columns at C=3, 7, 24 and 40 (16-byte "
+        "copies or not), ragged M and N; then through the split-K exit (the "
+        "last block of a tile pools the workspace's sums), the K steps per "
+        f"split forced; then K beyond one s32 partial sum ({tc.KMAX}), "
+        "x = w = -128, at K=131,472 sums that leave int32")
+    cases = 0
+    choose = tc.split
+    try:
+        for leaky in (False, True):
+            for (bb, h, wd, c, n) in ((1, 14, 12, 3, 40), (2, 6, 10, 7, 70),
+                                      (1, 6, 8, 24, 20), (2, 8, 6, 40, 64)):
+                args = on(*mixed_operands8(rng, (bb, h, wd, c), (3, 3, c, n),
+                                           np.int8, torch.int8))
+                both(f"mixed shifts {bb}x{h}x{wd}x{c}->{n} leaky={leaky}",
+                     args + (leaky,))
+                cases += 1
+            for (bb, h, wd, c, n), steps in (
+                    ((1, 6, 10, 16, 70), (1,)), ((2, 8, 12, 40, 32), (1, 2)),
+                    ((1, 52, 52, 128, 256), (1, 3, 5))):
+                args = on(*full_operands8(rng, (bb, h, wd, c), (3, 3, c, n),
+                                          np.int8, torch.int8))
+                for kps in steps:
+                    tc.split = lambda *a, kps=kps: kps   # noqa: E731
+                    both(f"{bb}x{h}x{wd}x{c}->{n} leaky={leaky}, {kps} K "
+                         "steps per split", args + (leaky,))
+                    exits.add(True)
+                    cases += 1
+                tc.split = choose
+            for c, shift, wraps in ((3700, 23, False), (14608, 25, True)):
+                x = np.full((1, 4, 6, c), -128, np.int8)
+                w = np.full((3, 3, c, 16), -128, np.int8)
+                args = on(x, w, bias8(rng, 16, torch.int8),
+                          np.full(16, shift, np.int32))
+                both(f"1x4x6x{c}->16 (K={9 * c}) x=w=-128 leaky={leaky}",
+                     args + (leaky,), wraps=wraps)
+                cases += 1
+    finally:
+        tc.split = choose
+    if exits != {False, True}:
+        raise AssertionError(f"conv3x3_pool_s8: exits reached {exits}; want "
+                             "both the staged tile and the workspace")
+    say(f"[kernels] {cases} conv3x3_pool_s8 edge and split-K cases equal, "
+        "both exits reached")
 
 
 def phase_kernels_int8(check: KernelCheck, dev: torch.device) -> None:
@@ -2168,8 +2303,7 @@ def phase_slice(spec, store: WeightStore, tier: str,
     reset_launches()
     eng = Engine(spec, store, tier, dev)
     det = Engine(spec, store, tier, dev, device_nms=True)
-    per_forward = ({} if fp32 else route_launches(
-        tier, engine_plan.kernels(spec, eng.model.kinds)))
+    per_forward = {} if fp32 else route_launches(tier, eng.model.route)
     if tier == "int16":
         path = card_plan_file(dev)
         if (eng.plan_source != path or det.plan_source != path
@@ -2782,6 +2916,8 @@ def kernel_names(dev: torch.device) -> dict[str, str]:
            lambda o=o: q16.conv3x3_pool_q16(c16, k16, b, 3, True, o,
                                             planes=pk16))
           for o in q16.POOL_ORDERS),
+        ("conv3x3_pool_s8", lambda: q8.conv3x3_pool_s8(c8, k8, b, s, True,
+                                                       planes=ps8)),
     ]
     names: dict[str, str] = {}
     for name, call in calls:
@@ -3102,6 +3238,82 @@ def phase_profile_pool(model: YoloV2Q, p1_model: YoloV2Q, dev: torch.device,
     return forward
 
 
+def phase_profile_pool8(model: YoloV2Q, dev: torch.device,
+                        names: dict[str, str]) -> dict:
+    """The int8 tier's fused convs (conv3x3_pool_s8, the convs of ``model``,
+    the int8 engine's, whose route computes the pool) against conv3x3_s8
+    then pool.maxpool, at batch 1, BATCH_SLICE and 128, on random
+    full-range int8 inputs and the model's weights: both alone on the device
+    (CUDA graph replays), held equal (torch.equal), with the bound of each
+    (its operations or its bytes: input, weights, the pooled output, bias
+    and shift once); and the fused kernel's device time in the model's
+    forward (device_ms_by_kernel). Returns, per batch, those summed over
+    one forward's fused convs."""
+    rng = np.random.default_rng(3)
+    fused_convs = [l for l in model.spec.conv_layers()
+                   if model.route[l.idx][0] == "conv3_pool"]
+    forward = {}
+    for bsz in (1, BATCH_SLICE, 128):
+        f = forward[bsz] = new_forward()
+        f["graph_ms"] = f["library_graph_ms"] = 0.0
+        f["ms"] = f["plain_ms"] = f["library_ms"] = None
+        f["library"].add("conv3x3_s8 + maxpool")
+        for l in fused_convs:
+            x = torch.from_numpy(rng.integers(
+                -128, 128, (bsz, l.h, l.w, l.c)).astype(np.int8)).to(dev)
+            w, b = getattr(model, f"w{l.idx}"), getattr(model, f"b{l.idx}")
+            s, leaky = getattr(model, f"s{l.idx}"), l.activation == "leaky"
+            planes = getattr(model, f"p{l.idx}")
+            p = model.spec.layers[l.idx + 1]
+
+            def fused():
+                return q8.conv3x3_pool_s8(x, w, b, s, leaky,   # noqa: B023
+                                          planes=planes)   # noqa: B023
+
+            def unfused():
+                return pool.maxpool(q8.conv3x3_s8(   # noqa: B023
+                    x, w, b, s, leaky, planes=planes),   # noqa: B023
+                    p.size, p.stride, p.padding)   # noqa: B023
+
+            if not torch.equal(fused(), unfused()):
+                raise AssertionError(f"[profile pool8] b={bsz} conv{l.idx}: "
+                                     "conv3x3_pool_s8 != conv3x3_s8 + maxpool")
+            g, u = graph_ms(fused), graph_ms(unfused)
+            out = bsz * l.h * l.w // 4 * l.n
+            part = bound(bsz * l.h * l.w, 9 * l.c, l.n, 1,
+                         x.numel() + w.numel() + out + 8 * l.n)
+            f["graph_ms"] += g
+            f["library_graph_ms"] += u
+            add_bound(f["bound"], part)
+            say(f"[profile pool8] b={bsz} conv{l.idx} {l.h}x{l.w}x{l.c}->"
+                f"{l.n}: conv3x3_pool_s8 {g:.4f} ms, conv3x3_s8 + maxpool "
+                f"{u:.4f} ms (graph replays), bound {max(part):.4f} ms "
+                f"({'operations' if part[0] >= part[1] else 'bytes'})")
+            del x
+        say(f"[profile pool8] b={bsz} per forward ({len(fused_convs)} fused "
+            f"convs): conv3x3_pool_s8 {f['graph_ms']:.4f} ms, conv3x3_s8 + "
+            f"maxpool {f['library_graph_ms']:.4f} ms, bound "
+            f"{f['bound'][0]:.4f} ms ({bound_by(f['bound'])})")
+        xb = torch.from_numpy(rng.integers(
+            0, 256, (bsz, model.spec.net.height, model.spec.net.width, 3),
+            dtype=np.uint8)).to(dev)
+        by, glue_top, _ = device_ms_by_kernel(
+            lambda: model(xb), names, reps=3)   # noqa: B023
+        del xb
+        torch.cuda.empty_cache()
+        if not sum(by.values()):
+            say(f"[profile pool8] b={bsz}: the profiler saw no device time")
+            continue
+        f["device_ms"] = by["conv3x3_pool_s8"]
+        say(f"[profile pool8] b={bsz} int8 forward, device time (profiler): "
+            f"conv3x3_pool_s8 {by['conv3x3_pool_s8']:.4f} ms, conv3x3_s8 "
+            f"{by['conv3x3_s8']:.4f}, mm_s8 {by['mm_s8']:.4f}, memsets "
+            f"{by['memset']:.4f}, glue {by['glue']:.4f} (largest "
+            f"{glue_top[0]!r} {glue_top[1]:.4f}), busy "
+            f"{sum(by.values()):.4f} ms")
+    return forward
+
+
 def graph_ms(fn, launches: int = 20, reps: int = 5) -> float:
     """Device ms of one fn() call: fn launched ``launches`` times into a
     CUDA graph, whose replays are timed with CUDA events, so the host's
@@ -3156,9 +3368,7 @@ def phase_split(model: YoloV2Q, dev: torch.device,
             tot = dict.fromkeys(("chosen", "fastest", "unsplit"), 0.0)
             near, far = 0, []
             for l in convs:
-                mm, c3, _ = TIER_KERNELS[tier]
-                name = {"mm": mm, "conv3": c3,
-                        "conv3_pool": "conv3x3_pool_q16"}[model.route[l.idx][0]]
+                name = route_kernel(tier, model.route[l.idx][0])
                 scheme = TC_KERNELS[name][0]
                 m, k = bsz * l.h * l.w, l.c * l.size * l.size
                 x = torch.from_numpy(rng.integers(
@@ -3564,7 +3774,8 @@ report_label: p6_pipeline
 batch: 8
 steps: 5
 """
-P6_KERNELS = ("mm_q16", "conv3x3_q16", "mm_s8", "conv3x3_s8")
+P6_KERNELS = ("mm_q16", "conv3x3_q16", "mm_s8", "conv3x3_s8",
+              "conv3x3_pool_s8")
 
 
 def darknet_layers(spec, rng) -> dict:
@@ -3806,7 +4017,7 @@ EVAL_BATCH = 16         # (d) evaluate_engine_batched's batch
 EVAL_THRESH = 0.05      # the protocol tool's
 CLI_STEPS = 4           # (e) cli.train, then --resume to CLI_STEPS + 2
 P7_KERNELS = ("mm_q16", "conv3x3_q16", "conv3x3_pool_q16", "mm_s8",
-              "conv3x3_s8", "mm_w8a16", "conv3x3_w8a16")
+              "conv3x3_s8", "conv3x3_pool_s8", "mm_w8a16", "conv3x3_w8a16")
 
 
 class Conv2dTF32Backward(convops.Conv2dNoTF32):
@@ -4217,7 +4428,8 @@ P8_BUDGET_S = 120.0
 # cuDNN's rounding for 8 frames against 4 (2.95e-4, 1.85e-4), which only
 # phase 7 (a)'s tolerances cover
 SPLIT_TOL = 1e-5
-P8_KERNELS = ("mm_q16", "conv3x3_q16", "nms_greedy", "mm_s8", "conv3x3_s8")
+P8_KERNELS = ("mm_q16", "conv3x3_q16", "nms_greedy", "mm_s8", "conv3x3_s8",
+              "conv3x3_pool_s8")
 # the general convs under sp: yolov2-s2 over (dp=1, sp=2), two gloo ranks
 # sharing the card, the int16 and int8 tiers, and the kernels they launch
 # (conv_q16 and conv_s8 once H is gathered before conv1)
@@ -4504,6 +4716,7 @@ def run(dev: torch.device) -> int:
     phase_kernels(check, dev)
     phase_kernels8(check, dev)
     phase_kernels_pool(check, dev)
+    phase_kernels_pool8(check, dev)
     phase_kernels_int8(check, dev)
     general_b = phase_kernels_general(check, dev)
     nms_times = phase_kernels_nms(check, dev)
@@ -4544,19 +4757,24 @@ def run(dev: torch.device) -> int:
             for what, e in engines
             for b, dt in ((BATCH_SLICE, torch.uint8), (1, torch.float32))},
             names)
-    # each tier's convs unfused: int16 through the rule run's model
+    # each tier's convs unfused: int16 through the rule run's model, int8
+    # through its engine's model with its fused convs run alone
     unfused = {tier: runs["rule" if tier == "int16" else tier]
                for tier in TIERS}
     forward = {}
     for tier in TIERS:
-        forward.update(phase_profile(unfused[tier]["eng"].model,
-                                     unfused[tier]["plain"], dev, names))
+        forward.update(phase_profile(
+            unfused_copy(unfused[tier]["eng"].model),
+            unfused_copy(unfused[tier]["plain"]), dev, names))
     forward["conv3x3_pool_q16"] = phase_profile_pool(
         runs["rule"]["eng"].model, runs["P1"]["eng"].model, dev, names)
+    forward["conv3x3_pool_s8"] = phase_profile_pool8(
+        runs["int8"]["eng"].model, dev, names)
     forward["nms_greedy"] = nms_times
     for tier in TIERS:
-        phase_split(unfused[tier]["eng"].model, dev)
+        phase_split(unfused_copy(unfused[tier]["eng"].model), dev)
     phase_split(runs["P1"]["eng"].model, dev, fused_only=True)
+    phase_split(runs["int8"]["eng"].model, dev, fused_only=True)
     say(f"[card] phases 1-4 took {time.perf_counter() - t0:.1f} s")
     runtime = phase_runtime(dev)
     for k in launches:

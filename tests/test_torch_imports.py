@@ -234,7 +234,7 @@ def test_nvcc_command_targets_sm90a_and_csrc_only():
     assert {p.name for p in srcs} == {
         "mm_q16.cu", "conv3x3_q16.cu", "conv3x3_pool_q16.cu", "mm_s8.cu",
         "mm_w8a16.cu", "conv3x3_s8.cu", "conv3x3_w8a16.cu", "nms_greedy.cu",
-        "conv_q16.cu", "conv_s8.cu", "conv_w8a16.cu"}
+        "conv_q16.cu", "conv_s8.cu", "conv_w8a16.cu", "conv3x3_pool_s8.cu"}
     objs = [cmd[cmd.index("-o") + 1] for cmd in compiles]
     assert "-shared" in link and link[link.index("-o") + 1] == "/tmp/b/lib.so"
     assert link[-len(objs):] == objs

@@ -7,7 +7,9 @@ One world of 8 ranks (module-scoped; the cases are in
 each test below reads its part of the result:
 
 - yolov2 64x64, b=4: the int16 forward over (dp=2, tp=4) and (dp=2, sp=4),
-  and int8 and w8a16 under tp: head and detections ``torch.equal`` to the
+  int8 and w8a16 under tp, and int8 under sp (its convs that fold their
+  pool on one card run unfused on the slabs): head and detections
+  ``torch.equal`` to the
   port's one-process forward of the tier, and the head ``np.array_equal``
   to the JAX package's unsharded ``build_forward(spec, tier,
   compute="int32")``; the bytes each collective moved, against the count
@@ -52,7 +54,7 @@ from yolotpu.models import yolov2 as jy
 from yolotpu.models import zoo as jzoo
 from yolotpu.parallel import mesh as jmesh
 from yolotpu_torch import checkpoint as ckpt
-from yolotpu_torch.models import zoo
+from yolotpu_torch.models import engine_plan, zoo
 from yolotpu_torch.models.yolov2 import YoloV2Q, params_fp32
 from yolotpu_torch.parallel import dryrun, launch
 from yolotpu_torch.parallel.mesh import make_mesh, tp_sharded
@@ -209,6 +211,22 @@ def test_tp_tier_equals_one_process_and_jax(world, one_process, jax_heads,
     got = world[0][f"tp_{tier}"]
     _equal(got, one_process[tier])
     np.testing.assert_array_equal(got["head"], jax_heads[tier])
+
+
+def test_int8_under_sp_equals_one_process_and_jax(world, one_process,
+                                                  jax_heads):
+    """The int8 tier over (dp=2, sp=4): one card folds the pools after
+    convs 0, 2, 6 and 10 into their conv; on a slab with its halo rows the
+    pool windows would shift by a row, so the sharded model runs those
+    convs unfused, and the head and detections still equal one process's
+    and the JAX package's."""
+    spec = zoo.build("yolov2", width=SIZE, height=SIZE)
+    route = engine_plan.kernels(spec, engine_plan.plan(spec), fold=True)
+    assert [i for i, (k, _) in route.items() if k == "conv3_pool"] == [
+        0, 2, 6, 10]
+    got = world[0]["sp_int8"]
+    _equal(got, one_process["int8"])
+    np.testing.assert_array_equal(got["head"], jax_heads["int8"])
 
 
 @pytest.mark.parametrize("case", ["tp_int16", "sp_int16"])

@@ -290,17 +290,20 @@ def test_planes_required_on_card_ignored_by_plain(name):
                                          ("w8a16", q8.pack_w8a16)])
 def test_model_packs_the_conv3_weights(tier, packer):
     """YoloV2Q packs, off the CPU, the weights of every conv of its 8-bit
-    tier, 3x3 and 1x1, with that tier's packer (buffers p{idx} of the
-    planes' shape), and none on the CPU; the packed planes of the entry conv
-    give its sums."""
+    tier, 3x3 and 1x1, the int8 convs fused with their pool included, with
+    that tier's packer (buffers p{idx} of the planes' shape), and none on
+    the CPU; the packed planes of the entry conv give its sums."""
     from yolotpu_torch.models import engine_plan, yolov2, zoo
     from yolotpu_torch.models.yolov2 import YoloV2Q
     from yolotpu_torch.runtime.engine import load_or_synthesize
     spec = zoo.build("yolov2", width=64, height=64)
-    assert YoloV2Q.packers[tier] == {"mm": packer, "conv3": packer,
-                                     "conv": packer}
-    route = engine_plan.kernels(spec, engine_plan.plan(spec, None))
-    assert {k for k, _ in route.values()} == {"mm", "conv3"}
+    routes = {"mm", "conv3", "conv"} | ({"conv3_pool"} if tier == "int8"
+                                        else set())
+    assert YoloV2Q.packers[tier] == dict.fromkeys(routes, packer)
+    route = engine_plan.kernels(spec, engine_plan.plan(spec, None),
+                                fold=tier in engine_plan.FOLD_TIERS)
+    used = {"mm", "conv3"} | ({"conv3_pool"} if tier == "int8" else set())
+    assert {k for k, _ in route.values()} == used
     assert YoloV2Q.kernels[tier][1].__name__.startswith("conv3x3_")
     store = load_or_synthesize(spec, None, precision=tier, seed=0)
     params = (yolov2.params_int8 if tier == "int8"
@@ -316,9 +319,10 @@ def test_model_packs_the_conv3_weights(tier, packer):
         assert planes.dtype == torch.uint8 and tuple(planes.shape) == \
             sch.planes_shape(l.c * l.size * l.size, l.n)
         kinds.add(route[l.idx][0])
-    assert kinds == {"mm", "conv3"}
+    assert kinds == used
     l = spec.conv_layers()[0]
-    assert route[l.idx][0] == "conv3" and l.c == 3
+    assert route[l.idx][0] == ("conv3_pool" if tier == "int8" else "conv3")
+    assert l.c == 3
     rng = np.random.default_rng(0)
     w = rng.integers(-128, 128, (3, 3, l.c, l.n)).astype(np.int8)
     xdtype = np.int8 if tier == "int8" else np.int16

@@ -23,8 +23,8 @@ CLIPS = (0.0, 1.0)
 
 def cases(device, job, job_dryrun, job_sp) -> dict:
     """Every multi-rank case of the CPU tests, in one world of 8: the
-    sharded forwards of ``job`` (each tier under (dp, tp), int16 under
-    (dp, sp)), its train step with the clip off and on, the dryrun's five
+    sharded forwards of ``job`` (each tier under (dp, tp), int16 and int8
+    under (dp, sp)), its train step with the clip off and on, the dryrun's five
     stages on ``job_dryrun``, and ``job_sp``'s cfg, whose general convs
     gather H, under (dp, sp=2) (``sp_general``). Rank 0 returns the
     gathered outputs."""
@@ -39,12 +39,12 @@ def cases(device, job, job_dryrun, job_sp) -> dict:
                                outputs=dryrun.OUTPUTS)
         out[f"tp_{tier}"] = gather_batch(model(batch_sharding(mesh)(x)), mesh)
         out["bytes"][f"tp_{tier}"] = dict(model.tally)
-        if tier == "int16":
+        if tier in ("int16", "int8"):
             model = ShardedYoloV2Q(spec, qt, params, mesh_sp, device, tier,
                                    outputs=dryrun.OUTPUTS)
-            out["sp_int16"] = gather_batch(
+            out[f"sp_{tier}"] = gather_batch(
                 model(spatial_batch_sharding(mesh_sp)(x)), mesh_sp)
-            out["bytes"]["sp_int16"] = dict(model.tally)
+            out["bytes"][f"sp_{tier}"] = dict(model.tally)
     full = job.params("fp32")
     shardings = param_shardings(full, mesh)
     local = shard_params(full, mesh)

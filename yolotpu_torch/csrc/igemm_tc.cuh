@@ -76,6 +76,10 @@
 // tile), pools and requantizes them in the epilogue's order (EpiPool) and
 // writes 16 bytes of the pooled row; the conv's own output never reaches
 // device memory.
+// The int8 tier's conv with its pool (conv3x3_pool_s8.cu, the scheme S8Pool)
+// runs the same two exits with EpiChannelPool: each column's bias and shift,
+// the four members requantized to int8 and then their max, darknet's order;
+// the pooled row leaves as 8 bytes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -192,6 +196,35 @@ struct EpiPool {
     }
 };
 
+// EpiChannel<int8_t> with the pool, the int8 tier's: out is (M / 4, N), one
+// row per pool window, and pool() requantizes each of the window's four sums
+// a[q] (q = 2 * dy + dx) with its column's bias and shift, leaky included,
+// then takes their max: darknet's order, the conv then the pool, so the
+// result is conv3x3_s8 followed by the maxpool bit for bit, wrapped sums or
+// not.
+struct EpiChannelPool {
+    using Out = int8_t;
+    static constexpr bool POOL = true;
+    using Col = EpiChannel<int8_t>::Col;
+    const int32_t* bias;   // (N,)
+    const int32_t* shift;  // (N,)
+    int8_t* out;           // (M / 4, N)
+    int leaky;
+
+    __device__ __forceinline__ Col column(int n) const {
+        return {__ldg(bias + n), __ldg(shift + n)};
+    }
+    __device__ __forceinline__ Out pool(const uint32_t a[4], Col c) const {
+        int32_t v = yq::requant<-128, 127>(a[0], c.bias, c.shift, leaky);
+#pragma unroll
+        for (int q = 1; q < 4; ++q) {
+            const int32_t r = yq::requant<-128, 127>(a[q], c.bias, c.shift, leaky);
+            v = r > v ? r : v;
+        }
+        return (Out)v;
+    }
+};
+
 // The operand schemes. Each fixes the type of A, the weight planes, the s32
 // accumulator sets, the epilogue, a STAGES-deep ring and the blocks per SM
 // asked of the compiler (MIN_BLOCKS; yq_tc_config reports them, and
@@ -228,6 +261,11 @@ struct S8Out16 : S8 {
 template <int ORDER>
 struct Q16Pool : Q16 {
     using Epi = EpiPool<ORDER>;
+};
+// S8 with the 2x2/s2 pool in the epilogue, in darknet's order: the int8
+// tier's conv fused with the pool after it.
+struct S8Pool : S8 {
+    using Epi = EpiChannelPool;
 };
 
 template <class S>

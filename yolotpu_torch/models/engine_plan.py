@@ -22,6 +22,20 @@ regular. The kernel of each route (``kernels``), by tier:
 In the int8 tier the conv that feeds the region writes int16 (head16):
 ``mm_s8``'s or ``conv_s8``'s int16 output.
 
+The int8 tier also folds pools, from the graph alone (``kernels`` with
+``fold``; the tiers in ``FOLD_TIERS``): a regular 3x3/s1 conv that a
+darknet 2x2/s2 pool follows (``next_is_pool22``), and whose own output no
+route reads, runs ``ops.q8.conv3x3_pool_s8``, route ("conv3_pool", None),
+and the pool does not run. The pool's max is taken in darknet's order
+(requant each member, then the max), so the fold is conv3x3_s8 then the
+pool bit for bit; the JAX package runs these pools as their own op:
+
+  | tier  | conv                                      | port kernel      | pool order |
+  |-------|-------------------------------------------|------------------|------------|
+  | int8  | regular 3x3/s1, a 2x2/s2 pool after it,   | conv3x3_pool_s8  | darknet's: requant each of the 4, then max |
+  |       |   its own output read by no route         |                  |            |
+  | int8  | any other regular 3x3/s1                  | conv3x3_s8       | -          |
+
 The int16 tier also takes the TPU plan's per-layer overrides, in its format
 (``YOLO2_Q16_PLAN="0:entry_sdmm,2:sd_pool"``, parsed by ``plan_overrides``,
 which with ``ALL_KINDS`` and ``next_is_pool22`` mirrors
@@ -325,14 +339,22 @@ def plan(spec: NetworkSpec,
             for l in spec.conv_layers()}
 
 
-def kernels(spec: NetworkSpec,
-            kinds: dict[int, str]) -> dict[int, tuple[str, str | None]]:
+# the tiers whose regular 3x3 convs fold the 2x2/s2 pool after them by the
+# graph alone (``kernels``' ``fold``)
+FOLD_TIERS = ("int8",)
+
+
+def kernels(spec: NetworkSpec, kinds: dict[int, str],
+            fold: bool = False) -> dict[int, tuple[str, str | None]]:
     """conv layer idx -> (kernel, pool order) for a plan's kinds: ("mm",
     None) and ("conv3", None) for a regular 1x1 and 3x3, ("conv3_pool",
     order) where the conv also computes the 2x2/s2 pool after it, which
     then does not run, and ("conv", None) for any other conv (the kinds
     "xla", "xla8" and "nchw", the only ones ``_requirement`` lets run it);
-    NotImplementedError for a conv no integer kernel runs."""
+    NotImplementedError for a conv no integer kernel runs. With ``fold``
+    (the tiers of FOLD_TIERS), a regular 3x3 that a darknet 2x2/s2 pool
+    follows and whose own output no route reads is ("conv3_pool", None):
+    the pool in darknet's order."""
     routed = {s for l in spec.layers if isinstance(l, RouteSpec)
               for s in l.layers}
     out = {}
@@ -344,6 +366,9 @@ def kernels(spec: NetworkSpec,
             out[l.idx] = ("conv3_pool", order)
         elif refusal(l):
             raise NotImplementedError(refusal(l))
+        elif (fold and _regular(l) and l.size == 3 and l.idx not in routed
+              and next_is_pool22(spec, l.idx)):
+            out[l.idx] = ("conv3_pool", None)
         elif _regular(l) and l.size in (1, 3):
             out[l.idx] = ("mm" if l.size == 1 else "conv3", None)
         else:

@@ -239,6 +239,14 @@ def head_fp32(spec: NetworkSpec, params: dict, x: torch.Tensor,
     return cur   # headless graph
 
 
+def unfused(route: dict[int, tuple[str, str | None]]) -> dict:
+    """``route`` with each conv that computes the pool after it run as
+    "conv3" instead (on the same planes), so that pool runs as its own
+    op."""
+    return {i: ("conv3", None) if k == "conv3_pool" else (k, o)
+            for i, (k, o) in route.items()}
+
+
 class YoloV2Q(nn.Module):
     """The network of one precision tier ("fp32", "int16", "int8" or
     "w8a16"). ``forward(x)`` takes (B, H, W, 3) uint8 frames (normalised by
@@ -256,7 +264,8 @@ class YoloV2Q(nn.Module):
     computes its pool: a conv a plan fuses with its pool runs as
     conv3x3_q16 (the same planes) and the pool as its own op, so the conv's
     own output is recorded, as ``yolotpu``'s debug build does (it falls
-    back to the unfused conv for dumps).
+    back to the unfused conv for dumps). ``pools`` counts the network's
+    2x2/s2 maxpools and ``folded`` holds those a conv computes.
 
     In the int8 tier the conv feeding the region runs the head16 epilogue:
     int16 output at an 8-bits-finer scale, dequantized at ``output_q + 8``,
@@ -270,29 +279,34 @@ class YoloV2Q(nn.Module):
     stride and padding; its weight stays HWIO (k, k, C, N).
 
     On the card the weights of the integer tiers' convs, which all run on
-    the tensor cores (every tier's mm, conv3 and conv, and the int16 tier's
-    conv fused with its pool), are also packed here, once (buffers
-    ``p{idx}``, by ``packers``). The fp32 tier keeps each weight as a
+    the tensor cores (every tier's mm, conv3 and conv, and the int16 and
+    int8 tiers' convs fused with their pool), are also packed here, once
+    (buffers ``p{idx}``, by ``packers``). The fp32 tier keeps each weight as a
     contiguous (Cout, k, k, Cin) tensor and hands ``conv_fp32`` its HWIO
     view, which cuDNN reads as a channels-last filter with no copy.
 
     ``overrides`` ({conv idx: TPU engine kind}, the ``YOLO2_Q16_PLAN``
     lever) is taken by the int16 tier only, as ``yolotpu`` plans only its
     int16 Pallas path; ``engine_plan`` maps each kind to a kernel, and a conv
-    fused with its pool skips that pool."""
+    fused with its pool skips that pool. The int8 tier fuses pools by the
+    graph alone (``engine_plan.kernels``' ``fold``): every regular 3x3 that
+    a darknet 2x2/s2 pool follows, and whose own output no route reads, runs
+    ``q8.conv3x3_pool_s8``, the pool in darknet's order."""
 
     # precision -> the conv functions of the routes (mm, conv3, conv)
     kernels = {"int16": (q16.mm_q16, q16.conv3x3_q16, q16.conv_q16),
                "int8": (q8.mm_s8, q8.conv3x3_s8, q8.conv_s8),
                "w8a16": (q8.mm_w8a16, q8.conv3x3_w8a16, q8.conv_w8a16)}
     precisions = ("fp32", *kernels)
-    # precision -> the conv fused with the 2x2/s2 pool after it
-    pooled = {"int16": q16.conv3x3_pool_q16}
+    # precision -> the conv fused with the 2x2/s2 pool after it (int16's
+    # takes the route's pool order; int8's has darknet's alone)
+    pooled = {"int16": q16.conv3x3_pool_q16, "int8": q8.conv3x3_pool_s8}
     # precision -> route -> what packs that route's weights for the tensor
     # cores, on the card (the kernels' planes= operand)
     packers = {"int16": {"mm": q16.pack_q16, "conv3": q16.pack_q16,
                          "conv3_pool": q16.pack_q16, "conv": q16.pack_q16},
-               "int8": dict.fromkeys(("mm", "conv3", "conv"), q8.pack_s8),
+               "int8": dict.fromkeys(("mm", "conv3", "conv3_pool", "conv"),
+                                     q8.pack_s8),
                "w8a16": dict.fromkeys(("mm", "conv3", "conv"),
                                       q8.pack_w8a16)}
 
@@ -319,10 +333,10 @@ class YoloV2Q(nn.Module):
         fp32 = precision == "fp32"
         self.plan = None if fp32 else Int16Plan.build(spec, qtables)
         self.kinds = {} if fp32 else engine_plan.plan(spec, overrides)
-        self.route = {} if fp32 else engine_plan.kernels(spec, self.kinds)
+        self.route = {} if fp32 else engine_plan.kernels(
+            spec, self.kinds, fold=precision in engine_plan.FOLD_TIERS)
         if "acts" in self.outputs:
-            self.route = {i: ("conv3", None) if k == "conv3_pool" else (k, o)
-                          for i, (k, o) in self.route.items()}
+            self.route = unfused(self.route)
         region_idx = spec.region.idx if spec.region is not None else None
         head = None if region_idx is None else region_idx - 1
         if precision == "int8" and self.route.get(head, ("",))[0] == "conv3":
@@ -331,6 +345,8 @@ class YoloV2Q(nn.Module):
             self.route[head] = ("conv", None)
         self.folded = {idx + 1 for idx, (k, _) in self.route.items()
                        if k == "conv3_pool"}   # pools a conv computes
+        self.pools = sum(1 for l in spec.layers if isinstance(l, MaxPoolSpec)
+                         and l.size == 2 and l.stride == 2)
         self._needed = {s for l in spec.layers if isinstance(l, RouteSpec)
                         for s in l.layers}
         if region_idx is not None:
@@ -387,8 +403,9 @@ class YoloV2Q(nn.Module):
         if kernel == "conv":
             return conv(x, w, b, shift, leaky, l.stride, l.pad, **kw)
         if kernel == "conv3_pool":
-            return self.pooled[self.precision](x, w, b, shift, leaky, order,
-                                               **kw)
+            pooled = self.pooled[self.precision]
+            return (pooled(x, w, b, shift, leaky, **kw) if order is None
+                    else pooled(x, w, b, shift, leaky, order, **kw))
         return conv3(x, w, b, shift, leaky, **kw)
 
     def _dequantize(self, x: torch.Tensor, q: int | None) -> torch.Tensor:

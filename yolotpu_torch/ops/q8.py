@@ -15,6 +15,11 @@ an (N,) shift vector and the output type's range):
                  (replaces ``conv3x3_s8_wi``)
   conv3x3_w8a16  SAME 3x3/s1 conv, int16 NHWC x int8 HWIO -> int16
                  (replaces ``conv3x3_w8a16_wi``)
+  conv3x3_pool_s8
+                 conv3x3_s8 and the darknet 2x2/s2 maxpool after it, in
+                 darknet's order (requant, then the max), -> (B, H/2, W/2,
+                 N) int8 (replaces no Pallas kernel: the JAX package's
+                 int8 tier runs ``convops.conv_int8`` then ``pool.maxpool``)
   conv3x3_int8   conv3x3_s8 with one shift for the layer, broadcast here:
                  the same function and kernel (replaces
                  ``pallas_conv.conv3x3_int8`` and ``conv3x3_int8_im2col``)
@@ -32,8 +37,8 @@ All of them run on the 8-bit tensor cores (``csrc/igemm_tc.cuh`` and
 ``ops.tc``, the body they share with ``q16``'s tensor-core kernels;
 conv_s8 and conv_w8a16 on the general convs' own kernel,
 ``csrc/convk_tc.cuh``, launched by ``tc.launch_convk``) in two operand
-schemes: ``tc.S8`` (mm_s8, conv3x3_s8, conv3x3_int8, conv_s8: int8
-x int8, one s32 sum) and ``tc.W8A16`` (mm_w8a16, conv3x3_w8a16,
+schemes: ``tc.S8`` (mm_s8, conv3x3_s8, conv3x3_pool_s8, conv3x3_int8,
+conv_s8: int8 x int8, one s32 sum) and ``tc.W8A16`` (mm_w8a16, conv3x3_w8a16,
 conv_w8a16: each int16
 activation cut into an s8 high and a u8 low byte against the int8 weight,
 two s32 sums recombined as (high << 8) + low modulo 2^32; the TPU's low
@@ -62,7 +67,8 @@ from . import _build, q16, tc
 from .convops import requant32
 
 LAUNCHES = {"mm_s8": 0, "mm_w8a16": 0, "conv3x3_s8": 0, "conv3x3_w8a16": 0,
-            "conv3x3_int8": 0, "conv_s8": 0, "conv_w8a16": 0}
+            "conv3x3_int8": 0, "conv_s8": 0, "conv_w8a16": 0,
+            "conv3x3_pool_s8": 0}
 INT16_OUT_LAUNCHES = {"mm_s8": 0, "conv_s8": 0}
 
 _RANGE = {torch.int8: (-128, 127), torch.int16: (-32768, 32767)}
@@ -101,6 +107,16 @@ def conv3x3_s8_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                      planes=None) -> torch.Tensor:
     """conv3x3_s8 in float64; ``planes`` is taken and not read."""
     return _requant(q16.conv3x3_sum64(x, w), bias, shift, leaky, torch.int8)
+
+
+def conv3x3_pool_s8_plain(x: torch.Tensor, w: torch.Tensor,
+                          bias: torch.Tensor, shift: torch.Tensor,
+                          leaky: bool, planes=None) -> torch.Tensor:
+    """conv3x3_s8_plain's sums and per-channel requant, then the max of each
+    2x2/s2 window; ``planes`` is taken and not read."""
+    y = conv3x3_s8_plain(x, w, bias, shift, leaky)
+    b, h, wd, n = y.shape
+    return y.reshape(b, h // 2, 2, wd // 2, 2, n).amax(dim=(2, 4))
 
 
 def conv3x3_w8a16_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -152,7 +168,7 @@ def _pack(w: torch.Tensor, scheme: tc.Scheme) -> torch.Tensor:
 
 def pack_s8(w: torch.Tensor) -> torch.Tensor:
     """The planes of w, (K, N) or (k, k, C, N) int8, for the tc.S8 kernels:
-    mm_s8, conv3x3_s8, conv3x3_int8 and conv_s8."""
+    mm_s8, conv3x3_s8, conv3x3_pool_s8, conv3x3_int8 and conv_s8."""
     return _pack(w, tc.S8)
 
 
@@ -255,6 +271,32 @@ def conv3x3_s8(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         return conv3x3_s8_plain(x, w, bias, shift, leaky)
     return _launch("conv3x3_s8", "yq8_conv3x3_s8", x, w, bias, shift, leaky,
                    torch.int8, planes, tc.S8)
+
+
+def conv3x3_pool_s8(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                    shift: torch.Tensor, leaky: bool,
+                    planes: torch.Tensor | None = None) -> torch.Tensor:
+    """x (B, H, W, C) int8 with H and W even, w (3, 3, C, N) int8 -> SAME
+    3x3/s1 conv with the fused per-channel requant and the darknet 2x2/s2
+    maxpool after it, (B, H/2, W/2, N) int8: conv3x3_s8 then the pool, bit
+    for bit. On the card ``planes`` (pack_s8(w), conv3x3_s8's) is the
+    kernel's weight operand; K is split as for the conv's B*H*W rows."""
+    _check("conv3x3_pool_s8", x, w, bias, shift, torch.int8, 4)
+    b, h, wd, c = x.shape
+    if h % 2 or wd % 2:
+        raise ValueError(f"conv3x3_pool_s8: want even H and W; got {h}x{wd}")
+    if x.device.type == "cpu":
+        return conv3x3_pool_s8_plain(x, w, bias, shift, leaky)
+    n = w.shape[-1]
+    _build.check_rows("conv3x3_pool_s8", b * h * wd)
+    tc.check_planes("conv3x3_pool_s8", planes, 9 * c, n, x.device, tc.S8)
+    out = torch.empty((b, h // 2, wd // 2, n), dtype=torch.int8,
+                      device=x.device)
+    return tc.launch("conv3x3_pool_s8", "yq8_conv3x3_pool_s8", out,
+                     b * h * wd, n, 9 * c,
+                     (x.data_ptr(), planes.data_ptr(), bias.data_ptr(),
+                      shift.data_ptr()),
+                     (b, h, wd, c, n, int(leaky)), tc.S8, LAUNCHES)
 
 
 def conv3x3_int8(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,

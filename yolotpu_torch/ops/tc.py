@@ -3,10 +3,11 @@ schemes, weight-plane layout, split of K and launch.
 
 The Python side of ``csrc/igemm_tc.cuh``, whose one templated body runs
 ``q16.mm_q16`` and ``q16.conv3x3_q16`` (scheme ``Q16``), ``q8.mm_w8a16`` and
-``q8.conv3x3_w8a16`` (``W8A16``), and ``q8.mm_s8``, ``q8.conv3x3_s8`` and
-``q8.conv3x3_int8`` (``S8``) on the 8-bit tensor cores. Each scheme cuts its
-operands into 8-bit pieces, sums the products of each shift into an s32 set
-over at most ``KMAX`` values of k, and recombines the sets modulo 2^32:
+``q8.conv3x3_w8a16`` (``W8A16``), and ``q8.mm_s8``, ``q8.conv3x3_s8``,
+``q8.conv3x3_pool_s8`` and ``q8.conv3x3_int8`` (``S8``) on the 8-bit tensor
+cores. Each scheme cuts its operands into 8-bit pieces, sums the products of
+each shift into an s32 set over at most ``KMAX`` values of k, and recombines
+the sets modulo 2^32:
 
   Q16    int16 A, the weight's s8 high and u8 low planes: three sets
          (<< 16, << 8, << 0)

@@ -22,7 +22,9 @@ rank runs the same hand-written kernels as one card does, on its block:
   1x1), a 2x2/s2 pool on an odd slab (at 416 with sp=4 the slabs are 104,
   52, 26 and 13 rows, so the pool at layer 11), any other pool, the reorg,
   a route concat and the region layer; that is where the JAX package's
-  ``_batch_only`` pins it.
+  ``_batch_only`` pins it. Under sp a conv that the tier fuses with the
+  pool after it (the int8 tier's fold) runs unfused, its pool as its own
+  op: a halo row would put the kernel's pool windows off by one.
 
 int32 sums are exact and the kernels deterministic, so every mesh gives
 the replicated run's head and detections bit for bit.
@@ -33,7 +35,7 @@ from __future__ import annotations
 import torch
 
 from ..graph import ConvSpec, MaxPoolSpec, NetworkSpec, RegionSpec, RouteSpec
-from ..models.yolov2 import YoloV2Q
+from ..models.yolov2 import YoloV2Q, unfused
 from ..weights import QTables
 from . import comm
 from .mesh import Mesh, Sharding, shard_params, tp_sharded
@@ -73,6 +75,9 @@ class ShardedYoloV2Q:
                          if tp_sharded(l.n, mesh)}
         self.model = YoloV2Q(spec, qtables, shard_params(params, mesh),
                              device, precision, outputs=outputs)
+        if self.sp > 1:
+            self.model.route = unfused(self.model.route)
+            self.model.folded = set()
         # the per-channel shifts were laid out for the whole Cout
         for idx in self.tp_convs:
             s = getattr(self.model, f"s{idx}", None)

@@ -526,11 +526,15 @@ class Engine:
         pageable memory always, through the stage only where it waits for
         an earlier copy), ``staged`` (the bytes through the graph's pinned
         stage) and ``chunks`` (the DMAs that copy them in; both 0 where the
-        frames do not pass the stage), and under it
-        ``engine.queue``, ``engine.copy_in``, ``engine.launch``,
-        ``engine.fetch`` and ``engine.resume``."""
+        frames do not pass the stage), ``pools_fused`` (the 2x2/s2 pools
+        the forward computes in a conv's epilogue) and ``pools`` (all the
+        network's 2x2/s2 pools), and under it ``engine.queue``,
+        ``engine.copy_in``, ``engine.launch``, ``engine.fetch`` and
+        ``engine.resume``."""
         with trace.request("engine.request", frames=len(frames), syncs=0,
-                           staged=0, chunks=0) as req:
+                           staged=0, chunks=0,
+                           pools_fused=len(self.model.folded),
+                           pools=self.model.pools) as req:
             x = torch.from_numpy(np.ascontiguousarray(frames))
 
             def traced(v):
