@@ -74,16 +74,18 @@ after 2, 10 after 3):
    detect_device held to detect and the raw frames' tables to the host
    letterbox's, and the ms per batch and batch-1 latency, eager and replayed
    in turns, and what the device NMS adds to a replay; the launches per
-   forward are those of the engine's kinds (``engine_plan.kernels``). The
-   int16 engine runs the card's plan (``Engine.plan_source``, the plan file
-   of the card's name in ``engine_plan.plan_dir()``, which it must load
-   where there is one); the rule run, an int16 Engine with no plan file
-   (``YOLO2_PLAN_DIR`` at an empty directory), serves the same requests:
-   the planned engine's detect boxes and heads (b=1 and b=8) equal
-   (``torch.equal``) the rule's and the plain path's, and the two engines'
-   replays are timed in turns (rule, plan, plan, rule) at b=8 and b=1. Then
-   the int16 tier under the plan slices P1 and P2 (``YOLO2_Q16_PLAN``, no
-   plan file), whose heads must also equal the rule's, timed beside it;
+   forward are those of the engine's route (``engine_plan.kernels``). The
+   int16 engine runs the rule's route (convs 0, 2, 6 and 10 fold their
+   pool in order "acc": 8 mm_q16, 11 conv3x3_q16 and 4 conv3x3_pool_q16 a
+   forward); the unfused run, an int16 Engine under the lever
+   ``YOLO2_Q16_PLAN=0:xla,2:conv3,6:conv3,10:conv3`` (``UNFUSED``: conv 0,
+   at C=3, takes "xla", since "conv3" needs C>=8), serves the same
+   requests: the default engine's detect boxes and heads (b=1 and b=8)
+   equal (``torch.equal``) the unfused engine's and the plain path's, and
+   the two engines' replays are timed in turns (unfused, rule, rule,
+   unfused) at b=8 and b=1. Then the int16 tier under the plan slices P1
+   (the rule's route through explicit kinds) and P2 (``YOLO2_Q16_PLAN``),
+   whose heads must also equal the unfused engine's, timed beside it;
 4. profile: per path and graph, the replay's device time by kernel, the
    device's idle share in it and the device kernels it runs, and how many
    the decode and the NMS add (torch.profiler); per integer tier: each conv
@@ -91,7 +93,7 @@ after 2, 10 after 3):
    its plain version, a library call and its bound, summed per kernel over
    one forward (the 1x1 kernel and its library calls also alone on the
    device, in CUDA graph replays, since events around such short calls hold
-   the host's time per launch; int16 through the rule run's model); the
+   the host's time per launch; int16 through the unfused run's model); the
    eager forward's device time by kernel, its
    largest glue kernel and the device's idle share against its time per
    forward (torch.profiler, each kernel known by its full name), the bytes
@@ -107,8 +109,8 @@ after 2, 10 after 3):
    tensor-core convs and P1's and the int8 tier's fused convs at batch 1
    and 8, the device time (CUDA graph replays) of every split of K beside
    the one ``tc.split`` picks;
-5. runtime: ``cli.gpu_check`` (its five checks must pass; its device table
-   names the card's int16 plan); then the streaming runtime through
+5. runtime: ``cli.gpu_check`` (its five checks must pass; it prints the
+   int16 route of yolov2 416); then the streaming runtime through
    ``cli.main``'s own wiring (``load_model``,
    ``build_engine``, ``labels_of``, ``stream_config`` from a parsed argv:
    int16, synthetic weights, ``--batch-size 8 --device-nms --topk 845``)
@@ -142,7 +144,7 @@ after 2, 10 after 3):
    engines' detect heads from the reloaded store equal (``torch.equal``)
    those of the same store built in memory and never written, the int16
    ones also the plain versions on the card; ``profile_layers`` and
-   ``profile_prefix`` (int16, b=8, the card's plan) with the H100 roofline of
+   ``profile_prefix`` (int16, b=8, the rule's route) with the H100 roofline of
    each (a row for all 32 layers, every conv row above 0 ms; no reading
    faster than 1.05 of its bound: each row of ``profile_layers``, and each
    prefix's own time, not its rows, which are differences of two readings),
@@ -154,10 +156,9 @@ after 2, 10 after 3):
    one), ``compare`` of the two and
    ``parse-log`` of the detect requests' log; ``cli.pipeline`` over its six
    stages (synthetic weights, batch 8, 5 steps), exit 0; the launches of
-   ``mm_q16``, ``conv3x3_q16``, ``mm_s8``, ``conv3x3_s8`` and
-   ``conv3x3_pool_s8`` in this phase (and ``conv3x3_pool_q16`` where the
-   card's plan fuses a pool), read just
-   after it, join the kernels' counts.
+   ``mm_q16``, ``conv3x3_q16``, ``conv3x3_pool_q16``, ``mm_s8``,
+   ``conv3x3_s8`` and ``conv3x3_pool_s8`` in this phase, read just after
+   it, join the kernels' counts.
 
 7. training and the accuracy protocol, yolov2 416 (published widths and
    depth): (a) one train step (region loss, backward, SGD with momentum,
@@ -174,10 +175,11 @@ after 2, 10 after 3):
    alone; (c) a checkpoint of (a)'s state reloaded bit for bit and resumed
    one step, and the trained store exported and reloaded bit for bit; (d)
    the trained store quantized per tier and scored on the 64 eval scenes
-   through ``eval.evaluate_engine_batched``: int16 (the card's plan and the
-   rule), int8 and w8a16 on their kernels, each with heads bit-equal to the
-   plain path's on the card on every scene and the same mAP, the planned
-   int16 heads bit-equal to the rule's on every scene, and fp32; the mAP_50
+   through ``eval.evaluate_engine_batched``: int16 (the rule's route and
+   the unfused lever's), int8 and w8a16 on their kernels, each with heads
+   bit-equal to the plain path's on the card on every scene and the same
+   mAP, the rule's int16 heads bit-equal to the unfused ones on every
+   scene, and fp32; the mAP_50
    of each and its delta against fp32 (200 steps: not evidence); the
    kernel launches of that run, counted from 0, join the kernels' counts;
    (e) ``cli.train`` on the card: synthetic steps with checkpoints, a
@@ -207,9 +209,10 @@ after 2, 10 after 3):
    stages in a world of one rank on NCCL (a mesh of 1 x 1: only size-1
    gathers reach NCCL, the batch gathers and stage 5's int16 gather as
    uint8; no tp, sp or dp collective runs there); the ranks' launches of
-   ``mm_q16``, ``conv3x3_q16``, ``nms_greedy``, ``mm_s8``, ``conv3x3_s8``
-   and ``conv3x3_pool_s8`` (each above 0, no other kernel) join the
-   kernels' counts;
+   ``mm_q16``, ``conv3x3_q16``, ``conv3x3_pool_q16``, ``nms_greedy``,
+   ``mm_s8``, ``conv3x3_s8`` and ``conv3x3_pool_s8`` (each above 0, no
+   other kernel; under sp the folded convs run unfused) join the kernels'
+   counts;
    then yolov2-s2 at 416 over a (dp=1, sp=2) mesh, two gloo ranks sharing
    the card, b=2, in the int16 and int8 tiers: each rank quantizes its H
    slab, runs conv0 (3x3/s1) on it with one halo row from its neighbour
@@ -246,9 +249,8 @@ after 2, 10 after 3):
    ``predict_batch_rgb`` at batch 8 and 1, each a replay of a captured
    graph), its launches per captured forward checked, the replayed heads
    bit-equal to the eager forward and to the plain versions on the card,
-   the batch-8 replay's ms and the batch-1 p50/p90; the int16 engine runs
-   the rule's kinds with nothing raised, since the card's plan file is
-   keyed to yolov2 (``engine_plan.plan_key``); the mixed cfg of
+   the batch-8 replay's ms and the batch-1 p50/p90; the rule folds no pool
+   there (none is left); the mixed cfg of
    tests/test_torch_general_conv.py in every integer tier on the card,
    its heads bit-equal to the CPU's plain path (the int8 3x3 head on
    conv_s8's int16 output); ``profile_layers`` at int16 batch 8, the five
@@ -470,11 +472,18 @@ FP32_HEAD_TOL = 1e-4
 # class scores spread over 80 classes and reach 0.25 rarely; at 0.05 about 90
 # detections a frame survive
 DETECT_THRESH = 0.05
-# the int16 plan slices: name -> (YOLO2_Q16_PLAN, per-forward launches of
-# mm_q16, conv3x3_q16, conv3x3_pool_q16, the pools that run as their own op)
 SPLIT_SWEEP = 32   # the most splits of K that phase_split times
+# the int16 plan slices: name -> (YOLO2_Q16_PLAN, per-forward launches of
+# mm_q16, conv3x3_q16, conv3x3_pool_q16, the pools that run as their own op);
+# P1 names the rule's route, P2 changes the order of convs 0 and 2 (6 and
+# 10 by the rule)
 PLANS = {"P1": ("0:entry_sdmm,2:sd_pool,6:sd_pool,10:sd_pool", (8, 11, 4), [17]),
-         "P2": ("0:entryf,2:conv3p2,4:conv3p2", (8, 13, 2), [7, 11, 17])}
+         "P2": ("0:entryf,2:conv3p2,4:conv3p2", (8, 11, 4), [17])}
+# the lever that runs every conv the int16 rule folds unfused (conv 0, at
+# C=3, as "xla": "conv3" needs C>=8), and the rule's route at yolov2 416
+UNFUSED = "0:xla,2:conv3,6:conv3,10:conv3"
+RULE_FOLDS = dict.fromkeys((0, 2, 6, 10), "acc")
+RULE_LAUNCHES = {"mm_q16": 8, "conv3x3_q16": 11, "conv3x3_pool_q16": 4}
 
 
 class PlainYoloV2Q(YoloV2Q):
@@ -523,26 +532,15 @@ def unfused_copy(model: YoloV2Q) -> YoloV2Q:
     return m
 
 
-@contextlib.contextmanager
-def no_plan_file():
-    """YOLO2_PLAN_DIR at an empty directory: an int16 Engine built inside
-    runs the default rule (with YOLO2_Q16_PLAN, where set)."""
-    with tempfile.TemporaryDirectory() as empty, \
-            unittest.mock.patch.dict(os.environ, {"YOLO2_PLAN_DIR": empty}):
-        yield
+def lever(plan: str):
+    """YOLO2_Q16_PLAN at ``plan`` while an int16 Engine is built."""
+    return unittest.mock.patch.dict(os.environ, {"YOLO2_Q16_PLAN": plan})
 
 
-def card_plan_file(dev: torch.device) -> str | None:
-    """The plan file of the card's name in engine_plan.plan_dir(), or None."""
-    path = os.path.join(engine_plan.plan_dir(), engine_plan.device_kind_slug(
-        torch.cuda.get_device_name(dev)) + ".json")
-    return path if os.path.exists(path) else None
-
-
-def planned_kinds(spec, dev: torch.device) -> dict[int, str]:
-    """The kinds of the int16 engine's plan for ``spec`` on ``dev``."""
-    return engine_plan.plan(spec, engine_plan.tier_overrides(spec, "int16",
-                                                             dev))
+def folds(model: YoloV2Q) -> dict[int, str | None]:
+    """Conv idx -> pool order, for each conv of ``model`` that computes the
+    pool after it."""
+    return {i: o for i, (k, o) in model.route.items() if k == "conv3_pool"}
 
 
 def say(msg: str) -> None:
@@ -2305,15 +2303,14 @@ def phase_slice(spec, store: WeightStore, tier: str,
     det = Engine(spec, store, tier, dev, device_nms=True)
     per_forward = {} if fp32 else route_launches(tier, eng.model.route)
     if tier == "int16":
-        path = card_plan_file(dev)
-        if (eng.plan_source != path or det.plan_source != path
-                or eng.model.kinds != planned_kinds(spec, dev)):
-            raise AssertionError(f"{tag} the engines read the plan "
-                                 f"{eng.plan_source} / {det.plan_source}, "
-                                 f"kinds {eng.model.kinds}; want {path}")
-        say(f"{tag} plan: {eng.plan_source or 'no plan file, the rule'}; "
-            "kinds " + ", ".join(f"{i}:{k}" for i, k in
-                                 eng.model.kinds.items()))
+        if (folds(eng.model) != RULE_FOLDS or folds(det.model) != RULE_FOLDS
+                or per_forward != RULE_LAUNCHES):
+            raise AssertionError(f"{tag} the engines fold {folds(eng.model)} "
+                                 f"/ {folds(det.model)}, launching "
+                                 f"{per_forward} a forward; want "
+                                 f"{RULE_FOLDS}, {RULE_LAUNCHES}")
+        say(f"{tag} the rule's route: convs {RULE_FOLDS} fold their pool; "
+            f"{per_forward} a forward")
     g1 = graph_of(eng, torch.float32, net)
     results = []
     for im in frames:
@@ -2480,80 +2477,81 @@ def boxes_of(dets: list) -> np.ndarray:
                     np.float32).reshape(len(dets), -1)
 
 
-def phase_rule(spec, store: WeightStore, planned: dict,
-               dev: torch.device) -> dict:
-    """The rule run: an int16 Engine with no plan file serves phase_slice's
-    requests (3 detect, a batch of BATCH_SLICE uint8 frames), its launches
-    per captured forward those of the rule's kinds; the planned engine's
-    (``planned``, phase_slice's int16 result, whose heads it held to the
-    plain path) detect boxes and heads and its batch head equal
-    (``torch.equal``) to the rule's, and the rule's batch head to the plain
-    path's; the two engines' replays timed in turns (rule, plan, plan, rule)
-    at BATCH_SLICE and 1 (CUDA events) and their b=1 latency (host clock).
-    Returns the launches, the launches per forward, the engine and the
-    plain twin."""
-    tag = "[plan rule]"
+def phase_unfused(spec, store: WeightStore, default: dict,
+                  dev: torch.device) -> dict:
+    """The unfused run: an int16 Engine under YOLO2_Q16_PLAN=UNFUSED serves
+    phase_slice's requests (3 detect, a batch of BATCH_SLICE uint8 frames),
+    its launches per captured forward 8 mm_q16 and 15 conv3x3_q16; the
+    default engine's (``default``, phase_slice's int16 result, whose heads it
+    held to the plain path) detect boxes and heads and its batch head equal
+    (``torch.equal``) to the unfused engine's, and the unfused batch head to
+    the plain path's; the two engines' replays timed in turns (unfused,
+    rule, rule, unfused) at BATCH_SLICE and 1 (CUDA events) and their b=1
+    latency (host clock). Returns the launches, the launches per forward,
+    the engine and phase_slice's plain twin (the same weights; the profile
+    runs its convs unfused)."""
+    tag = "[unfused]"
     rng = np.random.default_rng(0)   # phase_slice's frames and batch
     net = (1, spec.net.height, spec.net.width, 3)
     frames = [rng.random((3, 480, 640), dtype=np.float32) for _ in range(3)]
     batch = rng.integers(0, 256, (BATCH_SLICE, *net[1:]), dtype=np.uint8)
     reset_launches()
-    with no_plan_file():
+    with lever(UNFUSED):
         eng = Engine(spec, store, "int16", dev)
-    rule = [eng.detect(im) for im in frames]
+    alone = [eng.detect(im) for im in frames]
     heads = eng.predict_batch_rgb(batch)
     torch.cuda.synchronize()
     launches = launch_counts()
-    per_forward = route_launches("int16", engine_plan.kernels(
-        spec, eng.model.kinds))
+    per_forward = route_launches("int16", eng.model.route)
     forwards = 2 * len(eng.graphs)
     want = dict.fromkeys(launches, 0)
     want.update({k: forwards * v for k, v in per_forward.items()})
-    if (eng.plan_source is not None or launches != want
-            or eng.model.kinds != engine_plan.plan(spec)):
-        raise AssertionError(f"{tag} the rule engine read {eng.plan_source}, "
-                             f"runs {eng.model.kinds}, launched {launches}; "
-                             f"want {want}")
-    plan = planned["eng"]
-    mine = [plan.detect(im) for im in frames]
-    pheads = plan.predict_batch_rgb(batch)
-    for i, ((rd, rr), (pd, pr)) in enumerate(zip(rule, mine)):
-        if not (torch.equal(torch.from_numpy(pr.head_chw),
-                            torch.from_numpy(rr.head_chw))
-                and torch.equal(torch.from_numpy(boxes_of(pd)),
-                                torch.from_numpy(boxes_of(rd)))):
-            raise AssertionError(f"{tag} request {i}: the planned engine's "
-                                 "head or boxes != the rule's")
+    if (folds(eng.model) or launches != want
+            or per_forward != {"mm_q16": 8, "conv3x3_q16": 15}):
+        raise AssertionError(f"{tag} the unfused engine folds "
+                             f"{folds(eng.model)}, launched {launches}; "
+                             f"want none, {want}")
+    rule = default["eng"]
+    mine = [rule.detect(im) for im in frames]
+    rheads = rule.predict_batch_rgb(batch)
+    for i, ((ad, ar), (rd, rr)) in enumerate(zip(alone, mine)):
+        if not (torch.equal(torch.from_numpy(rr.head_chw),
+                            torch.from_numpy(ar.head_chw))
+                and torch.equal(torch.from_numpy(boxes_of(rd)),
+                                torch.from_numpy(boxes_of(ad)))):
+            raise AssertionError(f"{tag} request {i}: the rule's head or "
+                                 "boxes != the unfused engine's")
     xb = torch.from_numpy(batch).to(dev)
-    plain = planned["plain"](xb)["head"].permute(0, 3, 1, 2).cpu()
-    if not (torch.equal(torch.from_numpy(pheads), torch.from_numpy(heads))
+    plain = default["plain"](xb)["head"].permute(0, 3, 1, 2).cpu()
+    if not (torch.equal(torch.from_numpy(rheads), torch.from_numpy(heads))
             and torch.equal(torch.from_numpy(heads), plain)):
-        raise AssertionError(f"{tag} batch head: planned, rule and plain "
+        raise AssertionError(f"{tag} batch head: rule, unfused and plain "
                              "differ")
-    say(f"{tag} rule engine (no plan file): {len(eng.graphs)} graphs, "
+    say(f"{tag} YOLO2_Q16_PLAN={UNFUSED}: {len(eng.graphs)} graphs, "
         f"launched " + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
-        + f" = {forwards} captured forwards x {per_forward}; the planned "
-        f"engine ({plan.plan_source}) against it: the 3 detect heads and "
-        f"their {sum(len(d) for d, _ in mine)} boxes and the batch-"
+        + f" = {forwards} captured forwards x {per_forward}; the rule's "
+        f"engine (convs {RULE_FOLDS} folded) against it: the 3 detect heads "
+        f"and their {sum(len(d) for d, _ in mine)} boxes and the batch-"
         f"{BATCH_SLICE} head torch.equal, the batch head also the plain "
         "path's on the card")
     g = {who: (graph_of(e, torch.uint8, (BATCH_SLICE, *net[1:])),
                graph_of(e, torch.float32, net))
-         for who, e in (("rule", eng), ("plan", plan))}
+         for who, e in (("unfused", eng), ("rule", rule))}
     ms8 = in_turns({w: v[0].graph.replay for w, v in g.items()},
                    lambda fn: cuda_ms(fn, reps=20))
     ms1 = in_turns({w: v[1].graph.replay for w, v in g.items()},
                    lambda fn: cuda_ms(fn, reps=50))
     lat = in_turns({w: replay_fn(v[1]) for w, v in g.items()}, latency_ms)
-    for who in ("rule", "plan"):
-        say(f"{tag} {who} replayed, in turns (rule, plan, plan, rule): batch "
-            f"{BATCH_SLICE} {' / '.join(f'{v:.3f}' for v in ms8[who])} ms, "
+    for who in ("unfused", "rule"):
+        say(f"{tag} {who} replayed, in turns (unfused, rule, rule, unfused): "
+            f"batch {BATCH_SLICE} "
+            f"{' / '.join(f'{v:.3f}' for v in ms8[who])} ms, "
             f"batch 1 {' / '.join(f'{v:.4f}' for v in ms1[who])} ms (CUDA "
             f"events); batch 1 latency p50 "
             f"{' / '.join(f'{v[0]:.3f}' for v in lat[who])} ms, p90 "
             f"{' / '.join(f'{v[1]:.3f}' for v in lat[who])} ms")
     return {"launches": launches, "per_forward": per_forward, "eng": eng,
-            "plain": planned["plain"]}
+            "plain": default["plain"]}
 
 
 S2_TIER_ROUTES = {"mm": 8, "conv3": 15, "conv": 5}   # yolov2-s2's convs
@@ -2576,8 +2574,7 @@ def phase_general_slice(dev: torch.device) -> dict:
     t0 = time.perf_counter()
     tag = "[yolov2-s2]"
     spec, store = s2_store()
-    routes = [k for k, _ in engine_plan.kernels(
-        spec, engine_plan.plan(spec)).values()]
+    routes = [k for k, _ in engine_plan.kernels(spec, "int16").values()]
     if {k: routes.count(k) for k in set(routes)} != S2_TIER_ROUTES:
         raise AssertionError(f"{tag} routes {routes}; want {S2_TIER_ROUTES}")
     gflop = sum(2 * l.out_h * l.out_w * l.n * l.c * l.size ** 2
@@ -2596,14 +2593,6 @@ def phase_general_slice(dev: torch.device) -> dict:
         fp32 = tier == "fp32"
         reset_launches()
         eng = Engine(spec, store, tier, dev)
-        if tier == "int16":
-            if eng.model.kinds != engine_plan.plan(spec):
-                raise AssertionError(f"{tag} int16 runs {eng.model.kinds} "
-                                     f"under {eng.plan_source}: not the rule")
-            say(f"{tag} int16 under {eng.plan_source or 'no plan file'}: "
-                f"plan_key {engine_plan.plan_key(spec)} (yolov2's "
-                f"{engine_plan.plan_key(zoo.build('yolov2'))}), the rule's "
-                "kinds, nothing raised")
         results = [eng.detect(im) for im in frames]
         heads = eng.predict_batch_rgb(batch)
         head1 = eng.predict_batch_rgb(batch[:1])
@@ -2770,13 +2759,13 @@ def phase_letterbox(dev: torch.device) -> None:
 
 def phase_plan(spec, store: WeightStore, name: str, default: dict,
                dev: torch.device) -> dict:
-    """An int16 plan slice through Engine under YOLO2_Q16_PLAN and no plan
-    file: its launch counts per captured forward and its replays, its
-    replayed head against its eager forward, the plain versions on the card
-    and the CPU and the rule's, and its times beside the rule's in turns
-    (rule, plan, plan, rule), eager and replayed. ``default`` is
-    phase_rule's result. Returns the launches, the launches per forward and
-    the engine."""
+    """An int16 plan slice through Engine under YOLO2_Q16_PLAN: its launch
+    counts per captured forward and its replays, its replayed head against
+    its eager forward, the plain versions on the card and the CPU and the
+    unfused engine's, and its times beside the unfused engine's in turns
+    (unfused, plan, plan, unfused), eager and replayed. ``default`` is
+    phase_unfused's result. Returns the launches, the launches per forward
+    and the engine."""
     plan, (n_mm, n_c3, n_pool), own_pools = PLANS[name]
     tag = f"[plan {name}]"
     rng = np.random.default_rng(0)
@@ -2785,15 +2774,9 @@ def phase_plan(spec, store: WeightStore, name: str, default: dict,
     batch = rng.integers(0, 256, (BATCH_SLICE, *net[1:]), dtype=np.uint8)
     # the main path, with the launch counts read around it
     reset_launches()
-    os.environ["YOLO2_Q16_PLAN"] = plan
-    try:
-        with no_plan_file():
-            eng = Engine(spec, store, precision="int16", device=dev)
+    with lever(plan):
+        eng = Engine(spec, store, precision="int16", device=dev)
         overrides = engine_plan.plan_overrides()
-    finally:
-        del os.environ["YOLO2_Q16_PLAN"]
-    if eng.plan_source is not None:
-        raise AssertionError(f"{tag} read the plan file {eng.plan_source}")
     model = eng.model
     g1 = graph_of(eng, torch.float32, net)
     results = []
@@ -2834,7 +2817,7 @@ def phase_plan(spec, store: WeightStore, name: str, default: dict,
     plain = PlainYoloV2Q(spec, eng.qtables, eng.params, dev, "int16", overrides)
     hold_detect_heads(tag, spec, frames, results, plain, dev, False)
     for who, ref in (("eager", model), ("plain", plain),
-                     ("the rule's", default["eng"].model)):
+                     ("the unfused engine's", default["eng"].model)):
         if not np.array_equal(heads, ref(xb)["head"].permute(0, 3, 1, 2)
                               .cpu().numpy()):
             raise AssertionError(f"{tag} batch head: replayed != {who}")
@@ -2846,22 +2829,23 @@ def phase_plan(spec, store: WeightStore, name: str, default: dict,
                              "plain on the CPU")
     say(f"{tag} head {heads.shape} bit-equal: replayed == eager == plain on "
         f"the card (batch {BATCH_SLICE}) == plain on the CPU (frame 0) == the "
-        "rule's kernels")
+        "unfused engine's")
 
     d = default["eng"]
     dg8 = graph_of(d, torch.uint8, (BATCH_SLICE, *net[1:]))
     g8 = graph_of(eng, torch.uint8, (BATCH_SLICE, *net[1:]))
     x1 = g1.inp.clone()
     for mode, fns, lat_fns in (
-            ("eager", {"rule": lambda: d.model(xb), name: lambda: model(xb)},
-             {"rule": lambda: d.model(x1)["head"].cpu(),
+            ("eager", {"unfused": lambda: d.model(xb),
+                       name: lambda: model(xb)},
+             {"unfused": lambda: d.model(x1)["head"].cpu(),
               name: lambda: model(x1)["head"].cpu()}),
-            ("replay", {"rule": dg8.graph.replay, name: g8.graph.replay},
-             {"rule": replay_fn(graph_of(d, torch.float32, net)),
+            ("replay", {"unfused": dg8.graph.replay, name: g8.graph.replay},
+             {"unfused": replay_fn(graph_of(d, torch.float32, net)),
               name: replay_fn(g1)})):
         ms = in_turns(fns, lambda fn: cuda_ms(fn, reps=20))
         lat = in_turns(lat_fns, latency_ms)
-        for who in ("rule", name):
+        for who in ("unfused", name):
             say(f"{tag} {mode:6s} {who:7s} batch {BATCH_SLICE}: "
                 f"{' / '.join(f'{v:.3f}' for v in ms[who])} ms per batch (in "
                 f"turns); batch 1 latency p50 "
@@ -3520,13 +3504,12 @@ def phase_runtime(dev: torch.device) -> dict:
                           native_lb, runner.timer.samples_ms)
         eng8, eng1 = runs["b8"][0], runs["b1"][0]
         torch.cuda.synchronize(dev)
-        if eng1.model.kinds != eng8.model.kinds:
-            raise AssertionError(f"{tag} the two engines' plans differ")
+        if eng1.model.route != eng8.model.route:
+            raise AssertionError(f"{tag} the two engines' routes differ")
         launches = check_launches(
             tag, "the streaming path",
             2 * (len(eng8.graphs) + len(eng1.graphs)), 2 * len(eng8.graphs),
-            route_launches("int16", engine_plan.kernels(spec,
-                                                        eng8.model.kinds)))
+            route_launches("int16", eng8.model.route))
         (idx8, dets8), (idx1, dets1) = runs["b8"][2], runs["b1"][2]
         bad = [i for i, (a, b) in enumerate(zip(dets8, dets1))
                if not same_records(a, b)]
@@ -3774,8 +3757,8 @@ report_label: p6_pipeline
 batch: 8
 steps: 5
 """
-P6_KERNELS = ("mm_q16", "conv3x3_q16", "mm_s8", "conv3x3_s8",
-              "conv3x3_pool_s8")
+P6_KERNELS = ("mm_q16", "conv3x3_q16", "conv3x3_pool_q16", "mm_s8",
+              "conv3x3_s8", "conv3x3_pool_s8")
 
 
 def darknet_layers(spec, rng) -> dict:
@@ -3896,7 +3879,7 @@ def phase_artifacts(dev: torch.device, smi: str,
                 "in-memory store")
         torch.cuda.empty_cache()
 
-        # (b) the profiler, int16 at b=8 under the card's plan
+        # (b) the profiler, int16 at b=8 on the rule's route
         t1 = time.perf_counter()
         layers = profile_layers(spec, re16, "int16", batch=PROFILE_BATCH,
                                 device=dev)
@@ -3990,13 +3973,10 @@ def phase_artifacts(dev: torch.device, smi: str,
             f"{time.perf_counter() - t1:.1f} s")
     torch.cuda.synchronize(dev)
     launches = launch_counts()
-    planned = route_launches("int16", engine_plan.kernels(
-        spec, planned_kinds(spec, dev)))
-    p6 = P6_KERNELS + tuple(k for k in planned if k not in P6_KERNELS)
-    if any(not launches[k] for k in p6) or any(
-            v for k, v in launches.items() if k not in p6):
+    if any(not launches[k] for k in P6_KERNELS) or any(
+            v for k, v in launches.items() if k not in P6_KERNELS):
         raise AssertionError(f"{tag} launched {launches}; want each of "
-                             f"{p6} and no other")
+                             f"{P6_KERNELS} and no other")
     say(f"{tag} launched " + ", ".join(f"{k} {v}" for k, v in launches.items()
                                        if v)
         + f"; phase 6 took {time.perf_counter() - t0:.1f} s")
@@ -4281,10 +4261,10 @@ def train_protocol(spec, dev: torch.device, smi: str) -> WeightStore:
 def score_tiers(spec, store: WeightStore, dev: torch.device) -> dict:
     """(d) The trained store quantized per tier as the protocol tool does
     and scored on the 64 eval scenes through evaluate_engine_batched: the
-    integer engines on their kernels (int16 under the card's plan and under
-    the rule, no plan file read, int8, w8a16), each held to the same tier's
-    plain path on the card (heads bit-equal, mAP identical), the planned
-    int16 heads bit-equal to the rule's on these trained weights, and fp32.
+    integer engines on their kernels (int16 on the rule's route and under
+    the lever UNFUSED, int8, w8a16), each held to the same tier's plain path
+    on the card (heads bit-equal, mAP identical), the rule's int16 heads
+    bit-equal to the unfused ones on these trained weights, and fp32.
     Returns the kernel launches of the engines' run, the counts set to 0
     just before it."""
     tag = "[train]"
@@ -4307,22 +4287,20 @@ def score_tiers(spec, store: WeightStore, dev: torch.device) -> dict:
                                        warmup=False))}
         recorders = {}
         reset_launches()
-        for path in (*tiers, "rule"):
-            with (no_plan_file() if path == "rule"
+        for path in (*tiers, "unfused"):
+            with (lever(UNFUSED) if path == "unfused"
                   else contextlib.nullcontext()):
-                eng = Engine(spec, store, "int16" if path == "rule" else path,
-                             dev, warmup=False)
+                eng = Engine(spec, store,
+                             "int16" if path == "unfused" else path, dev,
+                             warmup=False)
             recorders[path] = Recorder(eng)
             scores[path] = score(recorders[path])
         torch.cuda.synchronize(dev)
         launches = launch_counts()
-        fused = any(order for _, order in engine_plan.kernels(
-            spec, recorders["int16"].eng.model.kinds).values())
-        need = [k for k in P7_KERNELS if fused or k != "conv3x3_pool_q16"]
-        if any(not launches[k] for k in need) or any(
+        if any(not launches[k] for k in P7_KERNELS) or any(
                 v for k, v in launches.items() if k not in P7_KERNELS):
             raise AssertionError(f"{tag} (d) launched {launches}; want each "
-                                 f"of {need} and no other")
+                                 f"of {P7_KERNELS} and no other")
         for path, rec in recorders.items():
             plain = Recorder(PlainEngine(rec.eng))
             want = score(plain)
@@ -4334,21 +4312,17 @@ def score_tiers(spec, store: WeightStore, dev: torch.device) -> dict:
             say(f"{tag} (d) {path}: the {got.shape[0]} heads through the "
                 "kernels bit-equal to the plain path's on the card, mAP "
                 "identical")
-        planned, rule = recorders["int16"], recorders["rule"]
-        got, want = np.concatenate(planned.heads), np.concatenate(rule.heads)
-        if (planned.eng.plan_source != card_plan_file(dev)
-                or rule.eng.plan_source is not None
+        rule, alone = recorders["int16"], recorders["unfused"]
+        got, want = np.concatenate(rule.heads), np.concatenate(alone.heads)
+        if (folds(rule.eng.model) != RULE_FOLDS or folds(alone.eng.model)
                 or not np.array_equal(got, want)):
             raise AssertionError(
-                f"{tag} (d) int16 under {planned.eng.plan_source} against the "
-                f"rule ({rule.eng.plan_source}): heads equal "
-                f"{np.array_equal(got, want)}")
-        say(f"{tag} (d) int16 under "
-            f"{planned.eng.plan_source or 'no plan file'} (kinds "
-            + ",".join(f"{i}:{k}" for i, k in planned.eng.model.kinds.items()
-                       if k not in ("mm", "conv3"))
-            + f"): its {got.shape[0]} heads on the trained weights bit-equal "
-            "to the rule's")
+                f"{tag} (d) int16 folding {folds(rule.eng.model)} against "
+                f"the unfused engine (folding {folds(alone.eng.model)}): "
+                f"heads equal {np.array_equal(got, want)}")
+        say(f"{tag} (d) int16 on the rule's route (convs {RULE_FOLDS} "
+            f"folded): its {got.shape[0]} heads on the trained weights "
+            f"bit-equal to the unfused engine's (YOLO2_Q16_PLAN={UNFUSED})")
     f32 = scores["fp32"]["mAP_50"]
     say(f"{tag} (d) mAP_50 on the {len(pairs)} eval scenes at {size}x{size} "
         f"after {TRAIN_STEPS} steps (not evidence): "
@@ -4428,8 +4402,8 @@ P8_BUDGET_S = 120.0
 # cuDNN's rounding for 8 frames against 4 (2.95e-4, 1.85e-4), which only
 # phase 7 (a)'s tolerances cover
 SPLIT_TOL = 1e-5
-P8_KERNELS = ("mm_q16", "conv3x3_q16", "nms_greedy", "mm_s8", "conv3x3_s8",
-              "conv3x3_pool_s8")
+P8_KERNELS = ("mm_q16", "conv3x3_q16", "conv3x3_pool_q16", "nms_greedy",
+              "mm_s8", "conv3x3_s8", "conv3x3_pool_s8")
 # the general convs under sp: yolov2-s2 over (dp=1, sp=2), two gloo ranks
 # sharing the card, the int16 and int8 tiers, and the kernels they launch
 # (conv_q16 and conv_s8 once H is gathered before conv1)
@@ -4727,9 +4701,9 @@ def run(dev: torch.device) -> int:
     # each main path -> its launches, launches per forward and engines
     runs = {tier: phase_slice(spec, store, tier, dev)
             for tier in (*TIERS, "fp32")}
-    runs["rule"] = phase_rule(spec, store, runs["int16"], dev)
+    runs["unfused"] = phase_unfused(spec, store, runs["int16"], dev)
     for name in PLANS:
-        runs[name] = phase_plan(spec, store, name, runs["rule"], dev)
+        runs[name] = phase_plan(spec, store, name, runs["unfused"], dev)
     general = phase_general_slice(dev)
     # conv3x3_int8 is on no path, as K13 in the JAX package
     launches = {k: sum(r["launches"].get(k, 0) for r in runs.values())
@@ -4757,9 +4731,9 @@ def run(dev: torch.device) -> int:
             for what, e in engines
             for b, dt in ((BATCH_SLICE, torch.uint8), (1, torch.float32))},
             names)
-    # each tier's convs unfused: int16 through the rule run's model, int8
+    # each tier's convs unfused: int16 through the unfused run's model, int8
     # through its engine's model with its fused convs run alone
-    unfused = {tier: runs["rule" if tier == "int16" else tier]
+    unfused = {tier: runs["unfused" if tier == "int16" else tier]
                for tier in TIERS}
     forward = {}
     for tier in TIERS:
@@ -4767,7 +4741,7 @@ def run(dev: torch.device) -> int:
             unfused_copy(unfused[tier]["eng"].model),
             unfused_copy(unfused[tier]["plain"]), dev, names))
     forward["conv3x3_pool_q16"] = phase_profile_pool(
-        runs["rule"]["eng"].model, runs["P1"]["eng"].model, dev, names)
+        runs["unfused"]["eng"].model, runs["P1"]["eng"].model, dev, names)
     forward["conv3x3_pool_s8"] = phase_profile_pool8(
         runs["int8"]["eng"].model, dev, names)
     forward["nms_greedy"] = nms_times

@@ -7,8 +7,9 @@ JAX package's, on the CPU, at small sizes.
   table in engine_plan's docstring; every illegal pairing raises the same
   ValueError in both packages.
 - Under the two plan slices that chip_smoke.py runs at 416x416, P1 (the
-  "acc" order at convs 0, 2, 6, 10) and P2 (the "acc_h" order at conv 0,
-  "out" at conv 2, conv 4 unfused), the yolov2 64x64 head is bit-equal to
+  "acc" order at convs 0, 2, 6, 10, as the rule folds them) and P2 (the
+  "acc_h" order at conv 0, "out" at conv 2, conv 4 unfused, convs 6 and 10
+  by the rule), the yolov2 64x64 head is bit-equal to
   yolotpu's build_forward(..., compute="int32"), and P1's to
   compute="pallas" under the same YOLO2_Q16_PLAN; the calibrated model does
   not wrap, so the fused pools change no bit.
@@ -109,7 +110,7 @@ def test_every_kind_is_accepted_where_yolotpu_accepts_it(kind, monkeypatch):
     overrides = {idx: kind}
     kinds = engine_plan.plan(tspec, overrides)
     assert kinds[idx] == kind
-    assert engine_plan.kernels(tspec, kinds)[idx] == route
+    assert engine_plan.kernels(tspec, "int16", overrides)[idx] == route
     monkeypatch.setenv("YOLO2_Q16_PLAN", f"{idx}:{kind}")
     # yolotpu builds its weight pack for the same pairing (xla8 may fall
     # back to xla there, for weights its s8 plane split cannot hold)
@@ -143,7 +144,7 @@ def test_illegal_pairing_raises_in_both_packages(plan, monkeypatch):
 
 @pytest.mark.parametrize("plan,fused,c3", [
     (P1, {0: "acc", 2: "acc", 6: "acc", 10: "acc"}, 11),
-    (P2, {0: "acc_h", 2: "out"}, 13),
+    (P2, {0: "acc_h", 2: "out", 6: "acc", 10: "acc"}, 11),
 ])
 def test_plan_slice_head_bitexact_vs_yolotpu(plan, fused, c3):
     net = _port("yolov2", 64, plan)
@@ -184,7 +185,7 @@ def test_fused_kind_under_a_route_runs_unfused():
     and pool 17 as its own op, as yolotpu falls back to its XLA conv."""
     net = _port("yolov2", 64, "16:sd_pool")
     assert net.kinds[16] == "sd_pool"
-    assert net.route[16] == ("conv3", None) and not net.folded
+    assert net.route[16] == ("conv3", None) and 17 not in net.folded
     np.testing.assert_array_equal(_head(net, 64), _jax_head("yolov2", 64))
 
 
@@ -202,7 +203,8 @@ def test_engine_reads_the_plan_lever(monkeypatch):
     spec, store = _setup("yolov2", 64, port=True)
     frames = _frames(64)
     default = Engine(spec, store, "int16", device="cpu")
-    assert {k for k, _ in default.model.route.values()} == {"mm", "conv3"}
+    assert {i: o for i, (k, o) in default.model.route.items()
+            if k == "conv3_pool"} == dict.fromkeys((0, 2, 6, 10), "acc")
     monkeypatch.setenv("YOLO2_Q16_PLAN", P2)
     eng = Engine(spec, store, "int16", device="cpu")
     assert eng.model.route[0] == ("conv3_pool", "acc_h")

@@ -455,8 +455,7 @@ def test_yolov2_s2_int16_head_equals_yolotpu():
     spec = _net(text, True, tiers)[0]
     convs = spec.conv_layers()
     assert len(convs) == 28
-    kinds = engine_plan.plan(spec)
-    routes = [k for k, _ in engine_plan.kernels(spec, kinds).values()]
+    routes = [k for k, _ in engine_plan.kernels(spec, "int16").values()]
     assert (routes.count("mm"), routes.count("conv3"),
             routes.count("conv")) == (8, 15, 5)
     x = _frames(64)
@@ -499,8 +498,7 @@ def test_engine_plan_routes_general_convs(idx):
     knobs = dict(entry="sd", max_hw=2704)
     assert engine_plan.select_engine(l, spec) == "xla" == \
         jep.select_engine(jl, jspec, **knobs)
-    assert engine_plan.kernels(spec, engine_plan.plan(spec))[idx] == (
-        "conv", None)
+    assert engine_plan.kernels(spec, "int16")[idx] == ("conv", None)
     for tier in NET_TIERS:
         assert _port_model(MIXED_CFG, tier).route[idx] == ("conv", None)
 
@@ -541,7 +539,7 @@ def test_overrides_on_general_convs_as_yolotpu(monkeypatch, plan_text, ok):
     jy.params_q16(jspec, jstore)
     kinds = engine_plan.plan(spec, overrides)
     assert kinds[idx] == overrides[idx]
-    assert engine_plan.kernels(spec, kinds)[idx] == ("conv", None)
+    assert engine_plan.kernels(spec, "int16", overrides)[idx] == ("conv", None)
 
 
 def test_sp_slab_serves_only_darknet_padding():

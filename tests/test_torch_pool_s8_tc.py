@@ -16,18 +16,19 @@ of int8, and K beyond one s32 partial sum, sums that wrap included. The
 kernel itself runs only on the card, where chip_smoke.py holds it to the
 plain versions.
 
-Then the route: the int8 tier folds every regular 3x3 that a darknet 2x2/s2
-pool follows, and whose own output no route reads, from the graph alone;
-the other tiers' routes stay as they were; a traced engine request counts
-the pools folded.
+Then the route: the int8 and int16 tiers fold every regular 3x3 that a
+darknet 2x2/s2 pool follows, and whose own output no route reads, by one
+rule decided from the graph (int16 in order "acc", int8 in darknet's), at
+yolov2 416 and 608, yolov2-tiny and yolov2-s2; w8a16 folds nothing; the
+CPU engine of each tier runs that route.
 """
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
-from torch.profiler import ProfilerActivity, profile
 
+from test_torch_engine_plan_chip import yolov2_s2
 from test_torch_forward_q8 import _inputs, _jax_forward, _tier
 from yolotpu.ops import convops as jconv
 from yolotpu.ops import pool as jpool
@@ -35,7 +36,7 @@ from yolotpu_torch.graph import MaxPoolSpec
 from yolotpu_torch.models import engine_plan, zoo
 from yolotpu_torch.models import yolov2 as ty
 from yolotpu_torch.ops import _build, convops, pool, q8, q16, tc
-from yolotpu_torch.runtime import engine, trace
+from yolotpu_torch.runtime import engine
 from yolotpu_torch.weights import QTables
 
 # output spread the aimed shifts give, as in test_torch_q8_tc.py
@@ -249,7 +250,7 @@ def test_int8_routes_fold_the_pools_at_yolov2_416():
     assert net.route == want
     assert net.route[16] == ("conv3", None) and net.route[30] == ("mm", None)
     assert net.head16 == 30
-    assert net.folded == {1, 3, 7, 11} and net.pools == 5
+    assert net.folded == {1, 3, 7, 11}
     assert engine_plan.next_is_pool22(spec, 16) and 16 in spec.layers[25].layers
     for i in (0, 2, 6, 10):
         l = spec.layers[i]
@@ -261,45 +262,63 @@ def test_int8_routes_fold_the_pools_at_yolov2_416():
 def test_int8_acts_leaves_every_conv_unfused():
     spec, net = _meta_model("int8", outputs=("acts",))
     assert net.route == _rule(spec)
-    assert not net.folded and net.pools == 5
+    assert not net.folded
+
+
+P1 = "0:entry_sdmm,2:sd_pool,6:sd_pool,10:sd_pool"
 
 
 @pytest.mark.parametrize("precision,plan", [
-    ("int16", None), ("int16", "NVIDIA H100 80GB HBM3"), ("w8a16", None)])
-def test_other_tiers_routes_unchanged(precision, plan, monkeypatch):
-    """The int16 tier's rule and its P1 plan file, and the w8a16 tier, route
-    as before the int8 fold: only P1's four fused convs compute a pool."""
-    monkeypatch.delenv("YOLO2_PLAN_DIR", raising=False)
+    ("int16", None), ("int16", P1), ("w8a16", None)])
+def test_other_tiers_routes_unchanged(precision, plan):
+    """The int16 tier folds by the graph as int8 does, in order "acc": by
+    the rule alone and under P1's kinds (the plan the H100's search chose),
+    the same four convs, on conv3x3_q16's planes; the w8a16 tier, which has
+    no pooled kernel, folds nothing."""
     spec = zoo.build("yolov2")
-    overrides = (engine_plan.load_chip_plan(plan, spec)["plan"] if plan
-                 else None)
+    overrides = plan and engine_plan._parse_plan_items(plan)
     _, net = _meta_model(precision, overrides=overrides)
     want = _rule(spec)
-    if plan:
-        assert overrides == {0: "entry_sdmm", 2: "sd_pool", 6: "sd_pool",
-                             10: "sd_pool"}
+    if precision == "int16":
         want.update(dict.fromkeys((0, 2, 6, 10), ("conv3_pool", "acc")))
     assert net.route == want
-    assert net.folded == ({1, 3, 7, 11} if plan else set())
+    assert net.folded == ({1, 3, 7, 11} if precision == "int16" else set())
     for l in spec.conv_layers():
         assert tuple(getattr(net, f"p{l.idx}").shape) == \
             SCHEME[precision].planes_shape(l.size ** 2 * l.c, l.n)
 
 
-def test_fold_is_decided_by_the_graph():
-    """yolov2-tiny at 96: its five 2x2/s2 pools fold; its 2x2/s1 pool, which
-    follows conv 10, does not. No route reads a conv there."""
-    spec = zoo.build("yolov2-tiny", width=96, height=96)
-    kinds = engine_plan.plan(spec)
-    route = engine_plan.kernels(spec, kinds, fold=True)
+# model -> (its spec, the convs that a darknet 2x2/s2 pool follows and no
+# route reads)
+FOLD_MODELS = {
+    "yolov2 416": (lambda: zoo.build("yolov2"), {0, 2, 6, 10}),
+    "yolov2 608": (lambda: zoo.build("yolov2", width=608, height=608),
+                   {0, 2, 6, 10}),
+    "yolov2-tiny": (lambda: zoo.build("yolov2-tiny"), {0, 2, 4, 6, 8}),
+    "yolov2-s2": (lambda: yolov2_s2(416), set()),
+}
+
+
+@pytest.mark.parametrize("model", sorted(FOLD_MODELS))
+@pytest.mark.parametrize("tier", ["int16", "int8"])
+def test_fold_is_decided_by_the_graph(tier, model):
+    """One rule for both integer tiers: yolov2's conv 16, which route 25
+    reads, yolov2-tiny's 2x2/s1 pool after conv 10 and yolov2-s2's strided
+    convs fold nothing; each other regular 3x3 that a 2x2/s2 pool follows
+    folds it, in order "acc" in int16 and darknet's (None) in int8;
+    ``unfused`` and w8a16 give the convs alone."""
+    build, folds = FOLD_MODELS[model]
+    spec = build()
+    route = engine_plan.kernels(spec, tier)
+    order = {"int16": "acc", "int8": None}[tier]
+    assert {i: o for i, (k, o) in route.items() if k == "conv3_pool"} == \
+        dict.fromkeys(folds, order)
+    assert all(engine_plan.next_is_pool22(spec, i) for i in folds)
+    if 16 in route and model != "yolov2-s2":
+        assert engine_plan.next_is_pool22(spec, 16) and route[16][0] == "conv3"
+    assert ty.unfused(route) == engine_plan.kernels(spec, "w8a16")
     pools = [l for l in spec.layers if isinstance(l, MaxPoolSpec)]
-    s2 = {l.idx - 1 for l in pools if l.stride == 2}
-    assert len(s2) == 5 and len(pools) == 6
-    assert {i for i, (k, _) in route.items() if k == "conv3_pool"} == s2
-    assert engine_plan.kernels(spec, kinds) == {
-        i: (("conv3", None) if k == "conv3_pool" else (k, o))
-        for i, (k, o) in route.items()}
-    assert engine_plan.FOLD_TIERS == ("int8",)
+    assert len(pools) == {"yolov2-tiny": 6, "yolov2-s2": 0}.get(model, 5)
 
 
 @pytest.mark.parametrize("model,size,tier", [("yolov2", 64, "int8-pc"),
@@ -314,33 +333,31 @@ def test_small_int8_forward_equals_jax(model, size, tier, monkeypatch):
     net = ty.YoloV2Q(spec, qt, params, "cpu", precision)
     assert len(net.folded) == (4 if model == "yolov2" else 5)
     np.testing.assert_array_equal(net(_t(x))["head"].numpy(), want)
-    monkeypatch.setattr(engine_plan, "FOLD_TIERS", ())
+    monkeypatch.setattr(engine_plan, "FOLD_ORDER", {})
     unfused = ty.YoloV2Q(spec, qt, params, "cpu", precision)
     assert not unfused.folded
     np.testing.assert_array_equal(unfused(_t(x))["head"].numpy(), want)
 
 
 @pytest.mark.parametrize("precision,plan,fused", [
-    ("int8", "", 4), ("int16", "0:entry_sdmm,2:sd_pool,6:sd_pool,10:sd_pool", 4),
-    ("int16", "", 0), ("w8a16", "", 0)])
-def test_traced_request_counts_the_pools(precision, plan, fused, monkeypatch):
-    """A traced engine request carries ``pools_fused`` (the pools its
-    forward computes in a conv's epilogue) and ``pools`` (the network's
-    2x2/s2 pools): 4 of 5 in int8 and in int16 under P1."""
+    ("int8", "", 4), ("int16", P1, 4), ("int16", "", 4),
+    ("int16", "0:xla,2:conv3,6:conv3,10:conv3", 0), ("w8a16", "", 0)])
+def test_engine_routes_the_pools(precision, plan, fused, monkeypatch):
+    """The CPU engine runs the card's route: 4 of yolov2's 5 2x2/s2 pools
+    computed in a conv in int8 and int16 (by the rule, or under P1's
+    kinds), none under the lever that names every one of those convs
+    unfused or in w8a16; its heads equal the unfused model's."""
     monkeypatch.setenv("YOLO2_Q16_PLAN", plan)
     spec = zoo.build("yolov2", width=64, height=64)
     store = engine.load_or_synthesize(spec, None, precision, synthetic=True)
-    eng = engine.Engine(spec, store, precision=precision, device="cpu",
-                        device_nms=True)
-    frames = np.random.default_rng(3).integers(0, 256, (1, 48, 80, 3),
+    eng = engine.Engine(spec, store, precision=precision, device="cpu")
+    assert eng.model.route == engine_plan.kernels(
+        spec, precision, engine_plan.tier_overrides(precision))
+    assert len(eng.model.folded) == fused
+    assert eng.model.folded <= {1, 3, 7, 11}
+    frames = np.random.default_rng(3).integers(0, 256, (1, 64, 64, 3),
                                                dtype=np.uint8)
-    eng.predict_batch_raw_frames(frames)
-    trace.clear()
-    try:
-        with profile(activities=[ProfilerActivity.CPU]):
-            eng.predict_batch_raw_frames(frames)
-        (root,) = [s for s in trace.spans() if s.name == "engine.request"]
-    finally:
-        trace.clear()
-    assert root.attrs["pools_fused"] == fused == len(eng.model.folded)
-    assert root.attrs["pools"] == 5
+    alone = ty.YoloV2Q(spec, eng.qtables, eng.params, "cpu", precision,
+                       outputs=("head",))
+    alone.route, alone.folded = ty.unfused(alone.route), set()
+    assert torch.equal(eng.model(_t(frames))["head"], alone(_t(frames))["head"])

@@ -197,15 +197,17 @@ def test_prefix_forward_runs_the_alive_layers():
 
 def test_tier_overrides_leave_out_a_pool_kind_at_the_prefix_end(monkeypatch):
     """The engine and the profiler build a tier's model under one choice of
-    overrides: YOLO2_Q16_PLAN for int16, less a kind that folds the pool
-    after the spec's last layer; each prefix under P1 builds and runs."""
+    overrides: YOLO2_Q16_PLAN for int16, None for the other tiers; each
+    prefix under P1's first two kinds takes the whole network's route, less
+    the fold at its last conv, whose pool it does not hold, and builds and
+    runs."""
     from yolotpu_torch.graph import NetworkSpec
     from yolotpu_torch.models import engine_plan
     monkeypatch.setenv("YOLO2_Q16_PLAN", "0:entry_sdmm,2:sd_pool")
     spec = zoo.build("yolov2", width=64, height=64)
     p1 = {0: "entry_sdmm", 2: "sd_pool"}
-    assert engine_plan.tier_overrides(spec, "int16") == p1
-    assert engine_plan.tier_overrides(spec, "int8") is None
+    assert engine_plan.tier_overrides("int16") == p1
+    assert engine_plan.tier_overrides("int8") is None
     store = load_or_synthesize(spec, None, "int16", synthetic=True)
     tier = tp._tier(spec, store, "int16", "int32", torch.device("cpu"))
     x = torch.from_numpy(np.random.default_rng(4).random(
@@ -213,10 +215,12 @@ def test_tier_overrides_leave_out_a_pool_kind_at_the_prefix_end(monkeypatch):
     alive = tp.prefix_alive_sets(spec)
     for n in (1, 2, 3, 4):
         pspec = NetworkSpec(spec.net, spec.layers[:n])
-        ov = engine_plan.tier_overrides(pspec, "int16")
-        assert ov == {i: k for i, k in p1.items() if i != n - 1}, n
         model = tp._model(pspec, tier, "int16", torch.device("cpu"),
-                          ("head",))
+                          ("head",), spec)
+        assert model.kinds == {i: k for i, k in p1.items() if i < n}, n
+        assert model.route == {i: ("conv3_pool", "acc") if i < n - 1
+                               else ("conv3", None)
+                               for i in (0, 2) if i < n}, n
         out = tp._prefix_forward(model, pspec, alive[n - 1])(x)
         assert out.shape[1] == pspec.layers[-1].out_h, n
 

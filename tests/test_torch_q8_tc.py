@@ -300,8 +300,7 @@ def test_model_packs_the_conv3_weights(tier, packer):
     routes = {"mm", "conv3", "conv"} | ({"conv3_pool"} if tier == "int8"
                                         else set())
     assert YoloV2Q.packers[tier] == dict.fromkeys(routes, packer)
-    route = engine_plan.kernels(spec, engine_plan.plan(spec, None),
-                                fold=tier in engine_plan.FOLD_TIERS)
+    route = engine_plan.kernels(spec, tier)
     used = {"mm", "conv3"} | ({"conv3_pool"} if tier == "int8" else set())
     assert {k for k, _ in route.values()} == used
     assert YoloV2Q.kernels[tier][1].__name__.startswith("conv3x3_")

@@ -6,9 +6,9 @@ board binaries (``linux_app/tests/README.md:1-29``): ``test_accel``
 addr), ``test_pl_ddr`` (PL<->DDR path), ``check_hp_clocks``. Their GPU
 equivalents, runnable before any model work:
 
-  enumerate   device table (name, memory, and the int16 engine plan each
-              card runs for yolov2 416: its plan file, or the default
-              rule, and each conv's kind)
+  enumerate   device table (name, memory), and the int16 route of yolov2
+              416: the convs that fold the pool after them, with the
+              order of its max, and each other conv's kernel
   alloc       256 MiB device write/readback integrity (test_dma analog)
   compute     256x256 fp32 matmul vs numpy with TF32 off, and the int16
               datapath as one launch of the mm_q16 kernel vs its plain
@@ -43,16 +43,15 @@ def check_enumerate() -> bool:
     from ..models import engine_plan, zoo
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
     print(f"  torch {torch.__version__} CUDA {torch.version.cuda} devices={n}")
-    spec = zoo.build("yolov2")
     for i in range(n):
         free, total = torch.cuda.mem_get_info(i)
         print(f"    [{i}] {torch.cuda.get_device_name(i)}: "
               f"{(total - free) / 1e9:.2f} / {total / 1e9:.2f} GB in use")
-        knobs = engine_plan.resolve_knobs(spec, torch.device("cuda", i))
-        print(f"        int16 plan for yolov2 416: "
-              f"{knobs['source'] or 'no plan file, the default rule'}; kinds "
-              + ", ".join(f"{c}:{k}" for c, k in
-                          engine_plan.plan(spec, knobs["plan"]).items()))
+    route = engine_plan.kernels(zoo.build("yolov2"), "int16",
+                                engine_plan.tier_overrides("int16"))
+    print("  int16 route of yolov2 416: "
+          + ", ".join(f"{c}:{k}" + (f"({o})" if o else "")
+                      for c, (k, o) in route.items()))
     return n > 0
 
 

@@ -14,8 +14,9 @@ summary.md`` with a ``compare`` diff view (``scripts/yolo2_report.py``,
   its graph's capture time, the device's peak allocated memory, and with
   ``--profile-layers`` the per-layer rows of ``profile_prefix``;
 - environment: the card's name and power limit, torch and CUDA versions,
-  precision/compute mode, and the engine's plan (``plan``: the plan file it
-  read, ``Engine.plan_source``, or null, and each conv's kind).
+  precision/compute mode, and the engine's plan (``plan``: each conv's kind
+  and its route, [kernel, pool order], as ``engine_plan.kernels`` gives
+  it).
 
 Subcommands: init, run, list, compare, parse-log. ``run`` serves on
 ``--device`` (cuda by default; with no card it raises; cpu runs the
@@ -158,9 +159,10 @@ def _metrics_run(args) -> dict:
         "torch_version": torch.__version__,
         "cuda_version": torch.version.cuda,
         "power_limit_w": power_limit_w() if cuda else None,
-        "plan": {"source": eng.plan_source,
-                 "kinds": {str(i): k for i, k in
-                           (eng.model.kinds if eng.model else {}).items()}},
+        "plan": {"kinds": {str(i): k for i, k in
+                           (eng.model.kinds if eng.model else {}).items()},
+                 "route": {str(i): list(r) for i, r in
+                           (eng.model.route if eng.model else {}).items()}},
         "build_seconds": round(build_s, 2),
         "capture_seconds": round(capture_s, 2),
         "memory": ({"max_memory_allocated_bytes":
@@ -171,14 +173,17 @@ def _metrics_run(args) -> dict:
 
 
 def _plan_line(plan: dict | None) -> str:
-    """The engine's plan in one line: its file (or the default rule) and the
-    convs whose kind is not the rule's "mm" or "conv3"."""
+    """The engine's plan in one line: the convs whose kind is not the rule's
+    "mm" or "conv3", and those that fold the pool after them."""
     if not plan:
         return "not recorded"
-    kinds = plan.get("kinds", {})
-    other = [f"{i}:{k}" for i, k in kinds.items() if k not in ("mm", "conv3")]
-    return (f"{plan.get('source') or 'the default rule'}"
-            + (f" ({', '.join(other)})" if other else ""))
+    other = [f"{i}:{k}" for i, k in plan.get("kinds", {}).items()
+             if k not in ("mm", "conv3")]
+    folds = [f"{i}" + (f" ({o})" if o else "")
+             for i, (k, o) in plan.get("route", {}).items()
+             if k == "conv3_pool"]
+    return (f"kinds {', '.join(other) or 'the rule'}; pools folded at convs "
+            f"{', '.join(folds) or 'none'}")
 
 
 def _render_summary(meta: dict, metrics: dict) -> str:

@@ -22,29 +22,38 @@ regular. The kernel of each route (``kernels``), by tier:
 In the int8 tier the conv that feeds the region writes int16 (head16):
 ``mm_s8``'s or ``conv_s8``'s int16 output.
 
-The int8 tier also folds pools, from the graph alone (``kernels`` with
-``fold``; the tiers in ``FOLD_TIERS``): a regular 3x3/s1 conv that a
-darknet 2x2/s2 pool follows (``next_is_pool22``), and whose own output no
-route reads, runs ``ops.q8.conv3x3_pool_s8``, route ("conv3_pool", None),
-and the pool does not run. The pool's max is taken in darknet's order
-(requant each member, then the max), so the fold is conv3x3_s8 then the
-pool bit for bit; the JAX package runs these pools as their own op:
+Both integer tiers fold pools by one rule, from the graph and the tier
+(``kernels``): a regular 3x3/s1 conv that a darknet 2x2/s2 pool follows
+(``next_is_pool22``), and whose own output no route reads, also computes
+that pool, route ("conv3_pool", order), and the pool does not run:
 
-  | tier  | conv                                      | port kernel      | pool order |
-  |-------|-------------------------------------------|------------------|------------|
-  | int8  | regular 3x3/s1, a 2x2/s2 pool after it,   | conv3x3_pool_s8  | darknet's: requant each of the 4, then max |
-  |       |   its own output read by no route         |                  |            |
-  | int8  | any other regular 3x3/s1                  | conv3x3_s8       | -          |
+  | tier   | conv                                     | port kernel       | pool order |
+  |--------|------------------------------------------|-------------------|------------|
+  | int16  | regular 3x3/s1, a 2x2/s2 pool after it,  | conv3x3_pool_q16  | "acc": max of the 4 accumulators, then requant |
+  |        |   its own output read by no route        |                   |            |
+  | int8   | the same                                 | conv3x3_pool_s8   | None: darknet's, requant each of the 4, then max |
+  | w8a16, | -                                        | -                 | no fold: no pooled kernel |
+  |   fp32 |                                          |                   |            |
 
-The int16 tier also takes the TPU plan's per-layer overrides, in its format
+("acc" is darknet's order whenever acc + 2^(shift-1) does not wrap int32;
+the int16 fold measured faster than the unfused convs at b=1, 8 and 128 on
+an H100, ``plans/plan_search_yolov2_416_nvidia_h100_80gb_hbm3.json``.) The
+JAX package runs these pools as their own op; the int16 fold is bit-equal
+to its Pallas kinds ``entry_sdmm``/``sd_pool``, which take the max in the
+same order.
+
+The one lever over the rule is the int16 tier's ``YOLO2_Q16_PLAN``, the
+TPU plan's per-layer overrides in its format
 (``YOLO2_Q16_PLAN="0:entry_sdmm,2:sd_pool"``, parsed by ``plan_overrides``,
 which with ``ALL_KINDS`` and ``next_is_pool22`` mirrors
-``yolotpu/models/engine_plan.py``), with every kind of ``ALL_KINDS`` accepted where ``yolotpu``'s
-``params_q16`` accepts it and refused with the same ``ValueError`` where it
-does not. A kind that folds the following 2x2/s2 pool into the conv runs
-``ops.q16.conv3x3_pool_q16`` (conv3x3_q16's tensor-core body with the pool in
-its epilogue) in the order where the TPU kind takes the pool's max; the
-orders differ once acc + 2^(shift-1) wraps:
+``yolotpu/models/engine_plan.py``), with every kind of ``ALL_KINDS``
+accepted where ``yolotpu``'s ``params_q16`` accepts it and refused with the
+same ``ValueError`` where it does not. A conv the lever names runs its
+kind, fold or none, whatever the rule would give it (``2:conv3`` runs conv
+2 unfused, its pool as its own op). A kind that folds the following 2x2/s2
+pool runs ``ops.q16.conv3x3_pool_q16`` (conv3x3_q16's tensor-core body with
+the pool in its epilogue) in the order where the TPU kind takes the pool's
+max; the orders differ once acc + 2^(shift-1) wraps:
 
   | TPU kind                                       | port kernel       | pool order |
   |------------------------------------------------|-------------------|------------|
@@ -52,7 +61,7 @@ orders differ once acc + 2^(shift-1) wraps:
   | entryf (K9), entry8 (K10)                      | conv3x3_pool_q16  | "acc_h": max of each horizontal pair on the accumulator, requant, max of the vertical pair |
   | conv3p2 (K11; K12 is its flat-band form) when  | conv3x3_pool_q16  | "out": requant each of the 4, then max |
   |   a 2x2/s2 pool follows                        |                   |            |
-  | conv3p2 with no pool after; xla, xla8,         | conv3x3_q16 (K2)  | - (a following pool runs as its own op) |
+  | conv3p2 with no pool after; conv3, xla, xla8,  | conv3x3_q16 (K2)  | - (a following pool runs as its own op) |
   |   mm_patches, mm_pairs, nchw, on a regular 3x3 |                   |            |
   | mm; xla or nchw on a regular 1x1               | mm_q16            | -          |
   | xla, xla8 or nchw on any other conv            | conv_q16          | -          |
@@ -67,38 +76,26 @@ integer tier, as in ``yolotpu``, whose integer convs refuse any other
 activation (``convops.conv_int16``, ``conv_w8a16``, ``conv_int8``) and
 have no grouped form.
 
-The plan of a card (``resolve_knobs``), in the order of precedence of
-``yolotpu``'s ``resolve_knobs``: the env lever, then the card's plan file,
-then the rule above. ``YOLO2_Q16_PLAN`` wins per layer. The plan file is
-``<plan_dir()>/<device_kind_slug(name)>.json`` for a CUDA device of that
-name, written by ``python -m yolotpu_torch.tools.plan_search --emit-plan``;
-``plan_dir()`` is ``yolotpu_torch/plans/`` unless ``YOLO2_PLAN_DIR`` names
-another, never the JAX package's ``plans/``, whose files were measured on a
-TPU. A file's ``plan`` ({conv idx: kind}) applies only to the network it
-was measured on: the one whose ``plan_key`` the file stores (a kind that
-folds a pool at one network's conv may be illegal at the same index of
-another). A CUDA device with no file runs the rule and logs it once per
-device name; on the CPU no file is read. ``yolotpu``'s other knobs do not
-carry over. Its ``entry`` ("sd" runs a C<=4 entry conv as "entry_sd") is
-a per-layer kind here (``YOLO2_Q16_PLAN="0:entry_sd"``), since the search
-measures kinds per layer. ``max_hw`` and ``xla_min_c``
+``yolotpu``'s other knobs do not carry over. Its per-chip plan file is the
+rule here, for every network and card. Its ``entry`` ("sd" runs a C<=4
+entry conv as "entry_sd") is a per-layer kind here
+(``YOLO2_Q16_PLAN="0:entry_sd"``). ``max_hw`` and ``xla_min_c``
 (``YOLO2_Q16_PALLAS_MAX_HW``, ``YOLO2_Q16_XLA_MIN_C``,
 ``YOLO2_Q16_XLA_DEC8``) only send a regular 3x3 to "xla" or "xla8", which
 run the same ``conv3x3_q16`` here as "conv3" does (the table above): they
-cannot change a launch.
+cannot change a launch. ``plan_dir()`` names where the port's evidence
+files live (the search's timings, the accuracy evidence, the roofline
+tables); nothing there routes a conv.
 """
 
 from __future__ import annotations
 
-import hashlib
-import json
 import os
 import re
 
 import torch
 
 from ..graph import ConvSpec, MaxPoolSpec, NetworkSpec, RouteSpec
-from ..runtime import logging as ylog
 
 PRODUCTION_KINDS = ("mm", "conv3", "entry_sd", "xla")
 EVIDENCE_KINDS = ("entryf", "entry8", "entry_sdmm", "entry_s2d", "conv3p2",
@@ -128,20 +125,25 @@ def plan_overrides() -> dict[int, str]:
     return _parse_plan_items(os.environ.get("YOLO2_Q16_PLAN", ""))
 
 
-# ---------------------------------------------------------------------------
-# The card's plan file: <plan_dir()>/<device_kind_slug(name)>.json
-# ---------------------------------------------------------------------------
+def tier_overrides(precision: str) -> dict[int, str] | None:
+    """The overrides of a tier's model: the YOLO2_Q16_PLAN lever for int16,
+    None for the other tiers."""
+    return plan_overrides() if precision == "int16" else None
 
-_warned_kinds: set[str] = set()
 
+# ---------------------------------------------------------------------------
+# Where the port's evidence files live
+# ---------------------------------------------------------------------------
 
 def device_kind_slug(kind: str) -> str:
     return re.sub(r"[^a-z0-9]+", "_", kind.lower()).strip("_")
 
 
 def plan_dir() -> str:
-    """The port's plans/ directory: YOLO2_PLAN_DIR overrides; the default is
-    ``yolotpu_torch/plans/``."""
+    """The port's plans/ directory, where its evidence files are named by
+    the card (``device_kind_slug``): a path, not a routing knob.
+    YOLO2_PLAN_DIR overrides; the default is ``yolotpu_torch/plans/``, never
+    the JAX package's ``plans/``, whose files were measured on a TPU."""
     env = os.environ.get("YOLO2_PLAN_DIR")
     if env:
         return env
@@ -150,81 +152,12 @@ def plan_dir() -> str:
 
 
 def current_device_kind(device: torch.device | str) -> str:
-    """The name a plan file is keyed by: the card's for a CUDA device,
+    """The name an evidence file is keyed by: the card's for a CUDA device,
     "cpu" for any other."""
     device = torch.device(device)
     if device.type != "cuda":
         return "cpu"
     return torch.cuda.get_device_name(device)
-
-
-def plan_key(spec: NetworkSpec) -> str:
-    """A digest of what a per-layer plan depends on: each conv's and pool's
-    index, shape, stride, padding and activation, and every route's
-    sources."""
-    rows = []
-    for l in spec.layers:
-        if isinstance(l, ConvSpec):
-            rows.append(("conv", l.idx, l.size, l.stride, l.pad, l.c, l.n,
-                         l.h, l.w, l.activation, l.groups))
-        elif isinstance(l, MaxPoolSpec):
-            rows.append(("maxpool", l.idx, l.size, l.stride, l.padding, l.c,
-                         l.h, l.w))
-        elif isinstance(l, RouteSpec):
-            rows.append(("route", l.idx, *l.layers))
-    return hashlib.sha256(json.dumps(rows).encode()).hexdigest()[:16]
-
-
-def load_chip_plan(device_kind: str, spec: NetworkSpec) -> dict | None:
-    """The knobs of the plan file of ``device_kind`` for ``spec`` ({"plan",
-    "source": the file}), or None where there is no file; the file's
-    per-layer plan only where its ``plan_key`` is ``spec``'s."""
-    path = os.path.join(plan_dir(), f"{device_kind_slug(device_kind)}.json")
-    if not os.path.exists(path):
-        return None
-    with open(path) as f:
-        doc = json.load(f)
-    plan = {int(i): k for i, k in doc.get("plan", {}).items()}
-    for k in plan.values():
-        if k not in ALL_KINDS:
-            raise ValueError(f"{path}: unknown engine kind {k!r}")
-    return {"plan": plan if doc.get("plan_key") == plan_key(spec) else {},
-            "source": path}
-
-
-def resolve_knobs(spec: NetworkSpec, device: torch.device | str) -> dict:
-    """The plan of ``spec`` on ``device``: the env lever > the card's plan
-    file > the rule (logged once per device name on a card with no
-    file)."""
-    kind = current_device_kind(device)
-    knobs = None if kind == "cpu" else load_chip_plan(kind, spec)
-    if knobs is None:
-        knobs = {"plan": {}, "source": None}
-        if kind != "cpu" and kind not in _warned_kinds:
-            _warned_kinds.add(kind)
-            ylog.info(
-                f"engine_plan: no measured plan for device kind {kind!r} in "
-                f"{plan_dir()}; using the default rule (run python -m "
-                "yolotpu_torch.tools.plan_search --emit-plan to derive one)")
-    knobs["plan"] = {**knobs["plan"], **plan_overrides()}   # env wins
-    return knobs
-
-
-def tier_overrides(spec: NetworkSpec, precision: str,
-                   device: torch.device | str = "cpu",
-                   full: NetworkSpec | None = None) -> dict[int, str] | None:
-    """The overrides of a tier's model over ``spec`` on ``device``: for
-    int16 the per-layer plan of ``resolve_knobs``, less a kind that folds
-    the pool after ``spec``'s last layer, which ``spec`` does not hold (a
-    prefix of the network ending at that conv); None for the other tiers.
-    ``full`` is the network ``spec`` is a prefix of, whose plan it takes
-    (``spec`` itself by default)."""
-    if precision != "int16":
-        return None
-    knobs = resolve_knobs(spec if full is None else full, device)
-    last = spec.layers[-1].idx
-    return {i: k for i, k in knobs["plan"].items()
-            if i != last or k not in POOL_ORDER}
 
 
 def next_is_pool22(spec: NetworkSpec, idx: int) -> bool:
@@ -332,43 +265,53 @@ def select_engine(l: ConvSpec, spec: NetworkSpec | None = None,
     return "xla"
 
 
-def plan(spec: NetworkSpec,
-         overrides: dict[int, str] | None = None) -> dict[int, str]:
-    """conv layer idx -> kind, for every conv of the graph."""
-    return {l.idx: select_engine(l, spec, overrides)
+def plan(spec: NetworkSpec, overrides: dict[int, str] | None = None,
+         full: NetworkSpec | None = None) -> dict[int, str]:
+    """conv layer idx -> kind, for every conv of the graph; ``full``, the
+    network ``spec`` is a prefix of, is what the kinds are checked on."""
+    return {l.idx: select_engine(l, full or spec, overrides)
             for l in spec.conv_layers()}
 
 
-# the tiers whose regular 3x3 convs fold the 2x2/s2 pool after them by the
-# graph alone (``kernels``' ``fold``)
-FOLD_TIERS = ("int8",)
+# tier -> the order in which its conv fused with the 2x2/s2 pool after it
+# takes the pool's max (None: darknet's, the int8 kernel's only one); a tier
+# not named folds no pool
+FOLD_ORDER = {"int16": "acc", "int8": None}
 
 
-def kernels(spec: NetworkSpec, kinds: dict[int, str],
-            fold: bool = False) -> dict[int, tuple[str, str | None]]:
-    """conv layer idx -> (kernel, pool order) for a plan's kinds: ("mm",
-    None) and ("conv3", None) for a regular 1x1 and 3x3, ("conv3_pool",
-    order) where the conv also computes the 2x2/s2 pool after it, which
-    then does not run, and ("conv", None) for any other conv (the kinds
-    "xla", "xla8" and "nchw", the only ones ``_requirement`` lets run it);
-    NotImplementedError for a conv no integer kernel runs. With ``fold``
-    (the tiers of FOLD_TIERS), a regular 3x3 that a darknet 2x2/s2 pool
-    follows and whose own output no route reads is ("conv3_pool", None):
-    the pool in darknet's order."""
-    routed = {s for l in spec.layers if isinstance(l, RouteSpec)
+def kernels(spec: NetworkSpec, tier: str,
+            overrides: dict[int, str] | None = None,
+            full: NetworkSpec | None = None
+            ) -> dict[int, tuple[str, str | None]]:
+    """conv layer idx -> (kernel, pool order) in ``tier``: ("mm", None) and
+    ("conv3", None) for a regular 1x1 and 3x3, ("conv3_pool", order) where
+    the conv also computes the 2x2/s2 pool after it, which then does not
+    run, and ("conv", None) for any other conv (the kinds "xla", "xla8" and
+    "nchw", the only ones ``_requirement`` lets run it); NotImplementedError
+    for a conv no integer kernel runs. A conv of ``overrides`` (the lever)
+    folds where its kind folds (POOL_ORDER); any other folds by the rule of
+    the module's docstring: a regular 3x3 that a darknet 2x2/s2 pool
+    follows and whose own output no route reads, in FOLD_ORDER's order.
+    ``full`` is the network ``spec`` is a prefix of (the profiler's
+    prefixes): its route, less a fold whose pool ``spec`` does not hold."""
+    net = full or spec
+    overrides = overrides or {}
+    kinds = plan(spec, overrides, net)
+    routed = {s for l in net.layers if isinstance(l, RouteSpec)
               for s in l.layers}
+    held = {l.idx for l in spec.layers}
     out = {}
     for l in spec.conv_layers():
-        kind = kinds[l.idx]
-        order = POOL_ORDER.get(kind)
-        if (order and l.idx not in routed
-                and (kind != "conv3p2" or next_is_pool22(spec, l.idx))):
+        pool = (next_is_pool22(net, l.idx) and l.idx + 1 in held
+                and l.idx not in routed)
+        if l.idx in overrides:
+            kind = kinds[l.idx]
+            fold, order = kind in POOL_ORDER, POOL_ORDER.get(kind)
+        else:
+            fold = tier in FOLD_ORDER and _regular(l) and l.size == 3
+            order = FOLD_ORDER.get(tier)
+        if fold and pool:
             out[l.idx] = ("conv3_pool", order)
-        elif refusal(l):
-            raise NotImplementedError(refusal(l))
-        elif (fold and _regular(l) and l.size == 3 and l.idx not in routed
-              and next_is_pool22(spec, l.idx)):
-            out[l.idx] = ("conv3_pool", None)
         elif _regular(l) and l.size in (1, 3):
             out[l.idx] = ("mm" if l.size == 1 else "conv3", None)
         else:

@@ -261,11 +261,11 @@ class YoloV2Q(nn.Module):
     {layer idx: (B, h, w, c)}, in the tier's own dtype (int16; int8, with
     int16 for the head16 conv; fp32 in the fp32 tier and at the region
     layer, which holds the dequantized head). Under ``"acts"`` no conv
-    computes its pool: a conv a plan fuses with its pool runs as
-    conv3x3_q16 (the same planes) and the pool as its own op, so the conv's
+    computes its pool: a conv that folds its pool runs as its tier's
+    unfused 3x3 (the same planes) and the pool as its own op, so the conv's
     own output is recorded, as ``yolotpu``'s debug build does (it falls
-    back to the unfused conv for dumps). ``pools`` counts the network's
-    2x2/s2 maxpools and ``folded`` holds those a conv computes.
+    back to the unfused conv for dumps). ``folded`` holds the pools a conv
+    computes.
 
     In the int8 tier the conv feeding the region runs the head16 epilogue:
     int16 output at an 8-bits-finer scale, dequantized at ``output_q + 8``,
@@ -285,13 +285,14 @@ class YoloV2Q(nn.Module):
     contiguous (Cout, k, k, Cin) tensor and hands ``conv_fp32`` its HWIO
     view, which cuDNN reads as a channels-last filter with no copy.
 
-    ``overrides`` ({conv idx: TPU engine kind}, the ``YOLO2_Q16_PLAN``
-    lever) is taken by the int16 tier only, as ``yolotpu`` plans only its
-    int16 Pallas path; ``engine_plan`` maps each kind to a kernel, and a conv
-    fused with its pool skips that pool. The int8 tier fuses pools by the
-    graph alone (``engine_plan.kernels``' ``fold``): every regular 3x3 that
-    a darknet 2x2/s2 pool follows, and whose own output no route reads, runs
-    ``q8.conv3x3_pool_s8``, the pool in darknet's order."""
+    Each conv's kernel is ``engine_plan.kernels``' route for the tier: the
+    int16 and int8 tiers fold, by the graph, each darknet 2x2/s2 pool after
+    a regular 3x3 whose own output no route reads, in
+    ``engine_plan.FOLD_ORDER``'s order. ``overrides``
+    ({conv idx: TPU engine kind}, the ``YOLO2_Q16_PLAN`` lever) is taken by
+    the int16 tier only, as ``yolotpu`` plans only its int16 Pallas path,
+    and decides each conv it names. ``full`` is the network ``spec`` is a
+    prefix of (the profiler's prefixes), whose route the model takes."""
 
     # precision -> the conv functions of the routes (mm, conv3, conv)
     kernels = {"int16": (q16.mm_q16, q16.conv3x3_q16, q16.conv_q16),
@@ -299,7 +300,8 @@ class YoloV2Q(nn.Module):
                "w8a16": (q8.mm_w8a16, q8.conv3x3_w8a16, q8.conv_w8a16)}
     precisions = ("fp32", *kernels)
     # precision -> the conv fused with the 2x2/s2 pool after it (int16's
-    # takes the route's pool order; int8's has darknet's alone)
+    # takes the route's pool order; int8's has darknet's alone); the tiers
+    # that fold are engine_plan.FOLD_ORDER's
     pooled = {"int16": q16.conv3x3_pool_q16, "int8": q8.conv3x3_pool_s8}
     # precision -> route -> what packs that route's weights for the tensor
     # cores, on the card (the kernels' planes= operand)
@@ -316,7 +318,7 @@ class YoloV2Q(nn.Module):
                  overrides: dict[int, str] | None = None,
                  outputs: tuple[str, ...] = ("head", "boxes"),
                  thresh: float = 0.25, nms_thresh: float = 0.45,
-                 topk: int = 256):
+                 topk: int = 256, full: NetworkSpec | None = None):
         super().__init__()
         if precision not in self.precisions:
             raise ValueError(f"precision {precision!r} (one of "
@@ -332,9 +334,9 @@ class YoloV2Q(nn.Module):
         self.thresh, self.nms_thresh, self.topk = thresh, nms_thresh, topk
         fp32 = precision == "fp32"
         self.plan = None if fp32 else Int16Plan.build(spec, qtables)
-        self.kinds = {} if fp32 else engine_plan.plan(spec, overrides)
+        self.kinds = {} if fp32 else engine_plan.plan(spec, overrides, full)
         self.route = {} if fp32 else engine_plan.kernels(
-            spec, self.kinds, fold=precision in engine_plan.FOLD_TIERS)
+            spec, precision, overrides, full)
         if "acts" in self.outputs:
             self.route = unfused(self.route)
         region_idx = spec.region.idx if spec.region is not None else None
@@ -345,8 +347,6 @@ class YoloV2Q(nn.Module):
             self.route[head] = ("conv", None)
         self.folded = {idx + 1 for idx, (k, _) in self.route.items()
                        if k == "conv3_pool"}   # pools a conv computes
-        self.pools = sum(1 for l in spec.layers if isinstance(l, MaxPoolSpec)
-                         and l.size == 2 and l.stride == 2)
         self._needed = {s for l in spec.layers if isinstance(l, RouteSpec)
                         for s in l.layers}
         if region_idx is not None:

@@ -23,11 +23,14 @@ rank runs the same hand-written kernels as one card does, on its block:
   52, 26 and 13 rows, so the pool at layer 11), any other pool, the reorg,
   a route concat and the region layer; that is where the JAX package's
   ``_batch_only`` pins it. Under sp a conv that the tier fuses with the
-  pool after it (the int8 tier's fold) runs unfused, its pool as its own
-  op: a halo row would put the kernel's pool windows off by one.
+  pool after it (the int16 and int8 tiers' fold) runs unfused, its pool
+  as its own op: a halo row would put the kernel's pool windows off by
+  one.
 
 int32 sums are exact and the kernels deterministic, so every mesh gives
-the replicated run's head and detections bit for bit.
+the replicated run's head and detections bit for bit (under sp the int16
+tier's unfused pools too, since its fold's "acc" order is darknet's
+wherever acc + 2^(shift-1) does not wrap int32).
 """
 
 from __future__ import annotations

@@ -29,11 +29,10 @@ made under ``torch.profiler`` records its spans (``runtime.trace``).
 steps around the network (letterbox, region activation, box decode, NMS,
 region dumps) are the port's copies of the JAX package's numpy code.
 ``PredictResult``, ``maybe_dump_region``, ``load_or_synthesize`` and
-``_first_existing`` mirror ``yolotpu/runtime/engine.py``. The int16 tier
-runs the plan of its network on its device (``models.engine_plan.
-resolve_knobs``: the env lever, then the card's plan file, then the default
-rule), as ``yolotpu``'s ``params_q16`` loads the plan of its chip;
-``plan_source`` names the plan file the engine read, or is None.
+``_first_existing`` mirror ``yolotpu/runtime/engine.py``. Each conv runs
+the route ``models.engine_plan.kernels`` gives it from the graph and the
+tier, on any device; the int16 tier also takes the ``YOLO2_Q16_PLAN``
+lever.
 """
 
 from __future__ import annotations
@@ -303,7 +302,6 @@ class Engine:
         self._guard_lock = threading.Lock()
         self._cuda_index = None
         self._debug = None    # the "acts" model of predict_layers
-        self.plan_source = None   # the plan file of the int16 tier, if any
         if backend == "golden":
             self._golden = GoldenNet(spec)
             self.params = self.model = None
@@ -312,13 +310,7 @@ class Engine:
             self._cuda_index = (self.device.index if self.device.index
                                 is not None else torch.cuda.current_device())
         self.params = tier_params(spec, store, precision, self.device)
-        # the int16 tier's plan on this device, as yolotpu's params_q16
-        # resolves it for its chip
-        self._overrides = engine_plan.tier_overrides(spec, precision,
-                                                     self.device)
-        if precision == "int16":
-            self.plan_source = engine_plan.resolve_knobs(
-                spec, self.device)["source"]
+        self._overrides = engine_plan.tier_overrides(precision)
         self.model = YoloV2Q(spec, self.qtables, self.params, self.device,
                              precision, self._overrides,
                              ("head", "detections") if device_nms else ("head",),
@@ -526,15 +518,11 @@ class Engine:
         pageable memory always, through the stage only where it waits for
         an earlier copy), ``staged`` (the bytes through the graph's pinned
         stage) and ``chunks`` (the DMAs that copy them in; both 0 where the
-        frames do not pass the stage), ``pools_fused`` (the 2x2/s2 pools
-        the forward computes in a conv's epilogue) and ``pools`` (all the
-        network's 2x2/s2 pools), and under it ``engine.queue``,
+        frames do not pass the stage), and under it ``engine.queue``,
         ``engine.copy_in``, ``engine.launch``, ``engine.fetch`` and
         ``engine.resume``."""
         with trace.request("engine.request", frames=len(frames), syncs=0,
-                           staged=0, chunks=0,
-                           pools_fused=len(self.model.folded),
-                           pools=self.model.pools) as req:
+                           staged=0, chunks=0) as req:
             x = torch.from_numpy(np.ascontiguousarray(frames))
 
             def traced(v):

@@ -196,15 +196,14 @@ def _tier(spec: NetworkSpec, store, precision: str, compute: str,
 def _model(spec: NetworkSpec, tier: tuple, precision: str,
            device: torch.device, outputs: tuple[str, ...],
            full: NetworkSpec | None = None):
-    """The tier's YoloV2Q over ``spec``, under the engine's plan on
-    ``device`` (``engine_plan.tier_overrides``); a prefix of ``full`` takes
-    ``full``'s plan."""
+    """The tier's YoloV2Q over ``spec``, under the engine's overrides
+    (``engine_plan.tier_overrides``); a prefix of ``full`` takes ``full``'s
+    route, less a fold whose pool the prefix does not hold."""
     from ..models import engine_plan
     from ..models.yolov2 import YoloV2Q
     params, qtables = tier
     return YoloV2Q(spec, qtables, params, device, precision,
-                   engine_plan.tier_overrides(spec, precision, device, full),
-                   outputs)
+                   engine_plan.tier_overrides(precision), outputs, full=full)
 
 
 def _timing(l, ms: float, batch: int, precision: str,
